@@ -1,0 +1,79 @@
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled for
+``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the root of the
+checkout (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
+The hash is of the source and the flags, so an edited source is rebuilt
+and an unchanged one is built once. Nothing is built at import: only the
+first launch on a card (or ``build()``) compiles.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together, and return the library paths. The
+    compiler's report (registers, spills) is kept beside each library
+    as ``<lib>.log``. Raises if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for name, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        log = open(out.with_suffix(".log"), "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       tmp, log)
+    failed = []
+    for name, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} (exit {rc}, see {targets[name].with_suffix('.log')})")
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("nvcc failed: " + ", ".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
+    return _LOADED[name]

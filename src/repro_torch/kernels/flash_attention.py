@@ -1,0 +1,156 @@
+"""Wrappers of the CUDA attention kernels (``csrc/flash_attention.cu``).
+
+``flash_attention`` replaces the Pallas kernel of the same name in
+``repro/kernels/flash_attention.py`` (prefill), ``flash_decode`` replaces
+``flash_decode`` there (decode over the KV cache). Both keep the JAX
+signatures and layouts at their public functions. They take CUDA tensors
+only and launch the kernel or raise: the plain versions are in
+``ref.py``, and ``ops.py`` picks between the two by the tensor's device.
+
+``LAUNCHES`` counts the launches of each wrapper, so that a run can show
+that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict
+
+import torch
+
+from . import build
+
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
+MAX_GQA_GROUP = 8            # decode keeps g query heads in shared memory: <= 48 KB at d=128
+DECODE_BLOCK_K = 32          # keys per tile in the decode kernel (kDecBK)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P, I, I, I, I, I, P, F, I, I, P]
+    lib.flash_attention_fwd.restype = I
+    lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
+                                     I, I, I, I, I, I, P, F, P]
+    lib.flash_decode_fwd.restype = I
+    return lib
+
+
+def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got shape {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous")
+    if k.dtype != v.dtype:
+        raise ValueError("k and v must share one dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if h % k.shape[1]:
+        raise ValueError("GQA requires h % kvh == 0")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] -> [b, h, sq, d].
+
+    Any strides with a contiguous head dim; any sq and skv (ragged edges
+    are masked in the kernel). The window applies with the causal mask.
+    The result is a [b, h, sq, d] view of a [b, sq, h, d] buffer, so
+    the model's merge of the heads is free."""
+    _check_common(q, k, v)
+    if q.dtype != k.dtype:
+        raise ValueError("q, k and v must share one dtype")
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if causal and sq > skv:
+        raise ValueError("causal attention needs skv >= sq (every query row "
+                         "must see a key)")
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    with torch.cuda.device(q.device):
+        strides = (ctypes.c_longlong * 12)(
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
+            out.stride(2))
+        rc = _lib().flash_attention_fwd(
+            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, h, kvh, sq, skv, strides, 1.0 / math.sqrt(d),
+            int(causal), int(window), torch.cuda.current_stream().cuda_stream)
+    _check(rc, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def _decode_splits(b: int, kvh: int, S: int, device: torch.device) -> tuple:
+    """(split_len, n_splits): split the cache so that the grid holds about
+    two blocks per SM; each split is a whole number of key tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-S // DECODE_BLOCK_K)
+    n = max(1, min(-(-2 * sms // (b * kvh)), tiles))
+    split_len = -(-tiles // n) * DECODE_BLOCK_K
+    return split_len, -(-S // split_len)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token attention over a KV cache.
+
+    q: [b, h, 1, d]; k, v: [b, kvh, S, d] with any strides (the model
+    passes a permuted view of its [b, S, kvh, d] cache); lengths: int32
+    [b], each at least 1 (cache position t of row i is attended when
+    t < lengths[i]). The cache may be bf16 under an fp32 q (the model's
+    cache is always bf16). Returns [b, h, 1, d] in q's dtype."""
+    if (q.dtype, k.dtype) == (torch.bfloat16, torch.float32):
+        raise ValueError("an fp32 cache needs an fp32 q")
+    _check_common(q, k, v)
+    b, h, one, d = q.shape
+    kvh, S = k.shape[1], k.shape[2]
+    if one != 1:
+        raise ValueError(f"flash_decode takes one query per row, got {one}")
+    if h // kvh > MAX_GQA_GROUP:
+        raise ValueError(f"GQA group {h // kvh} > {MAX_GQA_GROUP}")
+    if lengths.dtype != torch.int32 or lengths.shape != (b,) or \
+            lengths.device != q.device or not lengths.is_contiguous():
+        raise ValueError("lengths must be a contiguous int32 [b] tensor on q's device")
+    split_len, n_splits = _decode_splits(b, kvh, S, q.device)
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    part_m = torch.empty((b * h * n_splits,), dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b * h * n_splits * d,), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        strides = (ctypes.c_longlong * 10)(
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1))
+        rc = _lib().flash_decode_fwd(
+            _DTYPES[q.dtype], _DTYPES[k.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), b, h, kvh, S, split_len, n_splits, strides,
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+    _check(rc, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out

@@ -1,0 +1,210 @@
+"""Model building blocks of the dense family: norms, RoPE, GQA attention,
+MLP, embedding and LM head. Plain functions on tensors.
+
+The port of ``repro/models/layers.py``. The JAX layers take a
+``ShardingCtx`` whose constraints are no-ops without a mesh; the port
+runs on one card and drops it. Attention goes through the port's
+kernels (``kernels/ops.py``): prefill through ``flash_attention``,
+cached decode through ``flash_decode``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ops import attention_op, decode_attention_op
+from .config import ArchConfig
+
+
+# ---------------------------------------------------------------------- #
+# param specs
+# ---------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class ParamSpec:
+    """Shape, init rule and dtype of one parameter (the JAX spec's logical
+    sharding axes are dropped: the port runs on one card)."""
+    shape: Tuple[int, ...]
+    init: str = "normal"                 # normal | zeros | small
+    dtype: str = "float32"
+
+    def std(self) -> float:
+        """The JAX init rule: N(0, 1/fan_in), fan_in = shape[-2] for
+        ndim >= 2 (so V for the [V, e] embedding); "small" is x0.1."""
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+        return scale * 0.1 if self.init == "small" else scale
+
+    def materialize_(self, out: torch.Tensor, generator: torch.Generator) -> None:
+        """Fill ``out`` (of this spec's shape) in place. The distribution is
+        JAX's; the values cannot be, since the generators differ."""
+        if self.init == "zeros":
+            out.zero_()
+        else:
+            out.normal_(0.0, self.std(), generator=generator)
+
+
+def stack_specs(specs: Dict, n: int) -> Dict:
+    """Prepend a stacked-layer axis to every ParamSpec in a tree."""
+    return {k: stack_specs(v, n) if isinstance(v, dict)
+            else ParamSpec((n,) + v.shape, v.init, v.dtype)
+            for k, v in specs.items()}
+
+
+# ---------------------------------------------------------------------- #
+# norms
+# ---------------------------------------------------------------------- #
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- #
+# rotary embeddings (RoPE; the M-RoPE branch comes with the vlm family)
+# ---------------------------------------------------------------------- #
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [b, s, h, d]; positions: [b, s]. Half-split rotation."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                   # [d/2]
+    angles = positions.float()[..., None] * freqs            # [b, s, d/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- #
+# attention (GQA, causal, optional sliding window)
+# ---------------------------------------------------------------------- #
+def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    e, h, kvh, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": ParamSpec((e, h * d)),
+        "wk": ParamSpec((e, kvh * d)),
+        "wv": ParamSpec((e, kvh * d)),
+        "wo": ParamSpec((h * d, e)),
+        "norm": ParamSpec((e,), init="zeros"),
+    }
+
+
+def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
+              positions: torch.Tensor,
+              cache: Optional[Dict] = None,
+              cache_index: Optional[int] = None,
+              window: int = 0,
+              want_cache: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """GQA attention.
+
+    Prefill: ``x`` is [b, s, e], cache is None; with ``want_cache`` the
+    fresh k/v [b, s, kvh, d] come back as the cache.
+    Decode: ``x`` is [b, 1, e]; ``cache`` holds this layer's k/v
+    [b, S, kvh, d] (bf16), which the new k/v are written into IN PLACE
+    at ``cache_index``. Row i attends cache positions <= positions[i, 0].
+    """
+    b, s, e = x.shape
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window = window or cfg.sliding_window
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    cdt = xn.dtype
+
+    q = (xn @ p["wq"].to(cdt)).view(b, s, h, d)
+    k = (xn @ p["wk"].to(cdt)).view(b, s, kvh, d)
+    v = (xn @ p["wv"].to(cdt)).view(b, s, kvh, d)
+    if cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE lands with the vlm family")
+    if cfg.rope != "none":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"decode takes one token per row, got {s}")
+        if window:
+            raise NotImplementedError("sliding-window decode")
+        ck, cv = cache["k"], cache["v"]
+        # the cache keeps its dtype (bf16): new k/v are rounded to it
+        ck[:, cache_index:cache_index + 1] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + 1] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        lengths = (positions[:, 0] + 1).to(torch.int32)
+        # the kernel reads the [b, S, kvh, d] cache in place through a
+        # [b, kvh, S, d] view, and attends it in fp32
+        o = decode_attention_op(q.permute(0, 2, 1, 3), ck.permute(0, 2, 1, 3),
+                                cv.permute(0, 2, 1, 3), lengths)
+    else:
+        if want_cache:
+            new_cache = {"k": k, "v": v}
+        o = attention_op(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                         v.permute(0, 2, 1, 3), causal=True, window=window)
+    o = o.permute(0, 2, 1, 3).reshape(b, s, h * d)
+    return o @ p["wo"].to(cdt), new_cache
+
+
+# ---------------------------------------------------------------------- #
+# MLPs
+# ---------------------------------------------------------------------- #
+def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+    e, f = cfg.d_model, (d_ff or cfg.d_ff)
+    specs = {
+        "w_up": ParamSpec((e, f)),
+        "w_down": ParamSpec((f, e)),
+        "norm": ParamSpec((e,), init="zeros"),
+    }
+    if cfg.mlp_act == "swiglu":
+        specs["w_gate"] = ParamSpec((e, f))
+    return specs
+
+
+def mlp(x: torch.Tensor, p: Dict, cfg: ArchConfig, normed: bool = False) -> torch.Tensor:
+    cdt = x.dtype
+    xn = x if normed else rmsnorm(x, p["norm"], cfg.norm_eps)
+    up = xn @ p["w_up"].to(cdt)
+    if cfg.mlp_act == "swiglu":
+        hmid = F.silu(xn @ p["w_gate"].to(cdt)) * up
+    elif cfg.mlp_act == "relu2":
+        r = F.relu(up)
+        hmid = r * r
+    else:
+        # jax.nn.gelu is the tanh form; torch's default is erf. The gelu
+        # families (musicgen, zamba2) need F.gelu(up, approximate="tanh").
+        raise NotImplementedError("gelu MLP lands with the audio/hybrid families")
+    return hmid @ p["w_down"].to(cdt)
+
+
+# ---------------------------------------------------------------------- #
+# embeddings / head
+# ---------------------------------------------------------------------- #
+def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    v, e = cfg.vocab, cfg.d_model
+    specs = {
+        "embedding": ParamSpec((v, e), init="small"),
+        "final_norm": ParamSpec((e,), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((e, v), init="small")
+    return specs
+
+
+def embed_tokens(tokens: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
+    return p["embedding"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def lm_logits(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """The LM head runs in fp32 (as JAX does without ``cast_params_once``).
+    On a card this needs ``torch.backends.cuda.matmul.allow_tf32 = False``,
+    which the entry points set."""
+    if cfg.cast_params_once or cfg.seq_sharded_loss:
+        raise NotImplementedError("bf16-input LM head variants")
+    xn = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    return xn.float() @ head.float()

@@ -1,0 +1,60 @@
+"""The port stands alone: nothing in ``src/repro_torch`` or
+``chip_smoke.py`` imports JAX or the JAX package."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _top_level_imports(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "import_module":
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant):
+                names.add(arg.value.split(".")[0])
+            elif isinstance(arg, ast.JoinedStr) and isinstance(arg.values[0], ast.Constant):
+                names.add(arg.values[0].value.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    assert path.exists()
+    assert not _top_level_imports(path) & FORBIDDEN
+
+
+def test_import_and_prefill_with_jax_blocked():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import make_model
+        model = make_model(get_config("llama3.2-3b").reduced(), device="cpu")
+        model.init_params(torch.Generator().manual_seed(0))
+        logits, cache = model.prefill_step(torch.zeros(2, 8, dtype=torch.long))
+        assert logits.shape == (2, 1, 256) and torch.isfinite(logits).all()
+        assert not any(m.split(".")[0] in ("jax", "repro") and sys.modules[m] is not None
+                       for m in sys.modules)
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

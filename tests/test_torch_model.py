@@ -1,0 +1,129 @@
+"""The port's model against ``repro.models.model`` at the reduced llama3.2-3b
+config (fp32), on JAX's weights copied through ``params_from_jax``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jax_get_config
+from repro.models.config import ShapeConfig as JaxShapeConfig
+from repro.models.model import make_model as jax_make_model
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_jax
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.model import make_model
+
+ARCH = "llama3.2-3b"
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = jax_get_config(ARCH).reduced()
+    jmodel = jax_make_model(jcfg)
+    jparams = jmodel.init_params(jax.random.key(0))
+    model = make_model(get_config(ARCH).reduced(), device="cpu")
+    model.load_params(params_from_jax(jax.device_get(jparams)))
+    return jmodel, jparams, model
+
+
+def _tokens(b, s, vocab, seed=1):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def _close(ours, ref, atol):
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
+                               atol=atol, rtol=atol)
+
+
+def test_params_from_jax_round_trips_every_leaf(pair):
+    jmodel, jparams, model = pair
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    jax_leaves = {".".join(p.key for p in path): np.asarray(v) for path, v in flat}
+    state = model.state_dict()
+    assert list(jax_leaves) == list(model.param_specs())
+    assert sorted(state) == sorted(jax_leaves)
+    for name, want in jax_leaves.items():
+        got = state[name]
+        assert tuple(got.shape) == want.shape and str(got.dtype) == f"torch.{want.dtype}"
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_params_from_jax_keeps_bf16():
+    a = jnp.arange(6, dtype=jnp.float32).reshape(2, 3).astype(jnp.bfloat16) / 7
+    got = params_from_jax({"w": jax.device_get(a)})["w"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(a, np.float32))
+
+
+def test_init_rule_matches_jax_distribution():
+    """fan_in = shape[-2] (V for the embedding), x0.1 for "small", zeros
+    for norms; drawn from the torch generator."""
+    model = make_model(get_config(ARCH).reduced(), device="cpu")
+    model.init_params(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    for name, spec in model.param_specs().items():
+        w = state[name]
+        if spec.init == "zeros":
+            assert not w.any(), name
+            continue
+        fan_in = spec.shape[-2]
+        want = (0.1 if spec.init == "small" else 1.0) / np.sqrt(fan_in)
+        assert abs(w.std().item() / want - 1) < 0.1, name
+        assert abs(w.mean().item()) < 0.1 * want, name
+
+
+def test_prefill_matches_jax(pair):
+    jmodel, jparams, model = pair
+    toks = _tokens(2, 16, model.cfg.vocab)
+    jlog, jcache = jax.jit(jmodel.prefill_step)(jparams, {"tokens": jnp.asarray(toks)})
+    log, cache = model.prefill_step(torch.from_numpy(toks).long())
+    assert log.shape == (2, 1, model.cfg.vocab)
+    _close(log, jlog, 1e-4)
+    for name in ("k", "v"):
+        assert cache[name].shape == jcache[name].shape
+        _close(cache[name], jcache[name], 1e-4)
+
+
+def test_serve_step_matches_jax(pair):
+    """Prefill spliced into bf16 max_len buffers, then one decode step."""
+    jmodel, jparams, model = pair
+    b, s, S = 2, 12, 20
+    toks = _tokens(b, s + 1, model.cfg.vocab, seed=2)
+    shape = ShapeConfig("serve", S, b, "decode")
+    _, jpc = jax.jit(jmodel.prefill_step)(jparams, {"tokens": jnp.asarray(toks[:, :s])})
+    jcache = {k: jnp.zeros_like(v).at[:, :, :s].set(jpc[k].astype(v.dtype))
+              for k, v in jmodel.init_cache(JaxShapeConfig("serve", S, b, "decode")).items()}
+    jlog, jnew = jax.jit(jmodel.serve_step)(jparams, jcache,
+                                            {"tokens": jnp.asarray(toks[:, s:])},
+                                            jnp.int32(s))
+    _, pc = model.prefill_step(torch.from_numpy(toks[:, :s]).long())
+    cache = model.init_cache(shape)
+    assert all(c.dtype == torch.bfloat16 for c in cache.values())
+    for k in cache:
+        cache[k][:, :, :s].copy_(pc[k])
+    log, new = model.serve_step(cache, torch.from_numpy(toks[:, s:]).long(), s)
+    assert new["k"] is cache["k"]
+    _close(log, jlog, 1e-4)
+    for k in ("k", "v"):
+        _close(new[k], jnew[k].astype(jnp.float32), 2e-2)   # bf16 entries
+
+
+def test_decode_consistent_with_forward(pair):
+    """The port's twin of tests/test_models_smoke.py: prefill(s tokens) +
+    decode(token s) equals a full forward over s+1 tokens at the last
+    position (fp32 cache grown by one slot, atol 2e-3)."""
+    _, _, model = pair
+    s = 16
+    toks = torch.from_numpy(_tokens(2, s + 1, model.cfg.vocab, seed=3)).long()
+    full = model.forward_logits(toks)
+    _, cache = model.prefill_step(toks[:, :s])
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1)) for k, v in cache.items()}
+    log, _ = model.serve_step(cache, toks[:, s:], s)
+    np.testing.assert_allclose(log[:, 0].numpy(), full[:, -1].numpy(), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen3-moe-30b-a3b", "musicgen-medium"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError):
+        make_model(get_config(arch).reduced(), device="cpu")
