@@ -17,6 +17,19 @@ Phases, each printing JSON lines:
    forward over s+1 tokens, at full width in bf16.
 5. profile: device time by kernel and the device's idle share for one
    prefill and a few decode steps at the serving shape.
+6. schedule_kernels: the feasibility kernel against its plain version,
+   bit-exact (the seeds of tests/test_kernels.py, mask bits above 31, a
+   strided aggregate table, a cluster the size of LLNL's Quartz), and the
+   per-level aggregate sweep on the card against the same call on the
+   CPU, at Quartz size; the kernel's, the plain version's and the sweep's
+   device times beside the kernel's bound, and the time per call as the
+   host launches them.
+7. schedule: the scheduler slice's main path at Quartz size (3,018
+   nodes of 2 sockets x 18 cores, 117,703 vertices): 512 jobs of a
+   4,096-deep backlog matched and allocated in order, a kick every 64
+   jobs (release the oldest 32, one ``feasible_roots_batch`` over the
+   rest of the window), a 64-node grow and its shrink midway, all
+   replayed in lockstep on a twin graph on the CPU that must agree.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -28,9 +41,12 @@ from __future__ import annotations
 
 import json
 import math
+import random
+import statistics
 import subprocess
 import sys
 import time
+from collections import deque
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,6 +61,15 @@ FP32_FLOPS = 67e12               # fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 ARCH = "llama3.2-3b"
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+# LLNL Quartz, a production system that Fluxion schedules: 3,018 nodes of
+# two 18-core Xeon E5-2695 v4 sockets
+QUARTZ = dict(nodes=3018, sockets_per_node=2, cores_per_socket=18)
+QUARTZ_VERTICES = 117_703      # 1 + 3018 * (1 + 2 * (1 + 18)): cluster, nodes, sockets, cores
+BACKLOG, JOBS, KICK, RELEASE = 4096, 512, 64, 32     # window depth, jobs run, per kick
+GROW_AT, SHRINK_AT, GROW_NODES = 256, 320, 64
+# distinct compiled request shapes in that backlog: the two-node job
+# compiles to the per-node shape of the one-node 2-socket x 16-core job
+BACKLOG_SHAPES = 6
 
 
 def emit(phase: str, **kv) -> None:
@@ -69,6 +94,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 100) -> float:
+    """Device time per call of ``fn``: the self device time of every kernel
+    and copy it launches, summed under torch.profiler over ``iters``
+    calls. For a call of a few microseconds, CUDA events around a loop
+    (``time_ms``) time the host's launch rate instead: the device waits
+    between launches while the wrapper checks its arguments."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    _, rows, _ = profiled(lambda: [fn() for _ in range(iters)])
+    return sum(r[0] for r in rows) / iters
 
 
 def nvidia_smi() -> str:
@@ -256,13 +294,37 @@ def phase_consistency(dev):
 # ---------------------------------------------------------------------- #
 # phase 5: where the time of the serving shape goes (torch.profiler)
 # ---------------------------------------------------------------------- #
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler. Returns the host wall ms (to a
+    synchronize) and the device rows and host rows as (ms, calls, name),
+    largest first: kernels and copies by self device time, host ops by
+    self CPU time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_rows, host_rows = [], []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = evt.self_cuda_time_total
+            dev_rows.append((dev_us / 1e3, evt.count, evt.key[:60]))
+        else:
+            host_rows.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key[:60]))
+    return wall_ms, sorted(dev_rows, reverse=True), sorted(host_rows, reverse=True)
+
+
 def phase_profile(dev, model, steps: int = 4) -> None:
     """Device time by kernel and the device's idle share, for one prefill
     and a few decode steps at the serving shape (launch counts are read
     before this phase)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.config import ShapeConfig
 
@@ -286,25 +348,312 @@ def phase_profile(dev, model, steps: int = 4) -> None:
     tok = prefill()
     torch.cuda.synchronize()
     for name, fn in (("prefill", prefill), ("decode", lambda: decode(tok))):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        rows = []
-        for evt in prof.key_averages():
-            if evt.device_type != DeviceType.CUDA:       # kernels and copies only
-                continue
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = evt.self_cuda_time_total
-            rows.append((dev_us / 1e3, evt.count, evt.key[:60]))
-        rows.sort(reverse=True)
+        wall_ms, rows, _ = profiled(fn)
         busy_ms = sum(r[0] for r in rows)
         emit("profile", part=name, batch=b, prompt_len=s,
              decode_steps=steps if name == "decode" else 0, wall_ms=wall_ms,
              device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
              top=[{"op": k, "ms": ms, "calls": n} for ms, n, k in rows[:12]])
+
+
+# ---------------------------------------------------------------------- #
+# phase 6: the scheduler slice's kernel and sweep against their plain versions
+# ---------------------------------------------------------------------- #
+def feasibility_case(seed, n_req, n_vert, n_types=5, extra_bits=()):
+    """Random request/vertex tables in the draw order of the
+    ``_feasibility_case`` of tests/test_kernels.py (every clause: type
+    mismatch, busy vertices, size floors, property bits on both sides of
+    bit 31, per-type aggregates), plus a random bit at each of
+    ``extra_bits`` in both property masks."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    vtype = rng.integers(0, n_types, n_vert, dtype=np.int32)
+    vok = rng.integers(0, 2, n_vert, dtype=np.int32).astype(np.uint8)
+    vsize = rng.integers(1, 64, n_vert, dtype=np.int32)
+    vmask = (rng.integers(0, 2, n_vert, dtype=np.int64) << 40
+             | rng.integers(0, 8, n_vert, dtype=np.int64))
+    agg = rng.integers(0, 16, (n_vert, n_types), dtype=np.int32)
+    tid = rng.integers(0, n_types, n_req, dtype=np.int32)
+    msize = rng.integers(1, 48, n_req, dtype=np.int32)
+    rmask = (rng.integers(0, 2, n_req, dtype=np.int64) << 40
+             | rng.integers(0, 4, n_req, dtype=np.int64))
+    need = rng.integers(0, 12, (n_req, n_types), dtype=np.int32)
+    for bit in extra_bits:
+        vmask |= rng.integers(0, 2, n_vert, dtype=np.int64) << bit
+        rmask |= rng.integers(0, 2, n_req, dtype=np.int64) << bit
+    return [vtype, vok, vsize, vmask, agg, tid, msize, rmask, need]
+
+
+def quartz_tree():
+    """Parent column, levels and type ids of ``build_cluster(**QUARTZ)``,
+    in its vertex order, made with numpy (no dict graph)."""
+    import numpy as np
+    nodes, spn, cps = QUARTZ["nodes"], QUARTZ["sockets_per_node"], QUARTZ["cores_per_socket"]
+    per_node = 1 + spn * (1 + cps)
+    node = 1 + per_node * np.arange(nodes)
+    sock = (node[:, None] + 1 + (1 + cps) * np.arange(spn)[None, :]).ravel()
+    core = (sock[:, None] + 1 + np.arange(cps)[None, :]).ravel()
+    parent = np.full(QUARTZ_VERTICES, -1, np.int32)
+    parent[node] = 0
+    parent[sock] = np.repeat(node, spn)
+    parent[core] = np.repeat(sock, cps)
+    type_id = np.zeros(QUARTZ_VERTICES, np.int32)
+    type_id[node], type_id[sock], type_id[core] = 1, 2, 3
+    levels = [np.zeros(1, np.int64), node, sock, core]
+    return parent, levels, type_id
+
+
+def phase_schedule_kernels(dev) -> dict:
+    """The feasibility kernel against ``ref_feasible`` (bit-exact) and the
+    aggregate sweep on the card against the CPU, then their times at
+    Quartz size."""
+    import numpy as np
+    import torch
+    from repro_torch.core.flatgraph import aggregate_sweep
+    from repro_torch.kernels.feasibility import feasible_mask
+    from repro_torch.kernels.ref import ref_feasible
+
+    cases = [  # name, seed, n_req, n_vert, n_types, extra mask bits, agg row width
+        ("seed0", 0, 11, 300, 5, (), 5), ("seed1", 1, 8, 256, 5, (), 5),
+        ("seed2", 2, 1, 33, 5, (), 5), ("seed3", 3, 40, 1024, 5, (), 5),
+        ("seed4", 4, 13, 97, 5, (), 5), ("bit61", 5, 9, 200, 5, (61,), 5),
+        ("strided", 6, 7, 4096, 5, (), 9),
+        # the main path's shape: the backlog's distinct request shapes
+        # against 4 resource types (cluster, node, socket, core)
+        ("quartz", 7, BACKLOG_SHAPES, QUARTZ_VERTICES, 4, (), 4),
+    ]
+    for name, seed, n_req, n_vert, n_types, bits, width in cases:
+        args = [torch.from_numpy(a).to(dev)
+                for a in feasibility_case(seed, n_req, n_vert, n_types, bits)]
+        if width != n_types:        # agg as the [:, :T] view of a wider table
+            wide = torch.zeros((n_vert, width), dtype=torch.int32, device=dev)
+            wide[:, :n_types] = args[4]
+            args[4] = wide[:, :n_types]
+        out = feasible_mask(*args)
+        torch.cuda.synchronize()
+        ref = ref_feasible(*args)
+        mismatches = int((out != ref).sum().item())
+        emit("schedule_kernels", kernel="feasibility", case=name, shape=[n_req, n_vert, n_types],
+             agg_row_stride=args[4].stride(0), feasible=int(ref.sum().item()),
+             mismatches=mismatches, tol=0)
+        check(mismatches == 0 and out.shape == ref.shape,
+              f"feasibility {name}: {mismatches} elements differ from ref_feasible")
+
+    # times at Quartz size; 16 copies of the inputs (16 x 4.6 MB > the
+    # 50 MB L2), rotated, so that each launch reads from device memory
+    # as a launch after a fresh host-to-device copy of the columns would
+    U, V, T = BACKLOG_SHAPES, QUARTZ_VERTICES, 4
+    copies = [[torch.from_numpy(a).to(dev) for a in feasibility_case(8 + i, U, V, T)]
+              for i in range(16)]
+    it = iter(range(1 << 30))
+    ms = device_ms(lambda: feasible_mask(*copies[next(it) % 16]), iters=160)
+    plain_ms = device_ms(lambda: ref_feasible(*copies[next(it) % 16]), iters=32)
+    call_ms = time_ms(lambda: feasible_mask(*copies[next(it) % 16]), iters=160, warmup=16)
+    nbytes = V * (4 + 1 + 4 + 8 + 4 * T) + U * (4 + 4 + 8 + 4 * T) + U * V
+    ops = U * V * (5 + T)           # integer compares and ands per (row, vertex)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    feas = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit("schedule_kernels", kernel="feasibility", case="quartz", shape=[U, V, T], ms=ms,
+         plain_ms=plain_ms, library_ms=None, bound_ms=feas["bound_ms"],
+         bound_by=feas["bound_by"], gbps=nbytes / ms / 1e6, bytes=nbytes,
+         call_ms=call_ms)
+
+    # the per-level sweep: the Quartz tree with a random free set
+    parent, levels, type_id = quartz_tree()
+    free = np.random.default_rng(9).random(V) < 0.7
+    own = np.zeros((V, T), np.int32)
+    own[np.nonzero(free)[0], type_id[free]] = 1
+    on_card = aggregate_sweep(own, parent, levels, dev).cpu().numpy()
+    on_host = aggregate_sweep(own, parent, levels, "cpu").numpy()
+    check(np.array_equal(on_card, on_host), "aggregate_sweep: card and CPU differ")
+    check(np.array_equal(on_host[0], own.sum(0)), "aggregate_sweep: root != column sums")
+    own_d = torch.from_numpy(own).to(dev)
+    parent_d = torch.from_numpy(parent).to(dev)
+    levels_d = [torch.from_numpy(lv).to(dev) for lv in levels]
+    sweep_ms = device_ms(lambda: aggregate_sweep(own_d, parent_d, levels_d, dev))
+    sweep_call_ms = time_ms(lambda: aggregate_sweep(own_d, parent_d, levels_d, dev), iters=100)
+    emit("schedule_kernels", kernel="aggregate_sweep", case="quartz", shape=[V, T],
+         levels=len(levels), exact=True, ms=sweep_ms, call_ms=sweep_call_ms)
+    return {"feasibility": feas, "sweep_ms": sweep_ms}
+
+
+# ---------------------------------------------------------------------- #
+# phase 7: the scheduler slice's main path at Quartz size
+# ---------------------------------------------------------------------- #
+def make_backlog(n: int, seed: int = 0) -> list:
+    """The backlog of ``benchmarks/batch_prefilter.py::make_requests``
+    (same draws): 15% two-node jobs, the rest one node of 1 or 2 sockets
+    with 4, 8 or 16 cores each; a fresh Jobspec per job."""
+    from repro_torch.core import Jobspec
+    rng = random.Random(seed)
+    jobs = []
+    for _ in range(n):
+        if rng.random() < 0.15:
+            jobs.append(Jobspec.hpc(nodes=2, sockets=4, cores=64))
+        else:
+            sockets = rng.choice([1, 2])
+            jobs.append(Jobspec.hpc(nodes=1, sockets=sockets,
+                                    cores=sockets * rng.choice([4, 8, 16])))
+    return jobs
+
+
+def host_ms_by_function(fn, names: dict) -> dict:
+    """One call of ``fn`` under cProfile: for each function name, its
+    own time ("own") or its time with its callees ("cum"), in ms."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    out = {}
+    for (_, _, func), (_, _, own, cum, _) in pstats.Stats(prof).stats.items():
+        if func in names:
+            out[func] = out.get(func, 0.0) + 1e3 * (own if names[func] == "own" else cum)
+    return out
+
+
+class ScheduleRun:
+    """One graph at Quartz size and the scheduler's operations on it,
+    timed on the host clock (each ends in a copy to the host)."""
+
+    def __init__(self, device):
+        from repro_torch.core import Matcher, build_cluster
+        t0 = time.perf_counter()
+        self.g = build_cluster(**QUARTZ, device=device)
+        self.flat = self.g.flat()
+        self.build_s = time.perf_counter() - t0
+        self.matcher = Matcher(self.g, use_flat=True)
+        self.running = deque()
+        self.match_ms, self.frb_ms = [], []
+
+    def match(self, js, jobid):
+        t0 = time.perf_counter()
+        paths = self.matcher.match(js)
+        self.match_ms.append(1e3 * (time.perf_counter() - t0))
+        if paths is not None:
+            self.g.set_allocated(paths, jobid)
+            self.running.append((jobid, paths))
+        return paths
+
+    def kick(self, window):
+        for _ in range(RELEASE):
+            jobid, paths = self.running.popleft()
+            self.g.set_free(paths, jobid)
+        t0 = time.perf_counter()
+        mask = self.flat.feasible_roots_batch(window)
+        self.frb_ms.append(1e3 * (time.perf_counter() - t0))
+        return mask
+
+    def grow(self):
+        """Splice GROW_NODES nodes under /cluster0, allocated to the
+        growing job (MATCHGROW), and settle the mirror (a device sweep)."""
+        from repro_torch.core import add_subgraph, build_cluster, update_metadata
+        ext = build_cluster(**{**QUARTZ, "nodes": GROW_NODES}, node_prefix="grow",
+                            rank_offset=QUARTZ["nodes"], device=self.g.device)
+        sub = ext.extract([p for p in ext.paths() if "/grow" in p])
+        t0 = time.perf_counter()
+        self.grown = add_subgraph(self.g, sub)
+        update_metadata(self.g, self.grown, jobid="grow")
+        self.flat.sync()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def shrink(self):
+        from repro_torch.core import remove_subgraph
+        t0 = time.perf_counter()
+        removed = remove_subgraph(self.g, self.grown.new_paths, jobid="grow")
+        self.flat.sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(removed.removed_vertices == len(self.grown.new_paths), "shrink count")
+        return ms
+
+
+def phase_schedule(dev, sweep_ms: float) -> int:
+    """Returns the feasibility kernel's launches in the main path."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    backlog = make_backlog(BACKLOG, seed=0)
+    reqs = [r for js in backlog for r in js.resources]
+    card, host = ScheduleRun(dev), ScheduleRun("cpu")
+    sides = (card, host)
+    for s in sides:
+        check(len(s.g) == QUARTZ_VERTICES and s.flat.n == QUARTZ_VERTICES,
+              f"{len(s.g)} vertices, expected {QUARTZ_VERTICES}")
+    torch.cuda.synchronize()
+    reset_launches()
+    calls, grow_ms, shrink_ms, windows = 0, [], [], []
+    for k, js in enumerate(backlog[:JOBS]):
+        if k == GROW_AT:
+            grow_ms = [s.grow() for s in sides]
+            check(all(s.flat.verify_against(s.g) for s in sides), "mirror after the grow")
+        if k == SHRINK_AT:
+            shrink_ms = [s.shrink() for s in sides]
+            check(all(s.flat.verify_against(s.g) for s in sides), "mirror after the shrink")
+        got = [s.match(js, f"job{k}") for s in sides]
+        check(got[0] is not None, f"job {k} did not match")
+        check(got[0] == got[1], f"job {k}: the card's match differs from the CPU twin's")
+        if (k + 1) % KICK == 0:
+            window = reqs[k + 1:]
+            masks = [s.kick(window) for s in sides]
+            calls += 1
+            windows.append(len(window))
+            check(np.array_equal(masks[0], masks[1]), f"kick {calls}: masks differ")
+    torch.cuda.synchronize()
+    launches = LAUNCHES["feasibility"]
+    for s in sides:
+        check(s.flat.verify_against(s.g), "mirror at the end")
+    check(card.g.validate_tree(), "tree invariant at the end")
+    n, T = card.flat.n, len(card.flat.types)
+    check(n == host.flat.n and np.array_equal(card.flat.agg[:n, :T], host.flat.agg[:n, :T]),
+          "final aggregate tables differ")
+    check(card.flat.n_agg_sweeps == host.flat.n_agg_sweeps == 3,
+          f"{card.flat.n_agg_sweeps} sweeps: expected build, grow and shrink")
+    check(launches == calls, f"feasibility launches {launches} != {calls} calls")
+    unique = len({(c.tid, c.min_size, c.req_mask, tuple(c.agg_need))
+                  for c in map(card.flat.compiled, reqs[JOBS:])})
+    check(unique == BACKLOG_SHAPES, f"{unique} distinct request shapes in the window")
+
+    # where the time of one feasible_roots_batch and one match goes
+    window = reqs[JOBS:]
+    frb_wall, frb_dev, frb_host = profiled(lambda: card.flat.feasible_roots_batch(window))
+    match_wall, match_dev, _ = profiled(lambda: card.matcher.match(backlog[JOBS]))
+    kernel_ms = sum(ms for ms, _, k in frb_dev if "feasible" in k)
+    copy_ms = sum(ms for ms, _, k in frb_dev if "Memcpy" in k or "memcpy" in k)
+    host_split = host_ms_by_function(
+        lambda: card.flat.feasible_roots_batch(window),
+        {"feasible_roots_batch": "own", "compiled": "cum", "col": "cum",
+         "batched_feasible_op": "cum"})
+
+    def p99(xs):
+        return sorted(xs)[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+    emit("schedule", vertices=len(card.g), jobs=JOBS,
+         backlog=BACKLOG, kicks=calls, window_rows=windows, unique_shapes=unique,
+         build_s=card.build_s, build_s_cpu_twin=host.build_s,
+         match_ms_median=statistics.median(card.match_ms), match_ms_p99=p99(card.match_ms),
+         match_ms_median_cpu_twin=statistics.median(host.match_ms),
+         feasible_roots_batch_ms=card.frb_ms,
+         feasible_roots_batch_ms_median=statistics.median(card.frb_ms),
+         feasibility_kernel_ms=kernel_ms,
+         feasible_roots_batch_ms_median_cpu_twin=statistics.median(host.frb_ms),
+         sweep_ms=sweep_ms, grow_ms=grow_ms[0], shrink_ms=shrink_ms[0],
+         grow_ms_cpu_twin=grow_ms[1], shrink_ms_cpu_twin=shrink_ms[1],
+         launches={"feasibility": launches}, twin_identical=True, verify_against=True)
+    emit("profile", part="feasible_roots_batch", window_rows=len(window), wall_ms=frb_wall,
+         kernel_ms=kernel_ms, copy_ms=copy_ms, host_ms_by_function=host_split,
+         device_busy_ms=sum(r[0] for r in frb_dev),
+         idle_share=max(0.0, 1 - sum(r[0] for r in frb_dev) / frb_wall),
+         top=[{"op": k, "ms": ms, "calls": c} for ms, c, k in frb_dev[:6]],
+         host_top=[{"op": k, "ms": ms, "calls": c} for ms, c, k in frb_host[:6]])
+    emit("profile", part="match", wall_ms=match_wall,
+         device_busy_ms=sum(r[0] for r in match_dev),
+         idle_share=max(0.0, 1 - sum(r[0] for r in match_dev) / match_wall),
+         top=[{"op": k, "ms": ms, "calls": c} for ms, c, k in match_dev[:6]])
+    return launches
 
 
 def main() -> int:
@@ -326,7 +675,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention"])
+    libs = build.build(["flash_attention", "feasibility"])
     build_s = time.perf_counter() - t0
     for path in libs.values():
         log = path.with_suffix(".log")
@@ -341,13 +690,19 @@ def main() -> int:
     model = phase_consistency(dev)
     phase_profile(dev, model)
     del model
+    torch.cuda.empty_cache()
+    sched = phase_schedule_kernels(dev)
+    timed["feasibility"] = sched["feasibility"]
+    launches["feasibility"] = phase_schedule(dev, sched["sweep_ms"])
 
-    source = "src/repro_torch/kernels/csrc/flash_attention.cu"
-    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
-                "flash_decode": "src/repro/kernels/flash_attention.py:179"}
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
+            "flash_decode": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:179"),
+            "feasibility": ("feasibility.cu", "src/repro/kernels/feasibility.py:93")}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-         "launches": launches[name], **timed[name]} for name in replaces]}), flush=True)
+        {"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+         "launches": launches[name], **timed[name]}
+        for name, (src, replaces) in rows.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

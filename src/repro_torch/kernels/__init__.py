@@ -1,2 +1,2 @@
-from .flash_attention import LAUNCHES, reset_launches
-from .ops import attention_op, decode_attention_op
+from .build import LAUNCHES, reset_launches
+from .ops import attention_op, batched_feasible_op, decode_attention_op

@@ -6,6 +6,9 @@ checkout (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
 The hash is of the source and the flags, so an edited source is rebuilt
 and an unchanged one is built once. Nothing is built at import: only the
 first launch on a card (or ``build()``) compiles.
+
+``LAUNCHES`` counts the launches of each kernel's wrapper, so that a run
+can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -23,6 +26,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0, "feasibility": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

@@ -6,32 +6,23 @@
 signatures and layouts at their public functions. They take CUDA tensors
 only and launch the kernel or raise: the plain versions are in
 ``ref.py``, and ``ops.py`` picks between the two by the tensor's device.
-
-``LAUNCHES`` counts the launches of each wrapper, so that a run can show
-that its main path went through the kernels.
+Each launch adds one to its count in ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Dict
 
 import torch
 
 from . import build
+from .build import LAUNCHES
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GQA_GROUP = 8            # decode keeps g query heads in shared memory: <= 48 KB at d=128
 DECODE_BLOCK_K = 32          # keys per tile in the decode kernel (kDecBK)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 @functools.lru_cache(maxsize=None)

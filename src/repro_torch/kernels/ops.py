@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from .feasibility import feasible_mask
 from .flash_attention import flash_attention, flash_decode
-from .ref import ref_attention, ref_decode
+from .ref import ref_attention, ref_decode, ref_feasible
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -17,7 +18,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no attention path for device {t.device}")
+    raise ValueError(f"no kernel path for device {t.device}")
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,3 +35,14 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cuda(q):
         return flash_decode(q, k, v, lengths)
     return ref_decode(q, k, v, lengths)
+
+
+def batched_feasible_op(vtype: torch.Tensor, vok: torch.Tensor, vsize: torch.Tensor,
+                        vmask: torch.Tensor, agg: torch.Tensor, tid: torch.Tensor,
+                        msize: torch.Tensor, rmask: torch.Tensor,
+                        need: torch.Tensor) -> torch.Tensor:
+    """[U, V] uint8 root-feasibility mask; the ``feasible_mask`` contract."""
+    args = (vtype, vok, vsize, vmask, agg, tid, msize, rmask, need)
+    if _on_cuda(vtype):
+        return feasible_mask(*args)
+    return ref_feasible(*args)

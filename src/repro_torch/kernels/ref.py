@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Deliberately naive (no tiling, no online softmax): the CPU runs these in
 place of the CUDA kernels, and ``chip_smoke.py`` holds each kernel
-against them on the card. Softmax is in fp32; masked scores are -1e30,
-as in ``repro/kernels/ref.py`` and the Pallas kernels.
+against them on the card. In attention, softmax is in fp32 and masked
+scores are -1e30, as in ``repro/kernels/ref.py`` and the Pallas kernels.
 """
 from __future__ import annotations
 
@@ -58,3 +58,21 @@ def ref_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
     return o.reshape(b, h, 1, d).to(q.dtype)
+
+
+def ref_feasible(vtype: torch.Tensor, vok: torch.Tensor, vsize: torch.Tensor,
+                 vmask: torch.Tensor, agg: torch.Tensor, tid: torch.Tensor,
+                 msize: torch.Tensor, rmask: torch.Tensor,
+                 need: torch.Tensor) -> torch.Tensor:
+    """The ``feasible_mask`` contract (``kernels/feasibility.py``) as the
+    broadcast expression of ``_ref_batched_feasible`` in
+    ``repro/kernels/feasibility.py``, with the property masks in int64
+    rather than split into int31 halves. Vertex columns [V], ``agg``
+    [V, T] (any strides), request rows [U], ``need`` [U, T]. Returns
+    [U, V] uint8."""
+    m = (vtype[None, :] == tid[:, None]) & (vok[None, :] != 0)
+    m &= vsize[None, :] >= msize[:, None]
+    rm = rmask[:, None]
+    m &= (vmask[None, :] & rm) == rm
+    m &= (agg[None, :, :] >= need[:, None, :]).all(dim=2)
+    return m.to(torch.uint8)

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.feasibility import feasible_mask
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode
-from repro_torch.kernels.ref import ref_attention, ref_decode
+from repro_torch.kernels.ref import ref_attention, ref_decode, ref_feasible
 
 # atol = rtol as in tests/test_kernels.py:32: in bf16 the output is rounded
 # to bf16; in fp32 only the order of the sums differs
@@ -112,3 +113,115 @@ def test_model_attention_goes_through_kernels(cuda):
     assert LAUNCHES["flash_decode"] == before["flash_decode"] + cfg.n_layers
     for a, b in zip(*outs):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# the feasibility kernel and the scheduler slice on the card
+# ---------------------------------------------------------------------- #
+def _feasibility_case(seed, n_req, n_vert, n_types=5, extra_bits=()):
+    """The random tables of tests/test_kernels.py (same draw order), plus
+    a random bit at each of ``extra_bits`` in both property masks."""
+    rng = np.random.default_rng(seed)
+    vtype = rng.integers(0, n_types, n_vert, dtype=np.int32)
+    vok = rng.integers(0, 2, n_vert, dtype=np.int32).astype(np.uint8)
+    vsize = rng.integers(1, 64, n_vert, dtype=np.int32)
+    vmask = (rng.integers(0, 2, n_vert, dtype=np.int64) << 40
+             | rng.integers(0, 8, n_vert, dtype=np.int64))
+    agg = rng.integers(0, 16, (n_vert, n_types), dtype=np.int32)
+    tid = rng.integers(0, n_types, n_req, dtype=np.int32)
+    msize = rng.integers(1, 48, n_req, dtype=np.int32)
+    rmask = (rng.integers(0, 2, n_req, dtype=np.int64) << 40
+             | rng.integers(0, 4, n_req, dtype=np.int64))
+    need = rng.integers(0, 12, (n_req, n_types), dtype=np.int32)
+    for bit in extra_bits:
+        vmask |= rng.integers(0, 2, n_vert, dtype=np.int64) << bit
+        rmask |= rng.integers(0, 2, n_req, dtype=np.int64) << bit
+    return [vtype, vok, vsize, vmask, agg, tid, msize, rmask, need]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_req,n_vert,bits", [
+    (0, 11, 300, ()), (1, 8, 256, ()), (2, 1, 33, ()), (3, 40, 1024, ()),
+    (4, 13, 97, ()), (5, 9, 200, (61,)),
+])
+@pytest.mark.parametrize("strided", [False, True])
+def test_feasibility_kernel_vs_plain(seed, n_req, n_vert, bits, strided, cuda):
+    """Bit-exact against ref_feasible; ``strided`` reads agg as the
+    [:, :T] view of a wider table, as the flat graph hands it over."""
+    case = _feasibility_case(seed, n_req, n_vert, extra_bits=bits)
+    args = [torch.from_numpy(a).to(cuda) for a in case]
+    if strided:
+        wide = torch.zeros((n_vert, 9), dtype=torch.int32, device=cuda)
+        wide[:, :5] = args[4]
+        args[4] = wide[:, :5]
+    n = LAUNCHES["feasibility"]
+    out = feasible_mask(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["feasibility"] == n + 1
+    assert out.dtype == torch.uint8 and out.shape == (n_req, n_vert)
+    assert torch.equal(out, ref_feasible(*args))
+
+
+@pytest.mark.cuda
+def test_feasibility_wrapper_refuses_bad_inputs(cuda):
+    args = [torch.from_numpy(a).to(cuda) for a in _feasibility_case(0, 4, 64)]
+    bad = [("vmask", 3, args[3].int()),                     # int32 masks
+           ("agg", 4, args[4].float()),
+           ("agg", 4, args[4].t().contiguous().t()),        # column stride != 1
+           ("need", 8, args[8][:, :4]),                     # shape
+           ("vtype", 0, args[0].cpu())]                     # not on the card
+    n = LAUNCHES["feasibility"]
+    for name, i, t in bad:
+        with pytest.raises(ValueError, match=name):
+            feasible_mask(*args[:i], t, *args[i + 1:])
+    assert LAUNCHES["feasibility"] == n
+
+
+@pytest.mark.cuda
+def test_aggregate_sweep_on_card_matches_cpu(cuda):
+    from repro_torch.core import build_cluster
+    from repro_torch.core.flatgraph import aggregate_sweep
+
+    g = build_cluster(nodes=16, gpus_per_socket=1, device="cpu")
+    f = g.flat()
+    rng = np.random.default_rng(9)
+    own = rng.integers(0, 3, (f.n, len(f.types))).astype(np.int32)
+    got = aggregate_sweep(own, f._parent_dev, f._levels, cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), aggregate_sweep(own, f._parent_dev, f._levels, "cpu"))
+
+
+@pytest.mark.cuda
+def test_flat_graph_on_card_matches_cpu(cuda):
+    """A graph on the card and its CPU twin give the same matches, masks
+    and aggregates through churn and a splice, and every
+    feasible_roots_batch on the card launches the kernel once."""
+    from repro_torch.core import (Jobspec, Matcher, add_subgraph, build_cluster,
+                                  remove_subgraph, update_metadata)
+
+    twins = [build_cluster(nodes=24, gpus_per_socket=1, device=d) for d in (cuda, "cpu")]
+    specs = [Jobspec.hpc(nodes=1, sockets=s, cores=s * c) for s in (1, 2) for c in (4, 16)]
+    specs.append(Jobspec.hpc(nodes=2, sockets=4, cores=64))
+    reqs = [r for js in specs for r in js.resources]
+    n = LAUNCHES["feasibility"]
+    for step, js in enumerate(specs * 3):
+        got = [Matcher(g, use_flat=True).match(js) for g in twins]
+        assert got[0] == got[1] and got[0] is not None
+        for g in twins:
+            g.set_allocated(got[0], f"j{step}")
+        masks = [g.flat().feasible_roots_batch(reqs) for g in twins]
+        assert np.array_equal(masks[0], masks[1])
+    assert LAUNCHES["feasibility"] == n + 3 * len(specs)
+    res = []
+    for g in twins:
+        ext = build_cluster(nodes=2, gpus_per_socket=1, node_prefix="grow", device=g.device)
+        r = add_subgraph(g, ext.extract([p for p in ext.paths() if "grow" in p]))
+        update_metadata(g, r)
+        res.append(r.new_paths)
+    assert [Matcher(g, use_flat=True).match(specs[-1]) for g in twins][0] is not None
+    for g, paths in zip(twins, res):
+        remove_subgraph(g, paths)
+        assert g.flat().verify_against(g)
+    fc, fh = (g.flat() for g in twins)
+    assert fc.n_agg_sweeps == fh.n_agg_sweeps >= 3
+    assert np.array_equal(fc.agg[:fc.n, :len(fc.types)], fh.agg[:fh.n, :len(fh.types)])

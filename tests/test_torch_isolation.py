@@ -58,3 +58,30 @@ def test_import_and_prefill_with_jax_blocked():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_import_and_schedule_with_jax_blocked():
+    """The scheduler slice builds, matches and scans with no JAX."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        from repro_torch.core import Jobspec, Matcher, build_cluster
+        g = build_cluster(nodes=16, device="cpu")
+        js = Jobspec.hpc(nodes=2, sockets=4, cores=32)
+        paths = Matcher(g, use_flat=True).match(js)
+        assert paths is not None and len(paths) == 2 + 4 + 32
+        g.set_allocated(paths, "job")
+        mask = g.flat().feasible_roots_batch(js.resources)
+        assert mask.shape == (1, len(g)) and mask.sum() == 16 - 2
+        assert g.flat().verify_against(g)
+        assert not any(m.split(".")[0] in ("jax", "repro") and sys.modules[m] is not None
+                       for m in sys.modules)
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

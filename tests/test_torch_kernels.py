@@ -1,21 +1,25 @@
-"""The port's attention kernels against the JAX package's.
+"""The port's kernels against the JAX package's.
 
 On the CPU: the plain versions (``repro_torch.kernels.ref``) against the
 JAX Pallas kernels in interpret mode and the JAX oracle, on the same
-numpy inputs, with the sweeps and tolerances of tests/test_kernels.py.
-The CUDA kernels against the plain versions are in test_torch_cuda.py.
+numpy inputs, with the sweeps and tolerances of tests/test_kernels.py
+(the feasibility mask is integer and compared exactly). The CUDA kernels
+against the plain versions are in test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.feasibility import batched_feasible_op as jax_batched_feasible_op
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention import flash_decode as jax_flash_decode
 from repro.kernels.ref import ref_attention as jax_ref_attention
-from repro_torch.kernels import LAUNCHES, attention_op, decode_attention_op
+from repro_torch.kernels import (LAUNCHES, attention_op, batched_feasible_op,
+                                 decode_attention_op)
+from repro_torch.kernels.feasibility import feasible_mask
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode
-from repro_torch.kernels.ref import ref_attention, ref_decode
+from repro_torch.kernels.ref import ref_attention, ref_decode, ref_feasible
 
 # fp32: both sides sum in fp32 in another order; bf16: the inputs are the
 # same bf16 values, the output is rounded to bf16 (tests/test_kernels.py:32)
@@ -150,3 +154,86 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
     k = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         fn(q, k, k, *args)
+
+
+# ---------------------------------------------------------------------- #
+# the feasibility scan
+# ---------------------------------------------------------------------- #
+def _feasibility_case(seed=0, n_req=11, n_vert=300, n_types=5, extra_bits=()):
+    """tests/test_kernels.py's random request/vertex tables, in its draw
+    order (every clause: type mismatch, busy vertices, size floors,
+    property bits on both sides of bit 31, per-type aggregates), plus a
+    random bit at each of ``extra_bits`` in both masks."""
+    rng = np.random.default_rng(seed)
+    vtype = rng.integers(0, n_types, n_vert, dtype=np.int32)
+    vok = rng.integers(0, 2, n_vert, dtype=np.int32)
+    vsize = rng.integers(1, 64, n_vert, dtype=np.int32)
+    vmask = (rng.integers(0, 2, n_vert, dtype=np.int64) << 40
+             | rng.integers(0, 8, n_vert, dtype=np.int64))
+    agg = rng.integers(0, 16, (n_vert, n_types), dtype=np.int32)
+    tid = rng.integers(0, n_types, n_req, dtype=np.int32)
+    msize = rng.integers(1, 48, n_req, dtype=np.int32)
+    rmask = (rng.integers(0, 2, n_req, dtype=np.int64) << 40
+             | rng.integers(0, 4, n_req, dtype=np.int64))
+    need = rng.integers(0, 12, (n_req, n_types), dtype=np.int32)
+    for bit in extra_bits:
+        vmask |= rng.integers(0, 2, n_vert, dtype=np.int64) << bit
+        rmask |= rng.integers(0, 2, n_req, dtype=np.int64) << bit
+    return vtype, vok, vsize, vmask, agg, tid, msize, rmask, need
+
+
+def _torch_case(case):
+    vtype, vok, *rest = (torch.from_numpy(a) for a in case)
+    return (vtype, vok.to(torch.uint8), *rest)
+
+
+FEASIBILITY_CASES = [   # seed, n_req, n_vert, extra mask bits
+    (0, 11, 300, ()),       # ragged: the Pallas kernel pads request and vertex blocks
+    (1, 8, 256, ()),        # exact block multiples
+    (2, 1, 33, ()),         # one request, few vertices
+    (3, 40, 1024, ()),      # a deep window: more rows than a CUDA block holds
+    (4, 13, 97, ()),
+    (5, 9, 200, (61,)),     # bits 40 and 61 of the int64 masks
+]
+
+
+@pytest.mark.parametrize("mode", ["xla", "interpret"])
+@pytest.mark.parametrize("seed,n_req,n_vert,bits", FEASIBILITY_CASES)
+def test_ref_feasible_vs_jax(seed, n_req, n_vert, bits, mode):
+    """ref_feasible == JAX's batched_feasible_op, through its XLA
+    reference and through the Pallas kernel in interpret mode."""
+    case = _feasibility_case(seed, n_req, n_vert, extra_bits=bits)
+    ours = ref_feasible(*_torch_case(case))
+    assert ours.dtype == torch.uint8 and ours.shape == (n_req, n_vert)
+    want = jax_batched_feasible_op(*case, use_pallas=mode)
+    np.testing.assert_array_equal(ours.numpy(), want)
+
+
+def test_ref_feasible_reads_strided_agg():
+    """The flat graph hands over ``agg[:n, :T]`` of a wider table."""
+    case = list(_feasibility_case(6, 7, 150, n_types=3))
+    wide = np.zeros((150, 8), np.int32)
+    wide[:, :3] = case[4]
+    args = _torch_case(case)
+    view = torch.from_numpy(wide)[:, :3]
+    assert not view.is_contiguous()
+    got = ref_feasible(*args[:4], view, *args[5:])
+    np.testing.assert_array_equal(got.numpy(), ref_feasible(*args).numpy())
+
+
+def test_batched_feasible_op_cpu_goes_to_plain_version():
+    args = _torch_case(_feasibility_case(7, 5, 64))
+    before = dict(LAUNCHES)
+    np.testing.assert_array_equal(batched_feasible_op(*args).numpy(),
+                                  ref_feasible(*args).numpy())
+    assert LAUNCHES == before
+
+
+def test_feasible_mask_refuses_cpu_tensors():
+    """The kernel's wrapper never falls back to the plain version, and
+    no other device reaches either."""
+    args = _torch_case(_feasibility_case(8, 3, 40))
+    with pytest.raises(ValueError, match="CUDA"):
+        feasible_mask(*args)
+    with pytest.raises(ValueError, match="no kernel path"):
+        batched_feasible_op(*(a.to("meta") for a in args))
