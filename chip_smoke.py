@@ -6,10 +6,12 @@
 Phases, each printing JSON lines:
 
 1. env: the card, its power limit, and the build of every CUDA kernel
-   from ``src/repro_torch/kernels/csrc`` (nvcc, at first use).
-2. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving shapes and a few more, with the kernel's, the plain
-   version's and one library call's time beside the card's bound.
+   from ``src/repro_torch/kernels/csrc`` (nvcc, all started together).
+2. kernels: each attention kernel against its plain PyTorch version on
+   the card, at the serving shapes and a few more, with the kernel's
+   device time (torch.profiler) and its time by CUDA events around a
+   loop, the plain version's and one library call's time beside the
+   card's bound.
 3. serve: ``run_serving("llama3.2-3b", batch=8, prompt_len=512, gen=32,
    smoke=False)`` at full width (28 layers, d_model 3072), with the
    kernels' launch counts read around exactly this run.
@@ -17,14 +19,26 @@ Phases, each printing JSON lines:
    forward over s+1 tokens, at full width in bf16.
 5. profile: device time by kernel and the device's idle share for one
    prefill and a few decode steps at the serving shape.
-6. schedule_kernels: the feasibility kernel against its plain version,
+6. ssm_kernels: the SSD chunk kernel against its plain version at
+   atol = rtol = 1e-4 on all three outputs (the mamba2 and zamba2
+   serving shapes, chunk 128, the reduced shape, two groups, three
+   chunks, strided views as the model's), the full scan ``ssd_scan_op``
+   against the sequential recurrence with an initial state and a ragged
+   length, and the kernel's and the plain version's device times beside
+   the kernel's bound at the mamba2 shape.
+7. serve_ssm: ``run_serving`` for mamba2-2.7b (64 Mamba2 blocks, d_model
+   2560, 80 SSD heads of 64, state 128) and zamba2-2.7b (54 blocks and 9
+   applications of the shared attention + MLP block) at full width, each
+   with its launch counts read around exactly that run; then their
+   consistency checks and a profile of the mamba2 prefill and decode.
+8. schedule_kernels: the feasibility kernel against its plain version,
    bit-exact (the seeds of tests/test_kernels.py, mask bits above 31, a
    strided aggregate table, a cluster the size of LLNL's Quartz), and the
    per-level aggregate sweep on the card against the same call on the
    CPU, at Quartz size; the kernel's, the plain version's and the sweep's
    device times beside the kernel's bound, and the time per call as the
    host launches them.
-7. schedule: the scheduler slice's main path at Quartz size (3,018
+9. schedule: the scheduler slice's main path at Quartz size (3,018
    nodes of 2 sockets x 18 cores, 117,703 vertices): 512 jobs of a
    4,096-deep backlog matched and allocated in order, a kick every 64
    jobs (release the oldest 32, one ``feasible_roots_batch`` over the
@@ -59,8 +73,14 @@ FP32_FLOPS = 67e12               # fp32 outside the tensor cores
 # rounded to bf16 (8 bits of mantissa); in fp32 only the order of the sums
 # differs between the kernel and the plain version
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the SSD scan's tolerance, tests/test_kernels.py:79-81: fp32 on both sides,
+# which differ in the order of the sums of the three products
+SSD_TOL = 1e-4
 ARCH = "llama3.2-3b"
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+# full-width depths, checked against each config before its run
+DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560)}
+SSM_GEN = {"mamba2-2.7b": 32, "zamba2-2.7b": 8}
 # LLNL Quartz, a production system that Fluxion schedules: 3,018 nodes of
 # two 18-core Xeon E5-2695 v4 sockets
 QUARTZ = dict(nodes=3018, sockets_per_node=2, cores_per_socket=18)
@@ -116,13 +136,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(out, ref, dtype: str) -> float:
-    import torch
+def compare(out, ref, dtype: str, tol: float = None) -> float:
+    tol = TOL[dtype] if tol is None else tol
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
-    bad = (diff > TOL[dtype] + TOL[dtype] * ref.float().abs()).sum().item()
-    check(math.isfinite(err) and bad == 0,
-          f"{bad} elements beyond atol=rtol={TOL[dtype]} (max |diff| {err})")
+    bad = (diff > tol + tol * ref.float().abs()).sum().item()
+    check(out.shape == ref.shape and math.isfinite(err) and bad == 0,
+          f"{bad} elements beyond atol=rtol={tol} (max |diff| {err})")
     return err
 
 
@@ -166,21 +186,23 @@ def phase_kernels(dev) -> dict:
         emit("kernels", kernel="flash_attention", case=name, shape=[b, h, kvh, sq, skv, d],
              window=window, dtype=dtype, max_abs_err=err, tol=TOL[dtype])
         if name == "serve":
-            ms = time_ms(lambda: flash_attention(q, k, v))
-            plain_ms = time_ms(lambda: ref_attention(q, k, v), iters=5)
+            ms = device_ms(lambda: flash_attention(q, k, v), iters=20)
+            event_ms = time_ms(lambda: flash_attention(q, k, v))
+            plain_ms = device_ms(lambda: ref_attention(q, k, v), iters=5)
             g = h // kvh
             ke, ve = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, is_causal=True), iters=20)
             pairs = sq * (sq + 1) // 2                    # causal (q, k) pairs per head
             flops = 4.0 * d * pairs * b * h
             nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
             t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
             fa = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                       bound_ms=1e3 * max(t_ops, t_bytes),
-                      bound_by="operations" if t_ops >= t_bytes else "bytes")
-            emit("kernels", kernel="flash_attention", case=name, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=fa["bound_ms"], bound_by=fa["bound_by"],
-                 tflops=flops / ms / 1e9)
+                      bound_by="operations" if t_ops >= t_bytes else "bytes", event_ms=event_ms)
+            emit("kernels", kernel="flash_attention", case=name, ms=ms, event_ms=event_ms,
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fa["bound_ms"],
+                 bound_by=fa["bound_by"], tflops=flops / ms / 1e9)
 
     # ---- flash_decode, through the model's [b, S, kvh, d] cache layout ----
     fd = {}
@@ -205,13 +227,14 @@ def phase_kernels(dev) -> dict:
         if dtype != "bfloat16":
             continue
         it = iter(range(1 << 30))
-        ms = time_ms(lambda: flash_decode(q, *views[next(it) % copies], lengths))
-        plain_ms = time_ms(lambda: ref_decode(q, *views[next(it) % copies], lengths))
+        ms = device_ms(lambda: flash_decode(q, *views[next(it) % copies], lengths))
+        event_ms = time_ms(lambda: flash_decode(q, *views[next(it) % copies], lengths))
+        plain_ms = device_ms(lambda: ref_decode(q, *views[next(it) % copies], lengths), iters=20)
         g = h // kvh
         expanded = [(kv.repeat_interleave(g, dim=1), vv.repeat_interleave(g, dim=1))
                     for kv, vv in views]
         mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, *expanded[next(it) % copies], attn_mask=mask))
         ctx = int(lengths.sum().item())                   # keys actually attended
         nbytes = 2.0 * 2 * kvh * ctx * d + 2.0 * 2 * q.numel() + 4 * b
@@ -219,58 +242,94 @@ def phase_kernels(dev) -> dict:
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         fd = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                   bound_ms=1e3 * max(t_ops, t_bytes),
-                  bound_by="operations" if t_ops >= t_bytes else "bytes")
-        emit("kernels", kernel="flash_decode", case="serve", ms=ms, plain_ms=plain_ms,
-             library_ms=lib_ms, bound_ms=fd["bound_ms"], bound_by=fd["bound_by"],
-             gbps=nbytes / ms / 1e6)
+                  bound_by="operations" if t_ops >= t_bytes else "bytes", event_ms=event_ms)
+        emit("kernels", kernel="flash_decode", case="serve", ms=ms, event_ms=event_ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fd["bound_ms"],
+             bound_by=fd["bound_by"], gbps=nbytes / ms / 1e6)
     return {"flash_attention": fa, "flash_decode": fd}
 
 
 # ---------------------------------------------------------------------- #
-# phase 3: the main path
+# phases 3 and 7: the serving paths
 # ---------------------------------------------------------------------- #
-def phase_serve(dev) -> dict:
+def expected_launches(cfg, gen: int) -> dict:
+    """Launches of one serving run: prefill attention per attention block
+    (every layer of a dense model, each application of a hybrid's shared
+    block), decode attention per attention block and step, one SSD chunk
+    launch per Mamba2 block."""
+    attn = {"dense": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": attn, "flash_decode": attn * (gen - 1), "ssd_chunk": ssd}
+
+
+def phase_serve(dev, arch: str, batch: int, prompt_len: int, gen: int,
+                phase: str = "serve") -> dict:
+    """One ``run_serving`` at full width after a short warm-up, with the
+    launch counts read around exactly this run: each kernel launches
+    exactly as often as ``expected_launches`` says (the scheduler's
+    kernel not at all)."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import run_serving
 
+    cfg = get_config(arch)
+    check((cfg.n_layers, cfg.d_model) == DEPTH[arch], f"{arch}: full-width config")
+    expect = expected_launches(cfg, gen)
     # warm-up (cuBLAS handles and algorithms, the allocator): one short run
-    run_serving(ARCH, batch=SERVE["batch"], prompt_len=SERVE["prompt_len"], gen=2,
-                smoke=False, seed=0, device=dev)
+    run_serving(arch, batch=batch, prompt_len=prompt_len, gen=2, smoke=False, seed=0, device=dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    r = run_serving(ARCH, smoke=False, seed=0, device=dev, **SERVE)
+    r = run_serving(arch, batch=batch, prompt_len=prompt_len, gen=gen, smoke=False, seed=0,
+                    device=dev)
     launches = dict(LAUNCHES)
-    steps = SERVE["gen"] - 1
-    emit("serve", arch=ARCH, **SERVE, prefill_ms=1e3 * r["prefill_s"],
-         decode_ms_per_step=1e3 * r["decode_s"] / steps,
-         decode_tokens_per_s=SERVE["batch"] * steps / r["decode_s"],
+    steps = gen - 1
+    emit(phase, arch=arch, batch=batch, prompt_len=prompt_len, gen=gen,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, n_params=cfg.n_params(),
+         prefill_ms=1e3 * r["prefill_s"], decode_ms_per_step=1e3 * r["decode_s"] / steps,
+         decode_tokens_per_s=batch * steps / r["decode_s"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches, logits_finite=r["logits_finite"],
+         launches=launches, expected_launches=expect, logits_finite=r["logits_finite"],
          sample_tokens=r["tokens"][0, :8].tolist())
-    n_layers = 28
-    check(launches["flash_attention"] == n_layers,
-          f"flash_attention launches {launches['flash_attention']} != {n_layers}")
-    check(launches["flash_decode"] == n_layers * steps,
-          f"flash_decode launches {launches['flash_decode']} != {n_layers * steps}")
-    check(r["logits_finite"], "non-finite logits")
-    check(r["tokens"].shape == (SERVE["batch"], SERVE["gen"]), "token shape")
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"{arch}: {name} launches {n} != {expect.get(name, 0)}")
+    check(r["logits_finite"], f"{arch}: non-finite logits")
+    check(r["tokens"].shape == (batch, gen), f"{arch}: token shape")
+    torch.cuda.empty_cache()
     return launches
 
 
 # ---------------------------------------------------------------------- #
 # phase 4: prefill + decode == forward, at full width
 # ---------------------------------------------------------------------- #
-def phase_consistency(dev):
+def consistency_tol(cfg) -> float:
+    """Of the largest logit. In bf16 the two paths see the same weights and
+    inputs and differ in the order of sums (kernels, matmul shapes) and in
+    where bf16 rounds: 2e-2. A model with Mamba2 blocks also rounds its
+    causal conv differently on the two paths, as the JAX model does (the
+    prefill adds the four taps in bf16, the decode sums them in one
+    einsum; tests/test_torch_mamba.py shows the gap closes without that),
+    and the gap grows with depth: 5e-2. In fp32 only the order of sums
+    differs (the chunked scan against the recurrence): 2e-3, the fp32
+    test's tolerance (tests/test_models_smoke.py:53-88)."""
+    if cfg.dtype == "float32":
+        return 2e-3
+    return 5e-2 if cfg.family in ("ssm", "hybrid") else 2e-2
+
+
+def phase_consistency(dev, arch: str, dtype: str = "bfloat16"):
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.models.model import make_model
 
-    cfg = get_config(ARCH)
-    check(cfg.n_layers == 28 and cfg.d_model == 3072, "full-width config")
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    check((cfg.n_layers, cfg.d_model) == DEPTH[arch], f"{arch}: full-width config")
     model = make_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(1))
     b, s = 2, 256
@@ -278,16 +337,17 @@ def phase_consistency(dev):
                          generator=torch.Generator(device=dev).manual_seed(2))
     full = model.forward_logits(toks)[:, -1].float()
     _, cache = model.prefill_step(toks[:, :s])
-    cache = {k: F.pad(v, (0, 0, 0, 0, 0, 1)) for k, v in cache.items()}   # one more slot
+    # one more slot on the KV caches' sequence axis; SSM states keep their shapes
+    cache = {k: F.pad(v, (0, 0, 0, 0, 0, 1)) if k in ("k", "v", "shared_k", "shared_v")
+             else v for k, v in cache.items()}
     logits, _ = model.serve_step(cache, toks[:, s:], s)
     diff = (logits[:, 0].float() - full).abs().max().item()
     scale = full.abs().max().item()
-    # both paths attend the same bf16 k/v in fp32 and differ only in the
-    # order of sums (kernels, matmul shapes): 2e-2 of the largest logit
-    emit("consistency", batch=b, seq=s, max_abs_diff=diff, max_abs_logit=scale,
-         rel=diff / scale, tol_rel=2e-2)
-    check(math.isfinite(diff) and diff <= 2e-2 * scale,
-          f"prefill+decode vs forward: {diff} > 2e-2 * {scale}")
+    tol = consistency_tol(cfg)
+    emit("consistency", arch=arch, dtype=dtype, batch=b, seq=s, max_abs_diff=diff,
+         max_abs_logit=scale, rel=diff / scale, tol_rel=tol)
+    check(math.isfinite(diff) and diff <= tol * scale,
+          f"{arch} {dtype}: prefill+decode vs forward: {diff} > {tol} * {scale}")
     return model
 
 
@@ -326,6 +386,7 @@ def phase_profile(dev, model, steps: int = 4) -> None:
     before this phase)."""
     import torch
 
+    from repro_torch.launch.serve import splice_cache
     from repro_torch.models.config import ShapeConfig
 
     b, s = SERVE["batch"], SERVE["prompt_len"]
@@ -335,8 +396,7 @@ def phase_profile(dev, model, steps: int = 4) -> None:
 
     def prefill():
         logits, pc = model.prefill_step(toks)
-        for k, buf in cache.items():
-            buf[:, :, :s].copy_(pc[k])
+        splice_cache(cache, pc)
         return logits[:, -1].argmax(-1, keepdim=True)
 
     def decode(tok):
@@ -350,14 +410,102 @@ def phase_profile(dev, model, steps: int = 4) -> None:
     for name, fn in (("prefill", prefill), ("decode", lambda: decode(tok))):
         wall_ms, rows, _ = profiled(fn)
         busy_ms = sum(r[0] for r in rows)
-        emit("profile", part=name, batch=b, prompt_len=s,
+        emit("profile", arch=model.cfg.name, part=name, batch=b, prompt_len=s,
              decode_steps=steps if name == "decode" else 0, wall_ms=wall_ms,
              device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
              top=[{"op": k, "ms": ms, "calls": n} for ms, n, k in rows[:12]])
 
 
 # ---------------------------------------------------------------------- #
-# phase 6: the scheduler slice's kernel and sweep against their plain versions
+# phase 6: the SSD chunk kernel against its plain version
+# ---------------------------------------------------------------------- #
+SSD_SERVE = (8, 512, 80, 64, 1, 128, 256)       # mamba2-2.7b at batch 8 x 512: b, s, H, P, G, N, Q
+SSD_CASES = [  # name, (b, s, H, P, G, N, chunk), strided; timed at the first
+    ("mamba2", SSD_SERVE, False),
+    ("zamba2", (8, 512, 80, 64, 1, 64, 256), False),
+    ("chunk128", (8, 512, 80, 64, 1, 128, 128), False),   # the configs' perf patch
+    ("reduced", (2, 32, 8, 16, 1, 16, 8), False),
+    ("groups2", (2, 128, 4, 32, 2, 16, 32), False),
+    ("chunks3", (2, 768, 80, 64, 1, 128, 256), False),    # not a power of two
+    ("strided", SSD_SERVE, True),
+]
+SSD_SCAN = (2, 200, 16, 64, 1, 128, 64)         # ragged: 200 = 3 chunks of 64 + 8
+
+
+def ssd_inputs(gen, dev, b, s, H, P, G, N):
+    """x, dt, A, B, C as ``_ssd_inputs`` of tests/test_kernels.py draws
+    them: dt = softplus(normal), A = -exp(0.3 normal)."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    return (randn(b, s, H, P), F.softplus(randn(b, s, H)), -torch.exp(0.3 * randn(H)),
+            randn(b, s, G, N), randn(b, s, G, N))
+
+
+def phase_ssm_kernels(dev) -> dict:
+    import torch
+    from repro_torch.kernels.ops import ssd_scan_op
+    from repro_torch.kernels.ref import ref_ssd, ref_ssd_chunk
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    timed = {}
+    for name, (b, s, H, P, G, N, Q), strided in SSD_CASES:
+        x, dt, A, B, C = ssd_inputs(gen, dev, b, s, H, P, G, N)
+        if strided:
+            # views into one [b, s, H*P + 2*G*N] projection, as the model's
+            # x, B and C are into its conv output, and dt into a wider one
+            wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
+            x = wide[..., :H * P].reshape(b, s, H, P)
+            B = wide[..., H * P:H * P + G * N].reshape(b, s, G, N)
+            C = wide[..., H * P + G * N:].reshape(b, s, G, N)
+            dt = torch.cat([dt, dt], -1)[..., :H]
+            check(not (x.is_contiguous() or B.is_contiguous() or dt.is_contiguous()), "views")
+        out = ssd_chunk(x, dt, A, B, C, Q)
+        torch.cuda.synchronize()
+        ref = ref_ssd_chunk(x, dt, A, B, C, Q)
+        errs = [compare(o, r, "float32", SSD_TOL) for o, r in zip(out, ref)]
+        emit("ssm_kernels", kernel="ssd_chunk", case=name, shape=[b, s, H, P, G, N, Q],
+             strided=strided, max_abs_err={"y": errs[0], "states": errs[1], "decay": errs[2]},
+             max_abs_ref=[r.abs().max().item() for r in ref], tol=SSD_TOL)
+        del out, ref
+        if name == SSD_CASES[0][0]:
+            ms = device_ms(lambda: ssd_chunk(x, dt, A, B, C, Q), iters=20)
+            event_ms = time_ms(lambda: ssd_chunk(x, dt, A, B, C, Q))
+            plain_ms = device_ms(lambda: ref_ssd_chunk(x, dt, A, B, C, Q), iters=5)
+            nc = s // Q
+            flops = b * nc * H * (2.0 * Q * (Q + 1) / 2 * (N + P) + 2.0 * Q * N * P)
+            nbytes = 4.0 * (2 * x.numel() + dt.numel() + A.numel() + B.numel() + C.numel()
+                            + b * nc * H * (N * P + 1))
+            t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+            timed = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=1e3 * max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         event_ms=event_ms)
+            emit("ssm_kernels", kernel="ssd_chunk", case=name, ms=ms, event_ms=event_ms,
+                 plain_ms=plain_ms, library_ms=None, bound_ms=timed["bound_ms"],
+                 bound_by=timed["bound_by"], gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                 tflops=flops / ms / 1e9)
+        del x, dt, A, B, C
+
+    # the whole scan (kernel + inter-chunk carry) against the recurrence,
+    # from an initial state, over a length that is not a chunk multiple
+    b, s, H, P, G, N, Q = SSD_SCAN
+    x, dt, A, B, C = ssd_inputs(gen, dev, b, s, H, P, G, N)
+    h0 = torch.randn((b, H, P, N), generator=gen, device=dev)
+    y, h = ssd_scan_op(x, dt, A, B, C, Q, initial_state=h0, return_state=True)
+    torch.cuda.synchronize()
+    ry, rh = ref_ssd(x, dt, A, B, C, initial_state=h0, return_state=True)
+    emit("ssm_kernels", kernel="ssd_scan_op", case="ragged_init", shape=[b, s, H, P, G, N, Q],
+         max_abs_err={"y": compare(y, ry, "float32", SSD_TOL),
+                      "final_state": compare(h, rh, "float32", SSD_TOL)}, tol=SSD_TOL)
+    return timed
+
+
+# ---------------------------------------------------------------------- #
+# phase 8: the scheduler slice's kernel and sweep against their plain versions
 # ---------------------------------------------------------------------- #
 def feasibility_case(seed, n_req, n_vert, n_types=5, extra_bits=()):
     """Random request/vertex tables in the draw order of the
@@ -480,7 +628,7 @@ def phase_schedule_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-# phase 7: the scheduler slice's main path at Quartz size
+# phase 9: the scheduler slice's main path at Quartz size
 # ---------------------------------------------------------------------- #
 def make_backlog(n: int, seed: int = 0) -> list:
     """The backlog of ``benchmarks/batch_prefilter.py::make_requests``
@@ -675,7 +823,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention", "feasibility"])
+    libs = build.build(["flash_attention", "feasibility", "ssd_chunk"])
     build_s = time.perf_counter() - t0
     for path in libs.values():
         log = path.with_suffix(".log")
@@ -684,30 +832,60 @@ def main() -> int:
     emit("env", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
-
-    timed = phase_kernels(dev)
-    launches = phase_serve(dev)
-    model = phase_consistency(dev)
-    phase_profile(dev, model)
-    del model
-    torch.cuda.empty_cache()
-    sched = phase_schedule_kernels(dev)
-    timed["feasibility"] = sched["feasibility"]
-    launches["feasibility"] = phase_schedule(dev, sched["sweep_ms"])
-
-    csrc = "src/repro_torch/kernels/csrc/"
-    rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
-            "flash_decode": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:179"),
-            "feasibility": ("feasibility.cu", "src/repro/kernels/feasibility.py:93")}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
-         "launches": launches[name], **timed[name]}
-        for name, (src, replaces) in rows.items()]}), flush=True)
-    print(smi, flush=True)
+    drive(dev, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def drive(dev, smi: str) -> None:
+    """Every phase after the build, then the kernel table and the card's
+    name and power limit. Raises at the first failed check."""
+    import torch
+
+    # each main path's launch counts, read around exactly its run
+    paths = {}
+    timed = phase_kernels(dev)
+    paths["serve llama3.2-3b"] = phase_serve(dev, ARCH, **SERVE)
+    model = phase_consistency(dev, ARCH)
+    phase_profile(dev, model)
+    del model
+    torch.cuda.empty_cache()
+
+    timed["ssd_chunk"] = phase_ssm_kernels(dev)
+    torch.cuda.empty_cache()
+    for arch, gen in SSM_GEN.items():
+        paths[f"serve {arch}"] = phase_serve(dev, arch, SERVE["batch"], SERVE["prompt_len"],
+                                             gen, phase="serve_ssm")
+    for arch, dtype in (("zamba2-2.7b", "float32"), ("zamba2-2.7b", "bfloat16"),
+                        ("mamba2-2.7b", "float32")):
+        model = phase_consistency(dev, arch, dtype)
+        del model
+        torch.cuda.empty_cache()
+    model = phase_consistency(dev, "mamba2-2.7b")
+    phase_profile(dev, model)
+    del model
+    torch.cuda.empty_cache()
+
+    sched = phase_schedule_kernels(dev)
+    timed["feasibility"] = sched["feasibility"]
+    paths["schedule quartz"] = {"feasibility": phase_schedule(dev, sched["sweep_ms"])}
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
+            "flash_decode": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:179"),
+            "feasibility": ("feasibility.cu", "src/repro/kernels/feasibility.py:93"),
+            "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:71")}
+    table = []
+    for name, (src, replaces) in rows.items():
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        check(by_path, f"{name}: launched on no main path")
+        table.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+                      "launches": sum(by_path.values()), "launches_by_path": by_path,
+                      **timed[name]})
+    print(json.dumps({"kernels": table}), flush=True)
+    print(smi, flush=True)
 
 
 if __name__ == "__main__":

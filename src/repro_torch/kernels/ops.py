@@ -6,11 +6,15 @@ a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from .feasibility import feasible_mask
 from .flash_attention import flash_attention, flash_decode
-from .ref import ref_attention, ref_decode, ref_feasible
+from .ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk
+from .ssd_scan import ssd_chunk
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -46,3 +50,43 @@ def batched_feasible_op(vtype: torch.Tensor, vok: torch.Tensor, vsize: torch.Ten
     if _on_cuda(vtype):
         return feasible_mask(*args)
     return ref_feasible(*args)
+
+
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, chunk: int, initial_state: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+    """Full SSD scan: the intra-chunk part by ``ssd_chunk`` (CUDA) or
+    ``ref_ssd_chunk`` (CPU), then the inter-chunk recurrence of
+    ``repro/kernels/ops.py::ssd_scan_op`` in plain PyTorch.
+
+    x: [b, s, H, P]; dt: [b, s, H] (positive); A: [H] (negative); B, C:
+    [b, s, G, N]; ``initial_state`` [b, H, P, N]. A ragged ``s`` is padded
+    to a chunk multiple with dt = 0 steps (decay 1, zero input: a no-op for
+    the outputs and the carried state), as ``ssd_chunked`` does. Returns y
+    [b, s, H, P] in x's dtype (and the final state [b, H, P, N], fp32)."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    pad = -s % chunk
+    if pad:
+        x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C))
+    sp, nc, rep = s + pad, (s + pad) // chunk, H // G
+    intra = ssd_chunk if _on_cuda(x) else ref_ssd_chunk
+    y_intra, states, decay_log = intra(x, dt, A, B, C, chunk)
+
+    # the state entering each chunk: a sequential carry of (exp(decay), state)
+    chunk_decay = torch.exp(decay_log)                            # [b, nc, H]
+    carry = (torch.zeros_like(states[:, 0]) if initial_state is None
+             else initial_state.transpose(-1, -2).float())        # [b, H, N, P]
+    prev = torch.empty_like(states)
+    for c in range(nc):
+        prev[:, c] = carry
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+
+    # y_inter[i] = exp(seg_i) C_i S_prev, over the G groups of H / G heads
+    seg = torch.cumsum((dt.float() * A.float()).reshape(b, nc, chunk, H), dim=2)
+    y_inter = torch.einsum("bcqgn,bcgrnp->bcqgrp",
+                           C.float().reshape(b, nc, chunk, G, N),
+                           prev.view(b, nc, G, rep, N, P)).reshape(b, nc, chunk, H, P)
+    y = y_intra.reshape(b, nc, chunk, H, P) + y_inter * torch.exp(seg)[..., None]
+    y = y.reshape(b, sp, H, P)[:, :s].to(x.dtype)
+    return (y, carry.transpose(-1, -2)) if return_state else y

@@ -4,11 +4,13 @@ Deliberately naive (no tiling, no online softmax): the CPU runs these in
 place of the CUDA kernels, and ``chip_smoke.py`` holds each kernel
 against them on the card. In attention, softmax is in fp32 and masked
 scores are -1e30, as in ``repro/kernels/ref.py`` and the Pallas kernels.
+``ref_ssd`` is the definitional SSD recurrence, the oracle of the whole
+chunked scan; ``ref_ssd_chunk`` is the ``ssd_chunk`` kernel's contract.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,3 +78,69 @@ def ref_feasible(vtype: torch.Tensor, vok: torch.Tensor, vsize: torch.Tensor,
     m &= (vmask[None, :] & rm) == rm
     m &= (agg[None, :, :] >= need[:, None, :]).all(dim=2)
     return m.to(torch.uint8)
+
+
+def ref_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, initial_state: Optional[torch.Tensor] = None,
+            return_state: bool = False):
+    """Naive sequential SSD recurrence (the definitional semantics), a
+    Python loop over the sequence.
+
+    x: [b, s, H, P]; dt: [b, s, H]; A: [H] (negative); B, C: [b, s, G, N].
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T, y_t = h_t C_t, with the
+    state h [b, H, P, N] in fp32. Returns y in x's dtype (and h_T)."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Bh = B.repeat_interleave(rep, dim=2).float()            # [b, s, H, N]
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t] * Af[None, :])             # [b, H]
+        h = h * da[:, :, None, None] + torch.einsum(
+            "bhp,bhn,bh->bhpn", xf[:, t], Bh[:, t], dtf[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)                  # [b, s, H, P]
+    return (y, h) if return_state else y
+
+
+def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``ssd_chunk`` contract (``repro/kernels/ssd_scan.py``'s
+    ``ssd_chunk_pallas``), as the broadcast form of the intra-chunk part
+    of ``ssd_chunked`` (``repro/models/mamba2.py``). Per (batch, chunk,
+    head), with ``seg = cumsum(dt * A)`` within the chunk:
+
+    - y_intra[i] = sum_{j <= i} (C_i . B_j) exp(seg_i - seg_j) dt_j x_j
+    - states = sum_j exp(total - seg_j) B_j^T (dt_j x_j)     [N, P]
+    - decay_log = total = seg[-1]
+
+    x: [b, s, H, P]; dt: [b, s, H]; A: [H]; B, C: [b, s, G, N], head h
+    reading group h // (H / G); s % chunk == 0. Returns fp32 (y_intra
+    [b, s, H, P], states [b, nc, H, N, P], decay_log [b, nc, H])."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    nc, rep = s // chunk, H // G
+    xg = x.float().reshape(b, nc, chunk, H, P)
+    dtg = dt.float().reshape(b, nc, chunk, H)
+    Bg = B.float().reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    Cg = C.float().reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+
+    seg = torch.cumsum(dtg * A.float()[None, None, None, :], dim=2)   # [b,nc,q,H]
+    total = seg[:, :, -1, :]                                          # [b,nc,H]
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]               # [b,nc,q,q,H]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    # exp overflows above the diagonal (rel > 0): where() drops it, as JAX does
+    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", Cg, Bg)
+    ydt = xg * dtg[..., None]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", scores * L, ydt)
+    decay_to_end = torch.exp(total[:, :, None, :] - seg)              # [b,nc,q,H]
+    states = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bg, decay_to_end, ydt)
+    return y.reshape(b, s, H, P), states, total

@@ -1,0 +1,89 @@
+"""Wrapper of the CUDA SSD intra-chunk kernel (``csrc/ssd_chunk.cu``).
+
+``ssd_chunk`` replaces ``ssd_chunk_pallas`` in ``repro/kernels/ssd_scan.py``
+with the same signature and layouts: per (batch, chunk, head) the masked
+quadratic form ``y_intra``, the chunk's state and its total decay-log. The
+inter-chunk recurrence is ``ops.py::ssd_scan_op``. It takes CUDA tensors
+only and launches the kernel or raises: the plain version is
+``ref.py::ref_ssd_chunk``, and ``ops.py`` picks between the two by the
+tensor's device. Each launch adds one to ``build.LAUNCHES["ssd_chunk"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import build
+from .build import LAUNCHES
+
+MAX_CHUNK = 256          # kMaxQ: the chunk's dt, seg and weights sit in shared memory
+MAX_STATE = 128          # kMaxN: rows of C^T / B^T in shared memory
+MAX_HEAD_DIM = 64        # kMaxP: columns of dt*x in shared memory
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ssd_chunk")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_chunk_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]
+    lib.ssd_chunk_fwd.restype = I
+    return lib
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, chunk: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD. x: [b, s, H, P]; dt: [b, s, H]; A: [H]; B, C:
+    [b, s, G, N]; all fp32 on one CUDA device, ``s % chunk == 0``, head h
+    reading group ``h // (H / G)``. x, dt, B and C may be strided views
+    (the last axis of x, B and C contiguous); A is contiguous. Returns
+    (y_intra [b, s, H, P], states [b, nc, H, N, P], decay_log [b, nc, H]),
+    fp32 and contiguous."""
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != x.device:
+            raise ValueError("x, dt, A, B and C must be on one device")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"x and B must be 4-d, got {tuple(x.shape)} and {tuple(B.shape)}")
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    for name, t, shape in (("dt", dt, (b, s, H)), ("A", A, (H,)), ("B", B, (b, s, G, N)),
+                           ("C", C, (b, s, G, N))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if G < 1 or H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups")
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"chunk {chunk}: needs 1 <= chunk <= {MAX_CHUNK} dividing s = {s}")
+    if P > MAX_HEAD_DIM or P % 4:
+        raise ValueError(f"head_dim {P}: needs a multiple of 4 up to {MAX_HEAD_DIM}")
+    if N > MAX_STATE:
+        raise ValueError(f"state {N} > {MAX_STATE}")
+    if x.stride(3) != 1 or B.stride(3) != 1 or C.stride(3) != 1 or not A.is_contiguous():
+        raise ValueError("the last axis of x, B and C, and A, must be contiguous")
+    nc = s // chunk
+    if nc > 65535 or b > 65535:
+        raise ValueError(f"grid ({H}, {nc}, {b}) too large")
+    y = torch.empty((b, s, H, P), dtype=torch.float32, device=x.device)
+    states = torch.empty((b, nc, H, N, P), dtype=torch.float32, device=x.device)
+    decay = torch.empty((b, nc, H), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, states, decay
+    with torch.cuda.device(x.device):
+        strides = (ctypes.c_longlong * 12)(
+            x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
+            B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2))
+        rc = _lib().ssd_chunk_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), states.data_ptr(), decay.data_ptr(), b, s, H, P, G, N, chunk,
+            strides, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk: CUDA error {rc} at launch")
+    LAUNCHES["ssd_chunk"] += 1
+    return y, states, decay

@@ -1,18 +1,22 @@
 """Batched serving entry point: prefill + greedy decode with a KV cache.
 
 The port of ``repro/launch/serve.py``. Prefill runs once (attention
-through the ``flash_attention`` kernel); its cache is spliced in place
-into max_len bf16 buffers; then decode steps (attention through the
-``flash_decode`` kernel) write into those buffers in place.
+through the ``flash_attention`` kernel, every Mamba2 block's scan through
+the ``ssd_chunk`` kernel); its cache is spliced in place into the
+max_len buffers (bf16 KV, fp32 SSM states); then decode steps (attention
+through the ``flash_decode`` kernel, Mamba2 blocks by their recurrence)
+update those buffers in place.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --no-smoke --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --no-smoke --batch 8 --prompt-len 512 --gen 32
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Union
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -26,6 +30,16 @@ from ..models.model import make_model
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def splice_cache(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor]) -> None:
+    """Copy a prefill cache into the max_len decode buffers, in place and
+    in each buffer's dtype. KV caches are shorter on their sequence axis
+    and land at its start; SSM states match their buffers and are copied
+    whole (``splice`` in repro/launch/serve.py)."""
+    for name, buf in cache.items():
+        part = pcache[name]
+        buf[tuple(slice(0, n) for n in part.shape)].copy_(part)
 
 
 def run_serving(arch: str, batch: int = 4, prompt_len: int = 16,
@@ -52,8 +66,7 @@ def run_serving(arch: str, batch: int = 4, prompt_len: int = 16,
     _sync(dev)
     t0 = time.perf_counter()
     logits, pcache = model.prefill_step(prompt)
-    for name, buf in cache.items():
-        buf[:, :, :prompt_len].copy_(pcache[name])      # cast to the cache's bf16
+    splice_cache(cache, pcache)
     del pcache
     _sync(dev)
     prefill_s = time.perf_counter() - t0

@@ -1,5 +1,5 @@
-"""Model building blocks of the dense family: norms, RoPE, GQA attention,
-MLP, embedding and LM head. Plain functions on tensors.
+"""Model building blocks: norms, RoPE, GQA attention, MLP, embedding and
+LM head. Plain functions on tensors.
 
 The port of ``repro/models/layers.py``. The JAX layers take a
 ``ShardingCtx`` whose constraints are no-ops without a mesh; the port
@@ -28,7 +28,7 @@ class ParamSpec:
     """Shape, init rule and dtype of one parameter (the JAX spec's logical
     sharding axes are dropped: the port runs on one card)."""
     shape: Tuple[int, ...]
-    init: str = "normal"                 # normal | zeros | small
+    init: str = "normal"                 # normal | zeros | ones | small
     dtype: str = "float32"
 
     def std(self) -> float:
@@ -43,6 +43,8 @@ class ParamSpec:
         JAX's; the values cannot be, since the generators differ."""
         if self.init == "zeros":
             out.zero_()
+        elif self.init == "ones":
+            out.fill_(1.0)
         else:
             out.normal_(0.0, self.std(), generator=generator)
 
@@ -175,9 +177,8 @@ def mlp(x: torch.Tensor, p: Dict, cfg: ArchConfig, normed: bool = False) -> torc
         r = F.relu(up)
         hmid = r * r
     else:
-        # jax.nn.gelu is the tanh form; torch's default is erf. The gelu
-        # families (musicgen, zamba2) need F.gelu(up, approximate="tanh").
-        raise NotImplementedError("gelu MLP lands with the audio/hybrid families")
+        # jax.nn.gelu is the tanh form (torch's default is erf)
+        hmid = F.gelu(up, approximate="tanh")
     return hmid @ p["w_down"].to(cdt)
 
 

@@ -7,11 +7,13 @@ JAX tree's paths joined by dots (``blocks.attn.wq``), so
 ``convert.params_from_jax`` loads JAX weights one to one.
 
 Parameters are fp32 masters, cast to the compute dtype at each use in
-JAX. For serving, the model keeps a copy of the block matrices already
-cast to the compute dtype, made once when the weights are set: the same
-rounding of the same fp32 numbers, so the values are bit-identical to a
-cast at each use, without re-reading 11 GB of fp32 masters every step
-at full width. Norm weights and the embedding/LM head stay fp32.
+JAX. For serving, the model keeps a copy of the matrices that JAX casts
+(the attention and MLP ``w*``, Mamba's ``in_proj``, ``conv_w``, ``conv_b``
+and ``out_proj``) already in the compute dtype, made once when the
+weights are set: the same rounding of the same fp32 numbers, so the
+values are bit-identical to a cast at each use, without re-reading 11 GB
+of fp32 masters every step at full width. Norm weights, Mamba's
+``A_log``, ``D`` and ``dt_bias``, and the embedding/LM head stay fp32.
 """
 from __future__ import annotations
 
@@ -41,6 +43,17 @@ def _tree(module: nn.Module) -> Dict:
     return {k: _tree(m) for k, m in module.items()}
 
 
+# the Mamba2 parameters that JAX casts to the compute dtype at each use
+# (repro/models/mamba2.py); the attention and MLP ones all start with "w"
+_MAMBA_CAST = ("in_proj", "conv_w", "conv_b", "out_proj")
+
+
+def _cast(tree: Dict, dtype: torch.dtype) -> Dict:
+    return {k: _cast(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if k.startswith("w") or k in _MAMBA_CAST else v
+            for k, v in tree.items()}
+
+
 def _flat_specs(specs: Dict, prefix: str = "") -> Dict[str, ParamSpec]:
     out = {}
     for k in sorted(specs):
@@ -58,8 +71,9 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         specs = init_specs(cfg)
-        self.embed = _params_module(specs["embed"], self.device)
-        self.blocks = _params_module(specs["blocks"], self.device)
+        self.parts = tuple(specs)                    # embed, blocks (, shared)
+        for name in self.parts:
+            setattr(self, name, _params_module(specs[name], self.device))
         self._compute: Optional[Dict] = None
 
     # -------------------------------------------------------------- #
@@ -84,14 +98,12 @@ class Model(nn.Module):
         self._compute = None
 
     def compute_params(self) -> Dict:
-        """The parameter tree the layers use: block matrices in the
-        compute dtype (cast once), norms and embeddings as stored."""
+        """The parameter tree the layers use: the matrices JAX casts in the
+        compute dtype (cast once), the rest, and the embeddings, as stored."""
         if self._compute is None:
             cdt = getattr(torch, self.cfg.dtype)
-            blocks = {part: {k: (w.to(cdt) if k.startswith("w") else w)
-                             for k, w in ws.items()}
-                      for part, ws in _tree(self.blocks).items()}
-            self._compute = {"embed": _tree(self.embed), "blocks": blocks}
+            self._compute = {name: _cast(_tree(getattr(self, name)), cdt)
+                             for name in self.parts}
         return self._compute
 
     # -------------------------------------------------------------- #
@@ -100,7 +112,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill_step(self, tokens: torch.Tensor):
         """Full-context forward returning (last-token logits [b, 1, v],
-        cache {"k", "v"} [L, b, s, kvh, d])."""
+        the prefill cache of ``transformer.forward``)."""
         mode = "last" if self.cfg.prefill_last_logits else "all"
         logits, cache = forward(self.compute_params(), self.cfg, tokens,
                                 want_cache=True, logits_positions=mode)
@@ -123,6 +135,7 @@ class Model(nn.Module):
         return init_cache_specs(self.cfg, shape.global_batch, shape.seq_len)
 
     def init_cache(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Zeroed decode buffers, each in its own dtype (bf16 KV, fp32 states)."""
         return {k: torch.zeros(s, dtype=dt, device=self.device)
                 for k, (s, dt) in self.cache_specs(shape).items()}
 

@@ -1,8 +1,18 @@
-"""Decoder-only backbone, dense family: init specs, forward, decode step.
+"""Decoder-only backbone: init specs, forward, decode step.
 
-The port of the dense branches of ``repro/models/transformer.py``. The
-layers are stacked on a leading ``[L, ...]`` axis as in JAX, so weights
-copy across one to one; the JAX ``scan`` over layers is a Python loop.
+The port of the dense, ssm and hybrid branches of
+``repro/models/transformer.py``:
+
+* dense transformers (llama3.2 / phi3 / nemotron / phi4) — attention + MLP
+  per layer;
+* SSM (mamba2) — one Mamba2 block per layer;
+* hybrid (zamba2) — groups of ``shared_attn_every`` Mamba2 blocks, each
+  group followed by one *shared* attention + MLP block (the same weights
+  at every application).
+
+The layers are stacked on a leading ``[L, ...]`` axis as in JAX, so
+weights copy across one to one; the JAX ``scan`` over layers is a Python
+loop.
 """
 from __future__ import annotations
 
@@ -13,20 +23,37 @@ import torch
 from .config import ArchConfig
 from .layers import (attention, attn_specs, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
+from .mamba2 import mamba_layer, mamba_specs, mamba_state_specs
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe or cfg.frontend != "token":
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.is_moe \
+            or cfg.frontend != "token" or cfg.rope == "mrope":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            "(dense, ssm and hybrid only)")
+
+
+def _group_layout(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_groups, layers_per_group): a hybrid's shared block follows each group."""
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        per = cfg.shared_attn_every
+        return cfg.n_layers // per, per
+    return cfg.n_layers, 1
 
 
 def init_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    """The full parameter-spec tree of a dense architecture."""
-    _check_dense(cfg)
-    return {"embed": embed_specs(cfg),
-            "blocks": stack_specs({"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)},
-                                  cfg.n_layers)}
+    """The full parameter-spec tree of an architecture."""
+    _check_ported(cfg)
+    specs: Dict[str, Any] = {"embed": embed_specs(cfg)}
+    if cfg.family in ("ssm", "hybrid"):
+        specs["blocks"] = stack_specs(mamba_specs(cfg), cfg.n_layers)
+        if cfg.family == "hybrid":
+            specs["shared"] = {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    else:
+        specs["blocks"] = stack_specs({"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)},
+                                      cfg.n_layers)
+    return specs
 
 
 def make_positions(cfg: ArchConfig, batch: int, seq: int, offset: int = 0,
@@ -41,52 +68,101 @@ def _layer(blocks: Dict, i: int) -> Dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
 
 
+def _shared_block(x: torch.Tensor, params: Dict, cfg: ArchConfig,
+                  positions: torch.Tensor, **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The hybrid's shared attention + MLP block (same weights every time)."""
+    a, kv = attention(x, params["shared"]["attn"], cfg, positions, **attn_kw)
+    x = x + a
+    return x + mlp(x, params["shared"]["mlp"], cfg), kv
+
+
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             want_cache: bool = False,
             logits_positions: str = "all") -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence forward over tokens [b, s]. Returns (logits, cache or
-    None); the cache is {"k", "v"}: [L, b, s, kvh, d] in the compute dtype."""
+    None). The cache is, by family: dense {"k", "v"} [L, b, s, kvh, d] in
+    the compute dtype; ssm {"conv" [L, b, K-1, conv_dim], "ssm"
+    [L, b, H, P, N]} in fp32; hybrid the ssm states plus {"shared_k",
+    "shared_v"} [groups, b, s, kvh, d]."""
     b, s = tokens.shape
     x = embed_tokens(tokens, params["embed"], cfg)
     positions = make_positions(cfg, b, s, device=tokens.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        a, kv = attention(x, bp["attn"], cfg, positions, want_cache=want_cache)
-        x = x + a
-        x = x + mlp(x, bp["mlp"], cfg)
+    _, per = _group_layout(cfg)
+    cache: Dict[str, list] = {}
+
+    def collect(part: Optional[Dict], prefix: str = "") -> None:
         if want_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            for k, v in part.items():
+                cache.setdefault(prefix + k, []).append(v)
+
+    if cfg.family in ("ssm", "hybrid"):
+        for i in range(cfg.n_layers):
+            y, st = mamba_layer(x, _layer(params["blocks"], i), cfg, want_state=want_cache)
+            x = x + y
+            collect(st)
+            if cfg.family == "hybrid" and (i + 1) % per == 0:
+                x, kv = _shared_block(x, params, cfg, positions, want_cache=want_cache)
+                collect(kv, "shared_")
+    else:
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            a, kv = attention(x, bp["attn"], cfg, positions, want_cache=want_cache)
+            x = x + a
+            x = x + mlp(x, bp["mlp"], cfg)
+            collect(kv)
     if logits_positions == "last":
         x = x[:, -1:, :]
     logits = lm_logits(x, params["embed"], cfg)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache else None
-    return logits, cache
+    return logits, ({k: torch.stack(v) for k, v in cache.items()} if want_cache else None)
 
 
-def init_cache_specs(cfg: ArchConfig, batch: int, seq: int,
-                     dtype=torch.bfloat16) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of each decode-cache buffer: k/v [L, b, S, kvh, d].
-    bf16 whatever the compute dtype, as in JAX."""
-    _check_dense(cfg)
-    kvd = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
-    return {"k": (kvd, dtype), "v": (kvd, dtype)}
+def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each decode-cache buffer: k/v [L, b, S, kvh, d]
+    (bf16 whatever the compute dtype, as in JAX); SSM states fp32
+    [L, ...]; the hybrid's shared k/v [groups, b, S, kvh, d]."""
+    _check_ported(cfg)
+    groups, _ = _group_layout(cfg)
+    kvd = (batch, seq, cfg.n_kv_heads, cfg.hd)
+    if cfg.family in ("ssm", "hybrid"):
+        cache = {k: ((cfg.n_layers,) + shape, dt)
+                 for k, (shape, dt) in mamba_state_specs(cfg, batch).items()}
+        if cfg.family == "hybrid":
+            cache["shared_k"] = ((groups,) + kvd, dtype)
+            cache["shared_v"] = ((groups,) + kvd, dtype)
+        return cache
+    return {"k": ((cfg.n_layers,) + kvd, dtype), "v": ((cfg.n_layers,) + kvd, dtype)}
 
 
 def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
                 tokens: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens [b, 1]; ``pos`` is the write position (the
-    current context length). Writes the new k/v into ``cache`` in place
-    and returns (logits [b, 1, v], cache)."""
+    current context length). Updates ``cache`` in place (new k/v at
+    ``pos``, new SSM states) and returns (logits [b, 1, v], cache)."""
     b = tokens.shape[0]
     x = embed_tokens(tokens, params["embed"], cfg)
     positions = make_positions(cfg, b, 1, offset=pos, device=tokens.device)
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        a, _ = attention(x, bp["attn"], cfg, positions,
-                         cache={"k": cache["k"][i], "v": cache["v"][i]},
-                         cache_index=pos)
-        x = x + a
-        x = x + mlp(x, bp["mlp"], cfg)
+    _, per = _group_layout(cfg)
+
+    if cfg.family in ("ssm", "hybrid"):
+        for i in range(cfg.n_layers):
+            y, st = mamba_layer(x, _layer(params["blocks"], i), cfg,
+                                state={"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+            cache["conv"][i].copy_(st["conv"])
+            cache["ssm"][i].copy_(st["ssm"])
+            x = x + y
+            if cfg.family == "hybrid" and (i + 1) % per == 0:
+                g = i // per
+                x, _ = _shared_block(x, params, cfg, positions,
+                                     cache={"k": cache["shared_k"][g],
+                                            "v": cache["shared_v"][g]},
+                                     cache_index=pos)
+    else:
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            a, _ = attention(x, bp["attn"], cfg, positions,
+                             cache={"k": cache["k"][i], "v": cache["v"][i]},
+                             cache_index=pos)
+            x = x + a
+            x = x + mlp(x, bp["mlp"], cfg)
     return lm_logits(x, params["embed"], cfg), cache

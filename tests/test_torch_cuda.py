@@ -12,7 +12,8 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.feasibility import feasible_mask
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode
-from repro_torch.kernels.ref import ref_attention, ref_decode, ref_feasible
+from repro_torch.kernels.ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk
+from repro_torch.kernels.ssd_scan import ssd_chunk
 
 # atol = rtol as in tests/test_kernels.py:32: in bf16 the output is rounded
 # to bf16; in fp32 only the order of the sums differs
@@ -225,3 +226,101 @@ def test_flat_graph_on_card_matches_cpu(cuda):
     fc, fh = (g.flat() for g in twins)
     assert fc.n_agg_sweeps == fh.n_agg_sweeps >= 3
     assert np.array_equal(fc.agg[:fc.n, :len(fc.types)], fh.agg[:fh.n, :len(fh.types)])
+
+
+# ---------------------------------------------------------------------- #
+# the SSD chunk kernel and the SSM / hybrid models on the card
+# ---------------------------------------------------------------------- #
+def _ssd_inputs(rng, b, s, H, P, G, N, device):
+    x = rng.standard_normal((b, s, H, P), np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, H)), 0).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.3).astype(np.float32)
+    B = rng.standard_normal((b, s, G, N), np.float32)
+    C = rng.standard_normal((b, s, G, N), np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, dt, A, B, C)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,H,P,G,N,chunk", [
+    (2, 512, 16, 64, 1, 128, 256),   # mamba2's head and state widths, fewer heads
+    (2, 512, 16, 64, 1, 64, 256),    # zamba2's state
+    (1, 384, 8, 64, 1, 128, 128),    # chunk 128, three chunks
+    (2, 32, 8, 16, 1, 16, 8),        # the reduced configs
+    (1, 64, 4, 32, 2, 16, 16),       # two groups
+    (1, 96, 4, 16, 4, 8, 16),        # a chunk count that is not a power of two
+    (1, 200, 4, 16, 1, 8, 200),      # a chunk that is not a tile multiple
+])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_chunk_kernel_vs_plain(b, s, H, P, G, N, chunk, strided, cuda):
+    """All three outputs within atol = rtol = 1e-4 (tests/test_kernels.py);
+    ``strided`` hands x, B and C as views into one [b, s, H*P + 2*G*N]
+    projection and dt as a view of a wider one, as the model does."""
+    x, dt, A, B, C = _ssd_inputs(np.random.default_rng(10), b, s, H, P, G, N, cuda)
+    if strided:
+        wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
+        x = wide[..., :H * P].reshape(b, s, H, P)
+        B = wide[..., H * P:H * P + G * N].reshape(b, s, G, N)
+        C = wide[..., H * P + G * N:].reshape(b, s, G, N)
+        dt = torch.cat([dt, dt], -1)[..., :H]
+        assert not (x.is_contiguous() or B.is_contiguous() or dt.is_contiguous())
+    n = LAUNCHES["ssd_chunk"]
+    got = ssd_chunk(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_chunk"] == n + 1
+    for out, ref in zip(got, ref_ssd_chunk(x, dt, A, B, C, chunk)):
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_wrapper_refuses_bad_inputs(cuda):
+    args = _ssd_inputs(np.random.default_rng(11), 1, 64, 4, 16, 2, 8, cuda)
+    bad = [(0, args[0].double(), "dtype"),
+           (0, args[0].cpu(), "CUDA"),                       # not on the card
+           (1, args[1][:, :, :2], "shape"),
+           (3, args[3].transpose(2, 3).contiguous().transpose(2, 3), "contiguous"),
+           (2, torch.cat([args[2], args[2]])[::2], "contiguous")]
+    n = LAUNCHES["ssd_chunk"]
+    for i, t, match in bad:
+        with pytest.raises(ValueError, match=match):
+            ssd_chunk(*args[:i], t, *args[i + 1:], 16)
+    for chunk, match in ((48, "chunk"), (512, "chunk")):
+        with pytest.raises(ValueError, match=match):
+            ssd_chunk(*args, chunk)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_chunk(*_ssd_inputs(np.random.default_rng(12), 1, 16, 3, 16, 2, 8, cuda), 8)
+    assert LAUNCHES["ssd_chunk"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_models_go_through_kernels(arch, cuda):
+    """A reduced-config prefill and two decode steps on the card launch
+    ssd_chunk once per Mamba2 block (and the attention kernels once per
+    shared-block application) and agree with the same model on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import splice_cache
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import make_model
+
+    cfg = get_config(arch).reduced()
+    cpu = make_model(cfg, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = make_model(cfg, device=cuda)
+    gpu.load_params(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (2, 14)))
+    shared = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    before = dict(LAUNCHES)
+    outs = []
+    for model in (cpu, gpu):
+        logits, pc = model.prefill_step(toks[:, :12].to(model.device))
+        cache = model.init_cache(ShapeConfig("serve", 16, 2, "decode"))
+        splice_cache(cache, pc)
+        steps = [model.serve_step(cache, toks[:, 12 + i:13 + i].to(model.device), 12 + i)[0]
+                 for i in range(2)]
+        outs.append([t.cpu() for t in (logits, *steps, cache["ssm"])])
+    assert LAUNCHES["ssd_chunk"] == before["ssd_chunk"] + cfg.n_layers
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + shared
+    assert LAUNCHES["flash_decode"] == before["flash_decode"] + 2 * shared
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)

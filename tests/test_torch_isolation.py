@@ -49,6 +49,11 @@ def test_import_and_prefill_with_jax_blocked():
         model.init_params(torch.Generator().manual_seed(0))
         logits, cache = model.prefill_step(torch.zeros(2, 8, dtype=torch.long))
         assert logits.shape == (2, 1, 256) and torch.isfinite(logits).all()
+        model = make_model(get_config("mamba2-2.7b").reduced(), device="cpu")
+        model.init_params(torch.Generator().manual_seed(0))
+        logits, cache = model.prefill_step(torch.zeros(2, 12, dtype=torch.long))
+        assert logits.shape == (2, 1, 256) and torch.isfinite(logits).all()
+        assert cache["ssm"].shape == (2, 2, 8, 16, 16)
         assert not any(m.split(".")[0] in ("jax", "repro") and sys.modules[m] is not None
                        for m in sys.modules)
         print("ok")

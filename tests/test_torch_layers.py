@@ -96,13 +96,24 @@ def test_attention_cached_decode_rounds_cache_to_bf16():
             np.delete(np.asarray(jc[name].astype(jnp.float32)), pos, axis=1))
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "nemotron-4-15b"])  # swiglu, relu2
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "nemotron-4-15b", "zamba2-2.7b"])  # swiglu, relu2, gelu
 def test_mlp(arch):
     jcfg, cfg = _cfgs(arch)
     rng = np.random.default_rng(4)
     jp, tp = _both(_weights(tl.mlp_specs(cfg), rng))
     x = rng.standard_normal((2, 6, cfg.d_model)).astype(np.float32)
     _close(tl.mlp(torch.from_numpy(x), tp, cfg), jl.mlp(jnp.asarray(x), jp, jcfg, CTX))
+
+
+def test_gelu_is_jax_tanh_form():
+    """jax.nn.gelu's default is the tanh form; torch's erf form differs by
+    up to ~4e-4 on [-3, 3], beyond the fp32 tolerances."""
+    import jax
+    x = np.linspace(-6, 6, 2001, dtype=np.float32)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x)))
+    got = torch.nn.functional.gelu(torch.from_numpy(x), approximate="tanh").numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    assert np.abs(torch.nn.functional.gelu(torch.from_numpy(x)).numpy() - want).max() > 1e-4
 
 
 def test_embed_and_lm_logits():

@@ -123,7 +123,8 @@ def test_decode_consistent_with_forward(pair):
     np.testing.assert_allclose(log[:, 0].numpy(), full[:, -1].numpy(), atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen3-moe-30b-a3b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "qwen3-moe-30b-a3b", "musicgen-medium",
+                                  "llama4-maverick-400b-a17b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         make_model(get_config(arch).reduced(), device="cpu")
