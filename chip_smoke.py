@@ -6,9 +6,14 @@
 Phases, each printing JSON lines:
 
 1. env: the card, its power limit, and the build of every CUDA kernel
-   from ``src/repro_torch/kernels/csrc`` (nvcc, all started together).
+   from ``src/repro_torch/kernels/csrc`` (nvcc, all started together),
+   with the registers and spills ptxas reports for each kernel.
 2. kernels: each attention kernel against its plain PyTorch version on
-   the card, at the serving shapes and a few more, with the kernel's
+   the card, at the serving shapes and a few more: prefill in bf16 (the
+   tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
+   a ragged length, skv > sq, GQA groups 1 to 4, head dims 16 to
+   128) and in fp32 (the CUDA-core kernel). At the llama and zamba2
+   prefill shapes (model layout) and the llama decode shape: the kernel's
    device time (torch.profiler) and its time by CUDA events around a
    loop, the plain version's and one library call's time beside the
    card's bound.
@@ -18,7 +23,8 @@ Phases, each printing JSON lines:
 4. consistency: prefill of s tokens plus one decode step against a full
    forward over s+1 tokens, at full width in bf16.
 5. profile: device time by kernel and the device's idle share for one
-   prefill and a few decode steps at the serving shape.
+   prefill and a few decode steps at the serving shape; the prefill
+   runs the tensor-core kernel once per layer and the scalar one never.
 6. ssm_kernels: the SSD chunk kernel against its plain version at
    atol = rtol = 1e-4 on all three outputs (the mamba2 and zamba2
    serving shapes, chunk 128, the reduced shape, two groups, three
@@ -56,6 +62,7 @@ from __future__ import annotations
 import json
 import math
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -136,6 +143,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by its mangled name (which holds its template arguments)."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
 def compare(out, ref, dtype: str, tol: float = None) -> float:
     tol = TOL[dtype] if tol is None else tol
     diff = (out.float() - ref.float()).abs()
@@ -161,31 +187,44 @@ def phase_kernels(dev) -> dict:
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
             getattr(torch, dtype))
 
-    # ---- flash_attention (prefill) ----
-    cases = [  # name, b, h, kvh, sq, skv, d, window, dtype
-        ("serve", 8, 24, 8, 512, 512, 128, 0, "bfloat16"),
-        ("serve_fp32", 8, 24, 8, 512, 512, 128, 0, "float32"),
-        ("window", 2, 24, 8, 512, 512, 128, 128, "bfloat16"),
-        ("window_fp32", 2, 8, 2, 256, 256, 64, 32, "float32"),
-        ("ragged", 2, 24, 8, 200, 200, 128, 0, "bfloat16"),
-        ("ragged_fp32", 2, 24, 8, 200, 200, 128, 0, "float32"),
-        ("offset_q", 2, 6, 2, 72, 200, 32, 0, "float32"),
-        ("d16", 2, 4, 2, 256, 256, 16, 0, "float32"),
-        ("d16_bf16", 2, 4, 2, 256, 256, 16, 0, "bfloat16"),
-        ("d80", 2, 32, 32, 192, 192, 80, 0, "bfloat16"),
+    # ---- flash_attention (prefill): bf16 on the tensor cores, fp32 on the CUDA cores ----
+    cases = [  # name, b, h, kvh, sq, skv, d, window, dtype, layout; timed: serve, zamba2
+        # bshd: permuted [b, s, h, d] views, as models/layers.py::attention passes them
+        ("serve", 8, 24, 8, 512, 512, 128, 0, "bfloat16", "bshd"),
+        ("serve_bhsd", 8, 24, 8, 512, 512, 128, 0, "bfloat16", "bhsd"),
+        ("zamba2", 8, 32, 32, 512, 512, 80, 0, "bfloat16", "bshd"),
+        ("serve_fp32", 8, 24, 8, 512, 512, 128, 0, "float32", "bhsd"),
+        ("window", 2, 24, 8, 512, 512, 128, 128, "bfloat16", "bhsd"),
+        ("window32_bf16", 2, 8, 2, 256, 256, 64, 32, "bfloat16", "bshd"),
+        ("window_fp32", 2, 8, 2, 256, 256, 64, 32, "float32", "bhsd"),
+        ("ragged", 2, 24, 8, 200, 200, 128, 0, "bfloat16", "bhsd"),
+        ("ragged_fp32", 2, 24, 8, 200, 200, 128, 0, "float32", "bhsd"),
+        ("offset_q", 2, 6, 2, 72, 200, 32, 0, "float32", "bhsd"),
+        ("offset_q_bf16", 2, 6, 2, 72, 200, 32, 0, "bfloat16", "bshd"),
+        ("gqa3_d32_bf16", 2, 6, 2, 256, 256, 32, 0, "bfloat16", "bhsd"),
+        ("d64_bf16", 2, 8, 2, 256, 256, 64, 0, "bfloat16", "bshd"),
+        ("d16", 2, 4, 2, 256, 256, 16, 0, "float32", "bhsd"),
+        ("d16_bf16", 2, 4, 2, 256, 256, 16, 0, "bfloat16", "bhsd"),
+        ("d80", 2, 32, 32, 192, 192, 80, 0, "bfloat16", "bhsd"),
+        ("d80_ragged_bf16", 2, 32, 32, 200, 200, 80, 0, "bfloat16", "bshd"),
     ]
     fa = {}
-    for name, b, h, kvh, sq, skv, d, window, dtype in cases:
-        q = randn(b, h, sq, d, dtype=dtype)
-        k = randn(b, kvh, skv, d, dtype=dtype)
-        v = randn(b, kvh, skv, d, dtype=dtype)
+    for name, b, h, kvh, sq, skv, d, window, dtype, layout in cases:
+        if layout == "bshd":
+            q = randn(b, sq, h, d, dtype=dtype).permute(0, 2, 1, 3)
+            k = randn(b, skv, kvh, d, dtype=dtype).permute(0, 2, 1, 3)
+            v = randn(b, skv, kvh, d, dtype=dtype).permute(0, 2, 1, 3)
+        else:
+            q = randn(b, h, sq, d, dtype=dtype)
+            k = randn(b, kvh, skv, d, dtype=dtype)
+            v = randn(b, kvh, skv, d, dtype=dtype)
         out = flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
         ref = ref_attention(q, k, v, window=window)
         err = compare(out, ref, dtype)
         emit("kernels", kernel="flash_attention", case=name, shape=[b, h, kvh, sq, skv, d],
-             window=window, dtype=dtype, max_abs_err=err, tol=TOL[dtype])
-        if name == "serve":
+             window=window, dtype=dtype, layout=layout, max_abs_err=err, tol=TOL[dtype])
+        if name in ("serve", "zamba2"):
             ms = device_ms(lambda: flash_attention(q, k, v), iters=20)
             event_ms = time_ms(lambda: flash_attention(q, k, v))
             plain_ms = device_ms(lambda: ref_attention(q, k, v), iters=5)
@@ -197,12 +236,16 @@ def phase_kernels(dev) -> dict:
             flops = 4.0 * d * pairs * b * h
             nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
             t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
-            fa = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                      bound_ms=1e3 * max(t_ops, t_bytes),
-                      bound_by="operations" if t_ops >= t_bytes else "bytes", event_ms=event_ms)
+            timed = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=1e3 * max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         event_ms=event_ms)
+            if name == "serve":
+                fa = timed
             emit("kernels", kernel="flash_attention", case=name, ms=ms, event_ms=event_ms,
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fa["bound_ms"],
-                 bound_by=fa["bound_by"], tflops=flops / ms / 1e9)
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=timed["bound_ms"],
+                 bound_by=timed["bound_by"], tflops=flops / ms / 1e9)
+        del q, k, v, out, ref
 
     # ---- flash_decode, through the model's [b, S, kvh, d] cache layout ----
     fd = {}
@@ -407,9 +450,16 @@ def phase_profile(dev, model, steps: int = 4) -> None:
 
     tok = prefill()
     torch.cuda.synchronize()
+    attn = expected_launches(model.cfg, 1)["flash_attention"]
     for name, fn in (("prefill", prefill), ("decode", lambda: decode(tok))):
         wall_ms, rows, _ = profiled(fn)
         busy_ms = sum(r[0] for r in rows)
+        if name == "prefill" and attn and model.cfg.dtype == "bfloat16":
+            # bf16 prefill attention runs on the tensor cores, never the scalar kernel
+            mma = sum(n for _, n, k in rows if "flash_fwd_mma_kernel" in k)
+            scalar = sum(n for _, n, k in rows if "flash_fwd_kernel" in k)
+            check(mma == attn and scalar == 0, f"{model.cfg.name} prefill profile: "
+                  f"{mma} flash_fwd_mma_kernel, {scalar} flash_fwd_kernel for {attn} blocks")
         emit("profile", arch=model.cfg.name, part=name, batch=b, prompt_len=s,
              decode_steps=steps if name == "decode" else 0, wall_ms=wall_ms,
              device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
@@ -825,13 +875,16 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build(["flash_attention", "feasibility", "ssd_chunk"])
     build_s = time.perf_counter() - t0
+    ptxas = []
     for path in libs.values():
         log = path.with_suffix(".log")
         if log.exists():
-            print(log.read_text(), file=sys.stderr)
+            text = log.read_text()
+            print(text, file=sys.stderr)
+            ptxas += ptxas_report(text)
     emit("env", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-         libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
+         libraries=[str(p.relative_to(ROOT)) for p in libs.values()], ptxas=ptxas)
     drive(dev, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,6 +61,18 @@ def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
 
 
+def _check_async_copy(*ts: torch.Tensor) -> None:
+    """The bf16 prefill kernel copies rows to shared memory 16 bytes at a
+    time (cp.async), so every row it reads starts on a 16-byte boundary:
+    the pointer aligned, every stride but the head dim's a multiple of 8
+    elements. The model's q/k/v views meet this; anything else raises."""
+    for name, t in zip("qkv", ts):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: bf16 prefill needs a 16-byte aligned pointer and "
+                             f"strides that are multiples of 8 elements, got pointer "
+                             f"{t.data_ptr():#x}, strides {t.stride()}")
+
+
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
@@ -70,10 +82,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] -> [b, h, sq, d].
 
-    Any strides with a contiguous head dim; any sq and skv (ragged edges
-    are masked in the kernel). The window applies with the causal mask.
-    The result is a [b, h, sq, d] view of a [b, sq, h, d] buffer, so
-    the model's merge of the heads is free."""
+    Any strides with a contiguous head dim (in bf16, 16-byte aligned
+    rows: see ``_check_async_copy``); any sq and skv (ragged edges are
+    masked in the kernel). The window applies with the causal mask.
+    bf16 runs on the tensor cores (P rounded to bf16 before P·V, as
+    FlashAttention does), fp32 on the CUDA cores. The result is a
+    [b, h, sq, d] view of a [b, sq, h, d] buffer, so the model's merge
+    of the heads is free."""
     _check_common(q, k, v)
     if q.dtype != k.dtype:
         raise ValueError("q, k and v must share one dtype")
@@ -82,6 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and sq > skv:
         raise ValueError("causal attention needs skv >= sq (every query row "
                          "must see a key)")
+    if q.dtype == torch.bfloat16:
+        _check_async_copy(q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 12)(

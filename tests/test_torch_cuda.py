@@ -46,19 +46,66 @@ def _close(out, ref, dtype):
     (1, 4, 2, 200, 200, 16, 0),      # ragged length, reduced head_dim
     (1, 6, 2, 72, 200, 32, 0),       # sq < skv
     (2, 32, 32, 96, 96, 80, 0),      # zamba2 head_dim
+    (2, 6, 2, 256, 256, 32, 0),      # GQA group 3
+    (2, 6, 2, 200, 200, 64, 32),     # ragged length under a window
+    (2, 32, 32, 200, 200, 80, 0),    # zamba2 head_dim, ragged
 ])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])   # bshd: the model's permuted views
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_kernel_vs_plain(b, h, kvh, sq, skv, d, window, dtype, cuda):
+def test_flash_attention_kernel_vs_plain(b, h, kvh, sq, skv, d, window, layout, dtype, cuda):
     rng = np.random.default_rng(6)
-    q = _randn(rng, (b, h, sq, d), dtype, cuda)
-    k = _randn(rng, (b, kvh, skv, d), dtype, cuda)
-    v = _randn(rng, (b, kvh, skv, d), dtype, cuda)
+    if layout == "bhsd":
+        q = _randn(rng, (b, h, sq, d), dtype, cuda)
+        k = _randn(rng, (b, kvh, skv, d), dtype, cuda)
+        v = _randn(rng, (b, kvh, skv, d), dtype, cuda)
+    else:
+        q = _randn(rng, (b, sq, h, d), dtype, cuda).permute(0, 2, 1, 3)
+        k = _randn(rng, (b, skv, kvh, d), dtype, cuda).permute(0, 2, 1, 3)
+        v = _randn(rng, (b, skv, kvh, d), dtype, cuda).permute(0, 2, 1, 3)
     n = LAUNCHES["flash_attention"]
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == n + 1
     assert out.shape == q.shape and out.dtype == q.dtype
     _close(out, ref_attention(q, k, v, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_non_causal_kernel_vs_plain(dtype, cuda):
+    """Without the causal mask every key is read, past sq too, and both
+    ragged edges (sq 100, skv 72: neither a tile multiple) are masked."""
+    rng = np.random.default_rng(10)
+    q = _randn(rng, (2, 4, 100, 64), dtype, cuda)
+    k = _randn(rng, (2, 2, 72, 64), dtype, cuda)
+    v = _randn(rng, (2, 2, 72, 64), dtype, cuda)
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _close(out, ref_attention(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misalign", ["pointer", "row_stride"])
+def test_flash_attention_bf16_rejects_unaligned_rows(misalign, cuda):
+    """The bf16 kernel copies 16-byte rows with cp.async: a view whose
+    pointer or row stride is not 16-byte aligned raises (never a quiet
+    detour to another kernel), and nothing is launched."""
+    rng = np.random.default_rng(9)
+    b, h, kvh, s, d = 1, 4, 2, 64, 16
+    k = _randn(rng, (b, kvh, s, d), "bfloat16", cuda)
+    v = _randn(rng, (b, kvh, s, d), "bfloat16", cuda)
+    if misalign == "pointer":      # starts one element into its buffer
+        q = _randn(rng, (b * h * s * d + 1,), "bfloat16", cuda)[1:].view(b, h, s, d)
+    else:                          # rows 20 elements (40 bytes) apart
+        q = _randn(rng, (b, h, s, d + 4), "bfloat16", cuda)[..., :d]
+    n = LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, v)
+    assert LAUNCHES["flash_attention"] == n
+    # the same values through aligned rows pass (a copy: the misaligned
+    # pointer case is already contiguous)
+    out = flash_attention(q.clone(memory_format=torch.contiguous_format), k, v)
+    _close(out, ref_attention(q, k, v), "bfloat16")
 
 
 @pytest.mark.cuda
