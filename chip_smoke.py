@@ -7,16 +7,18 @@ Phases, each printing JSON lines:
 
 1. env: the card, its power limit, and the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` (nvcc, all started together),
-   with the registers and spills ptxas reports for each kernel.
+   with the registers and spills ptxas reports for each kernel; every
+   instantiation of the decode kernel must spill nothing.
 2. kernels: each attention kernel against its plain PyTorch version on
    the card, at the serving shapes and a few more: prefill in bf16 (the
    tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
    a ragged length, skv > sq, GQA groups 1 to 4, head dims 16 to
-   128) and in fp32 (the CUDA-core kernel). At the llama and zamba2
-   prefill shapes (model layout) and the llama decode shape: the kernel's
-   device time (torch.profiler) and its time by CUDA events around a
-   loop, the plain version's and one library call's time beside the
-   card's bound.
+   128) and in fp32 (the CUDA-core kernel); decode at the llama and
+   zamba2 serving shapes in bf16, and at the llama shape in fp32 and in
+   fp32 over the bf16 cache, ragged lengths from 1 to S. At the llama and
+   zamba2 prefill and decode shapes (model layout): the kernel's device
+   time (torch.profiler) and its time by CUDA events around a loop, the
+   plain version's and one library call's time beside the card's bound.
 3. serve: ``run_serving("llama3.2-3b", batch=8, prompt_len=512, gen=32,
    smoke=False)`` at full width (28 layers, d_model 3072), with the
    kernels' launch counts read around exactly this run.
@@ -84,6 +86,18 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # which differ in the order of the sums of the three products
 SSD_TOL = 1e-4
 ARCH = "llama3.2-3b"
+# flash_decode cases: name, (b, h, kvh, S, d), q dtype, cache dtype, timed. The
+# serving shapes of llama3.2-3b and zamba2-2.7b at batch 8 (S: 512 + 32 and
+# 512 + 8 cache slots, neither a multiple of the 64-key tile); fp32 over fp32,
+# and fp32 q over the bf16 cache as the fp32 configs decode
+DECODE_CASES = [
+    ("serve", (8, 24, 8, 544, 128), "bfloat16", "bfloat16", True),
+    ("serve_fp32", (8, 24, 8, 544, 128), "float32", "float32", False),
+    ("serve_fp32_bf16_cache", (8, 24, 8, 544, 128), "float32", "bfloat16", False),
+    ("zamba2", (8, 32, 32, 520, 80), "bfloat16", "bfloat16", True),
+]
+# the decode kernel's instantiations: 3 dtype pairs x 5 head dims x G 1, 2, 3, 4, 8
+DECODE_INSTANTIATIONS = 75
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # full-width depths, checked against each config before its run
 DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560)}
@@ -125,15 +139,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, iters: int = 100) -> float:
     """Device time per call of ``fn``: the self device time of every kernel
-    and copy it launches, summed under torch.profiler over ``iters``
-    calls. For a call of a few microseconds, CUDA events around a loop
-    (``time_ms``) time the host's launch rate instead: the device waits
-    between launches while the wrapper checks its arguments."""
+    and copy it launches under torch.profiler over ``iters`` calls, each
+    kernel's mean duration times its launches per call. For a call of a
+    few microseconds, CUDA events around a loop (``time_ms``) time the
+    host's launch rate instead: the device waits between launches while
+    the wrapper checks its arguments. The profiler now and then drops a
+    record: a kernel's launches per call are its record count over
+    ``iters`` rounded to a whole number (the fraction where that rounds
+    to 0, a kernel launched on some calls only), so a dropped record does
+    not cut the sum."""
     import torch
     fn()
     torch.cuda.synchronize()
     _, rows, _ = profiled(lambda: [fn() for _ in range(iters)])
-    return sum(r[0] for r in rows) / iters
+    return sum(ms / n * (round(n / iters) or n / iters) for ms, n, _ in rows)
 
 
 def nvidia_smi() -> str:
@@ -162,6 +181,22 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
+def decode_ptxas(rows: list) -> list:
+    """The ptxas rows of ``flash_decode_kernel<TQ, TKV, D, G>``, each with
+    its template arguments read from the mangled name."""
+    types = {"ff": "fp32/fp32", "f13__nv_bfloat16": "fp32/bf16",
+             "13__nv_bfloat16S1_": "bf16/bf16"}
+    out = []
+    for r in rows:
+        m = re.search(r"flash_decode_kernelI(\w+?)Li(\d+)ELi(\d+)E", r["kernel"])
+        if m:
+            out.append({"dtypes": types.get(m.group(1), m.group(1)), "d": int(m.group(2)),
+                        "G": int(m.group(3)), "registers": r.get("registers"),
+                        "spill_stores": r.get("spill_stores", 0),
+                        "spill_loads": r.get("spill_loads", 0)})
+    return out
+
+
 def compare(out, ref, dtype: str, tol: float = None) -> float:
     tol = TOL[dtype] if tol is None else tol
     diff = (out.float() - ref.float()).abs()
@@ -178,7 +213,7 @@ def compare(out, ref, dtype: str, tol: float = None) -> float:
 def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention, flash_decode
+    from repro_torch.kernels.flash_attention import decode_plan, flash_attention, flash_decode
     from repro_torch.kernels.ref import ref_attention, ref_decode
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -249,11 +284,10 @@ def phase_kernels(dev) -> dict:
 
     # ---- flash_decode, through the model's [b, S, kvh, d] cache layout ----
     fd = {}
-    for dtype in ("bfloat16", "float32"):
-        b, h, kvh, S, d = 8, 24, 8, 544, 128
-        copies = 4      # rotate caches (4 x 18 MB > the 50 MB L2): each launch reads cold
+    for name, (b, h, kvh, S, d), dtype, cache_dtype, timed in DECODE_CASES:
+        copies = 4 if timed else 1  # rotate caches larger than the 50 MB L2: each launch reads cold
         q = randn(b, 1, h, d, dtype=dtype).permute(0, 2, 1, 3)
-        caches = [(randn(b, S, kvh, d, dtype=dtype), randn(b, S, kvh, d, dtype=dtype))
+        caches = [(randn(b, S, kvh, d, dtype=cache_dtype), randn(b, S, kvh, d, dtype=cache_dtype))
                   for _ in range(copies)]
         views = [(ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3)) for ck, cv in caches]
         lengths = torch.randint(S // 2, S + 1, (b,), generator=gen, device=dev,
@@ -264,10 +298,11 @@ def phase_kernels(dev) -> dict:
         torch.cuda.synchronize()
         ref = ref_decode(q, *views[0], lengths)
         err = compare(out, ref, dtype)
-        emit("kernels", kernel="flash_decode", case="serve" if dtype == "bfloat16" else
-             "serve_fp32", shape=[b, h, kvh, S, d], dtype=dtype,
-             lengths=lengths.tolist(), max_abs_err=err, tol=TOL[dtype])
-        if dtype != "bfloat16":
+        plan = decode_plan(b, kvh, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+        emit("kernels", kernel="flash_decode", case=name, shape=[b, h, kvh, S, d], dtype=dtype,
+             cache_dtype=cache_dtype, split_plan=plan, lengths=lengths.tolist(),
+             max_abs_err=err, tol=TOL[dtype])
+        if not timed:
             continue
         it = iter(range(1 << 30))
         ms = device_ms(lambda: flash_decode(q, *views[next(it) % copies], lengths))
@@ -283,12 +318,17 @@ def phase_kernels(dev) -> dict:
         nbytes = 2.0 * 2 * kvh * ctx * d + 2.0 * 2 * q.numel() + 4 * b
         flops = 4.0 * h * d * ctx
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
-        fd = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                  bound_ms=1e3 * max(t_ops, t_bytes),
-                  bound_by="operations" if t_ops >= t_bytes else "bytes", event_ms=event_ms)
-        emit("kernels", kernel="flash_decode", case="serve", ms=ms, event_ms=event_ms,
-             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fd["bound_ms"],
-             bound_by=fd["bound_by"], gbps=nbytes / ms / 1e6)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", event_ms=event_ms)
+        emit("kernels", kernel="flash_decode", case=name, ms=ms, event_ms=event_ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], gbps=nbytes / ms / 1e6)
+        if name == "serve":
+            fd = row
+        else:
+            fd[name] = row
+        del expanded
     return {"flash_attention": fa, "flash_decode": fd}
 
 
@@ -882,9 +922,15 @@ def main() -> int:
             text = log.read_text()
             print(text, file=sys.stderr)
             ptxas += ptxas_report(text)
+    decode = decode_ptxas(ptxas)
     emit("env", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-         libraries=[str(p.relative_to(ROOT)) for p in libs.values()], ptxas=ptxas)
+         libraries=[str(p.relative_to(ROOT)) for p in libs.values()], ptxas=ptxas,
+         decode_ptxas=decode)
+    check(len(decode) == DECODE_INSTANTIATIONS,
+          f"ptxas reports {len(decode)} decode instantiations, not {DECODE_INSTANTIATIONS}")
+    spilled = [r for r in decode if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"decode instantiations spill: {spilled}")
     drive(dev, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

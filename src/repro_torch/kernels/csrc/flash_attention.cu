@@ -3,9 +3,9 @@
 // Replaces the Pallas TPU kernels in src/repro/kernels/flash_attention.py:
 //   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (fp32)
 //                             <- flash_attention / _flash_kernel
-//   flash_decode_split_kernel <- flash_decode / _decode_kernel
-//   + flash_decode_combine_kernel (the cross-split softmax combine that the
-//     TPU kernel did not need: its kv loop was one sequential grid axis).
+//   flash_decode_kernel       <- flash_decode / _decode_kernel (its splits of
+//     the cache meet in a thread block cluster: the cross-split combine that
+//     the TPU kernel did not need, its kv loop being one sequential grid axis).
 //
 // Plain C interface, loaded with ctypes (kernels/build.py). Kernels allocate
 // nothing: the Python wrapper allocates outputs and scratch on the current
@@ -39,16 +39,38 @@
 //     all 64 query rows of the block.
 //
 // flash_decode: one query row per head against the whole cache, so the
-// kernel is bound by the K/V bytes it reads (2*b*kvh*len*d*sizeof(T)). Its
-// design: one block per (row, kv head, split) serves all h/kvh query heads
-// of that kv head, so each K/V element is read from device memory once;
-// keys at or past lengths[b] are never read; the cache is split along the
-// sequence so that enough blocks fill the 132 SMs at small batch; and K/V
-// are read through the strides given, so the model's [b, S, kvh, d] cache
-// is read in place, with no transposed copy.
+// kernel is bound by the K/V bytes it reads (2*b*kvh*len*d*sizeof(T), each
+// once): 12-13 MB at the llama decode shape (b 8, kvh 8, d 128, bf16,
+// ragged lengths), 3.7 us at 3.35 TB/s, against 43 MFLOP of work (0.04 us on
+// the tensor cores, so it does not use them). HBM delivers its rate only
+// with about 3.35 TB/s x ~1 us = 3 MB of loads in flight, ~25 KB per SM. So:
+//   - one block per (row, kv head, split) serves all g = h/kvh query heads
+//     of that kv head: each K/V element is read from device memory once,
+//     through the strides given (the model's [b, S, kvh, d] cache in place),
+//     and keys at or past lengths[b] are never read;
+//   - every K/V read is one 16-byte cp.async (8 bf16 or 4 fp32 dims of a key
+//     row) into a 4-stage ring in shared memory, 16 KB a stage, 3 stages in
+//     flight: 48 KB a block, and an SM holds 3 blocks (64 KB each);
+//   - D and the group G (1, 2, 3, 4, or 8 for 5-8) are template parameters,
+//     so every loop unrolls and q, the scores, the running max and sum and
+//     the accumulators stay in registers; no block barrier runs inside the
+//     key loop (a thread reads back only what it copied), two run after it,
+//     where the 4 warps merge their states;
+//   - every lane of every warp reads keys at g = 1 as at g = 8: the heads
+//     share a lane's loads, they do not divide the lanes;
+//   - the cache is split along the sequence, in whole tiles of 64 keys, into
+//     as many splits (at most 8) as let all blocks be resident at once
+//     (kernels/flash_attention.py::decode_plan): 5 at the llama shape, 320
+//     blocks; 1 at zamba2's, 256 blocks. The splits of one (row, kv
+//     head) are one thread block cluster, which joins their partials through
+//     distributed shared memory: one launch, no scratch in device memory,
+//     nothing for the host to reset, so it can be captured in a CUDA graph.
+//     (A second kernel for the join would add its launch, which costs about
+//     as much device time as a split kernel with no keys to read.)
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
@@ -483,160 +505,287 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 // ---------------------------------------------------------------------------
-// Decode, pass 1. Grid (n_splits, kvh, b); 128 threads; dynamic shared memory
-// (decode_smem_floats). Keys [s0, min(s0 + split_len, lengths[b])) are
-// staged in tiles of 32; each tile's scores for the g query heads go through
-// shared memory, one warp per head does the online-softmax bookkeeping, and
-// the accumulators [g, D] stay in shared memory. Writes one partial
-// (m, l, acc) per (row, head, split) to fp32 scratch.
+// Decode. Grid (n_splits, kvh, b); 4 warps. Each thread owns kVec contiguous
+// dims of one key row, copied as one 16-byte cp.async: kLanesPerRow lanes
+// cover a row and a warp covers kRowsPerWarp rows at once (lanes past the
+// last whole row sit out: 2 of 32 at d 80 in bf16). A stage is kKeys keys
+// per row group (key k0 + j * groups + group of the block's stage of
+// groups * kKeys keys), K and V; a ring of kStages stages in shared memory
+// keeps kStages - 1 of them in flight while one is computed. Each thread
+// reads back only the bytes it copied itself, so the ring needs no block
+// barrier: a thread waits on its own copies (cp.async.wait_group) and
+// refills the slot it has just read. Per stage a row group takes its keys'
+// scores for all g heads against its q slice (a shuffle sum over the row's
+// lanes) and folds them into its warp's online softmax: m is the warp's (a
+// warp-wide max), l and the accumulator slice are the row group's, all in
+// registers. Scores are in log2 units (q is scaled by scale * log2 e), so
+// every exponential is exp2. After the split's keys the warps' states meet
+// in shared memory (over the ring) into the split's partial (acc, m, l) per
+// head, and the cluster's blocks join the partials of all splits.
 // ---------------------------------------------------------------------------
-constexpr int kDecBK = 32;
-constexpr int kDecThreads = 128;
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecMaxSplits = 8;      // the largest portable cluster
 
-inline int decode_smem_floats(int g, int D) {
-  return kDecBK * (D + 1) + kDecBK * D + g * D + g * kDecBK + g * D + 3 * g;
+template <typename TKV, int D, int G>
+struct DecodeGeometry {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(TKV));   // elements per copy
+  static constexpr int kLanesPerRow = D / kVec;
+  static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
+  static constexpr int kGroups = kDecWarps * kRowsPerWarp;          // rows read at once
+  static constexpr int kKeys = 4;                                   // per row group and stage
+  static constexpr int kStages = 4;
+  // one stage of K and V: 2 * 4 keys * 16 bytes per thread, 16 KB per block
+  // at every D and dtype (2 of 32 lanes idle at d 80: 15 KB)
+  static constexpr int kStageBytes = 2 * kKeys * kGroups * D * static_cast<int>(sizeof(TKV));
+  static constexpr int kMergeBytes = sizeof(float) * kGroups * G * D;
+  static constexpr int kRingBytes = kStages * kStageBytes > kMergeBytes
+                                        ? kStages * kStageBytes : kMergeBytes;
+  // after the ring: the warps' m [4][G] and the row groups' l [groups][G];
+  // then this split's partial, read by the cluster: acc [G][D], (m, l) [G][2]
+  static constexpr int kSmemBytes =
+      kRingBytes + sizeof(float) * (kDecWarps * G + kGroups * G + G * D + 2 * G);
+  static_assert(D % kVec == 0 && kLanesPerRow <= 32, "head dim");
+};
+
+__device__ __forceinline__ void widen16(const uint4& u, float (&f)[8]) {   // 8 bf16
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen16(const uint4& u, float (&f)[4]) {   // 4 fp32
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
 }
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                          const TKV* __restrict__ v, const int* __restrict__ lengths,
-                          float* __restrict__ part_m, float* __restrict__ part_l,
-                          float* __restrict__ part_acc,
-                          int h, int kvh, int S, int D, int split_len, int n_splits,
-                          long long qsb, long long qsh,
-                          long long ksb, long long ksh, long long kss,
-                          long long vsb, long long vsh, long long vss,
-                          float scale) {
-  extern __shared__ float smem[];
-  const int g = h / kvh;
-  float* Ks = smem;                        // [BK][D+1] (padded: no bank conflicts)
-  float* Vs = Ks + kDecBK * (D + 1);       // [BK][D]
-  float* Qs = Vs + kDecBK * D;             // [g][D]
-  float* Ss = Qs + g * D;                  // [g][BK] scores, then probabilities
-  float* Acc = Ss + g * kDecBK;            // [g][D]
-  float* Ms = Acc + g * D;                 // [g]
-  float* Ls = Ms + g;                      // [g]
-  float* Al = Ls + g;                      // [g]
+// sum over the kLanesPerRow lanes that hold one key row, left in all of them
+template <int LPR>
+__device__ __forceinline__ float row_sum(float x, int lane, int sub) {
+  if constexpr ((LPR & (LPR - 1)) == 0) {
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  } else {     // rows not aligned to a power of two (d 80): a tree to the row's lane 0
+#pragma unroll
+    for (int o = 1; o < LPR; o <<= 1) {
+      const float y = __shfl_down_sync(0xffffffffu, x, o);
+      if (sub + o < LPR) x += y;
+    }
+    return __shfl_sync(0xffffffffu, x, lane - sub);
+  }
+}
 
+// max over the warp of a value that is uniform within each row
+template <int LPR>
+__device__ __forceinline__ float warp_max(float x) {
+  constexpr int first = (LPR & (LPR - 1)) == 0 ? LPR : 1;
+#pragma unroll
+  for (int o = first; o < 32; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <typename TQ, typename TKV, int D, int G>
+__global__ void __launch_bounds__(kDecThreads)
+flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                    const TKV* __restrict__ v, const int* __restrict__ lengths,
+                    TQ* __restrict__ o, int h, int kvh, int S, int split_len, int n_splits,
+                    long long qsb, long long qsh,
+                    long long ksb, long long ksh, long long kss,
+                    long long vsb, long long vsh, long long vss,
+                    long long osb, long long osh, float scale_log2) {
+  using Geo = DecodeGeometry<TKV, D, G>;
+  constexpr int VEC = Geo::kVec, LPR = Geo::kLanesPerRow, RPW = Geo::kRowsPerWarp;
+  constexpr int GROUPS = Geo::kGroups, N = Geo::kKeys, STAGES = Geo::kStages;
+  constexpr int STEP = GROUPS * N;                       // keys per stage
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  // ring[stage][K or V][key j][group][D]; after the keys, the merge's
+  // acc[group][G][D] over it
+  TKV* ring = reinterpret_cast<TKV*>(dec_smem);
+  float* sm_m = reinterpret_cast<float*>(dec_smem + Geo::kRingBytes);   // [warps][G]
+  float* sm_l = sm_m + kDecWarps * G;                                   // [groups][G]
+  float* part_acc = sm_l + GROUPS * G;                                  // [G][D]
+  float* part_ml = part_acc + G * D;                                    // [G][2]
+
+  const int g = h / kvh;             // <= G: heads past g are zeros, never written
   const int split = blockIdx.x, kh = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane % LPR;        // this lane's dims: sub * VEC ...
+  const int row = lane / LPR;        // this lane's row of the warp (RPW: sits out)
+  const bool active = row < RPW;
+  const int grp = warp * RPW + row;
   const int len = min(lengths[bb], S);
   const int s0 = split * split_len;
   const int s1 = min(s0 + split_len, len);
-  const long long head0 = (long long)bb * h + kh * g;   // flat (row, head) of head 0
+  const int n_steps = s1 > s0 ? (s1 - s0 + STEP - 1) / STEP : 0;
 
-  if (s0 >= s1) {                          // split wholly past this row's length
-    for (int idx = tid; idx < g * D; idx += kDecThreads) {
-      const int gi = idx / D, dd = idx % D;
-      part_acc[((head0 + gi) * n_splits + split) * D + dd] = 0.f;
+  const TKV* kb = k + bb * ksb + kh * ksh + sub * VEC;
+  const TKV* vb = v + bb * vsb + kh * vsh + sub * VEC;
+  const uint4 kZero16 = make_uint4(0u, 0u, 0u, 0u);   // what an idle lane reads
+  // this thread's 16 bytes of key j, K or V, in ring stage st
+  auto slot = [&](int st, int kv, int j) {
+    return ring + (((st * 2 + kv) * N + j) * GROUPS + grp) * D + sub * VEC;
+  };
+  // stage i of the split: keys s0 + i * STEP + j * GROUPS + grp; past s1 the
+  // copy zero-fills (from a valid address), so a masked key's V is 0, not junk
+  auto fetch = [&](int i) {
+    if (i < n_steps && active) {
+      const int st = i % STAGES;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int key = s0 + i * STEP + j * GROUPS + grp;
+        const bool ok = key < s1;
+        const long long row_k = ok ? key * kss : 0, row_v = ok ? key * vss : 0;
+        cp_async_16(smem_u32(slot(st, 0, j)), kb + row_k, ok);
+        cp_async_16(smem_u32(slot(st, 1, j)), vb + row_v, ok);
+      }
     }
-    if (tid < g) {
-      part_m[(head0 + tid) * n_splits + split] = -INFINITY;
-      part_l[(head0 + tid) * n_splits + split] = 0.f;
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) fetch(i);
+
+  float qr[G][VEC], acc[G][VEC], m[G], l[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    const TQ* qp = q + bb * qsb + (long long)(kh * g + gi) * qsh + sub * VEC;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qr[gi][e] = active && gi < g ? to_f(qp[e]) * scale_log2 : 0.f;
+      acc[gi][e] = 0.f;
     }
-    return;
+    m[gi] = -INFINITY;
+    l[gi] = 0.f;
   }
 
-  for (int idx = tid; idx < g * D; idx += kDecThreads) {
-    const int gi = idx / D, dd = idx % D;
-    Qs[idx] = to_f(q[bb * qsb + (kh * g + gi) * qsh + dd]);
-    Acc[idx] = 0.f;
-  }
-  if (tid < g) {
-    Ms[tid] = -INFINITY;
-    Ls[tid] = 0.f;
-  }
-
-  const TKV* kb = k + bb * ksb + kh * ksh;
-  const TKV* vb = v + bb * vsb + kh * vsh;
-  for (int k0 = s0; k0 < s1; k0 += kDecBK) {
-    __syncthreads();
-    for (int idx = tid; idx < kDecBK * D; idx += kDecThreads) {
-      const int kk = idx / D, dd = idx % D, pos = k0 + kk;
-      const bool ok = pos < s1;
-      Ks[kk * (D + 1) + dd] = ok ? to_f(kb[(long long)pos * kss + dd]) : 0.f;
-      Vs[kk * D + dd] = ok ? to_f(vb[(long long)pos * vss + dd]) : 0.f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < g * kDecBK; idx += kDecThreads) {
-      const int gi = idx / kDecBK, kk = idx % kDecBK;
-      float sc = -INFINITY;                // keys past the split or the length
-      if (k0 + kk < s1) {
-        const float* qr = Qs + gi * D;
-        const float* kr = Ks + kk * (D + 1);
+  for (int i = 0; i < n_steps; ++i) {
+    fetch(i + STAGES - 1);            // refills the slot this thread read at step i - 1
+    cp_async_wait<STAGES - 1>();      // this thread's copies of step i have landed
+    const int st = i % STAGES;
+    const int k0 = s0 + i * STEP;
+    float s[N][G];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float kf[VEC];
+      widen16(active ? *reinterpret_cast<const uint4*>(slot(st, 0, j)) : kZero16, kf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
         float dot = 0.f;
-        for (int dd = 0; dd < D; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
-        sc = dot * scale;
-      }
-      Ss[idx] = sc;
-    }
-    __syncthreads();
-    // every tile holds at least one valid key (k0 < s1), so tmax is finite
-    for (int gi = warp; gi < g; gi += kDecThreads / 32) {
-      const float sc = Ss[gi * kDecBK + lane];
-      float tmax = sc;
-      for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_old = Ms[gi];
-      const float m_new = fmaxf(m_old, tmax);
-      const float p = expf(sc - m_new);
-      float psum = p;
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      Ss[gi * kDecBK + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        Al[gi] = alpha;
-        Ls[gi] = Ls[gi] * alpha + psum;
-        Ms[gi] = m_new;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
+        s[j][gi] = dot;
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < g * D; idx += kDecThreads) {
-      const int gi = idx / D, dd = idx % D;
-      float a = Acc[idx] * Al[gi];
-      const float* pr = Ss + gi * kDecBK;
-#pragma unroll 8
-      for (int kk = 0; kk < kDecBK; ++kk) a = fmaf(pr[kk], Vs[kk * D + dd], a);
-      Acc[idx] = a;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const bool ok = active && k0 + j * GROUPS + grp < s1;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float dot = row_sum<LPR>(s[j][gi], lane, sub);
+        s[j][gi] = ok ? dot : -INFINITY;
+      }
     }
+    // the warp's running max; masked keys (-inf) weigh 0
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float cm = s[0][gi];
+#pragma unroll
+      for (int j = 1; j < N; ++j) cm = fmaxf(cm, s[j][gi]);
+      const float m_new = fmaxf(m[gi], warp_max<LPR>(cm));
+      if (m_new == -INFINITY) continue;           // uniform: no key of this warp yet
+      const float alpha = exp2f(m[gi] - m_new);   // 0 at the warp's first keys
+      m[gi] = m_new;
+      l[gi] *= alpha;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[gi][e] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float vf[VEC];
+      widen16(active ? *reinterpret_cast<const uint4*>(slot(st, 1, j)) : kZero16, vf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float p = s[j][gi] == -INFINITY ? 0.f : exp2f(s[j][gi] - m[gi]);
+        l[gi] += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();                 // no copy may land in the merge's memory
+
+  // the warps meet once: M = max_w m_w, L = sum l_r 2^(m_w - M), A likewise
+  float* sm_acc = reinterpret_cast<float*>(dec_smem);   // [GROUPS][G][D], over the ring
+  __syncthreads();                    // every thread is done with the ring
+  if (active) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4)
+        *reinterpret_cast<float4*>(&sm_acc[(grp * G + gi) * D + sub * VEC + e]) =
+            make_float4(acc[gi][e], acc[gi][e + 1], acc[gi][e + 2], acc[gi][e + 3]);
+      if (sub == 0) sm_l[grp * G + gi] = l[gi];
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) sm_m[warp * G + gi] = m[gi];
   }
   __syncthreads();
-  for (int idx = tid; idx < g * D; idx += kDecThreads) {
+  for (int idx = threadIdx.x; idx < g * D; idx += kDecThreads) {
     const int gi = idx / D, dd = idx % D;
-    part_acc[((head0 + gi) * n_splits + split) * D + dd] = Acc[idx];
-  }
-  if (tid < g) {
-    part_m[(head0 + tid) * n_splits + split] = Ms[tid];
-    part_l[(head0 + tid) * n_splits + split] = Ls[tid];
-  }
-}
-
-// Decode, pass 2. Grid (h, b); 128 threads. Joins the splits' partial softmax:
-// out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30).
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_combine_kernel(const float* __restrict__ part_m,
-                            const float* __restrict__ part_l,
-                            const float* __restrict__ part_acc, T* __restrict__ o,
-                            int h, int D, int n_splits, long long osb, long long osh) {
-  const int hh = blockIdx.x, bb = blockIdx.y;
-  const long long rowh = (long long)bb * h + hh;
-  const float* pm = part_m + rowh * n_splits;
-  const float* pl = part_l + rowh * n_splits;
-  float M = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, pm[s]);
-  float l = 0.f;
-  for (int s = 0; s < n_splits; ++s) l += pm[s] == -INFINITY ? 0.f : pl[s] * expf(pm[s] - M);
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  for (int dd = threadIdx.x; dd < D; dd += kDecThreads) {
-    float a = 0.f;
-    for (int s = 0; s < n_splits; ++s) {
-      if (pm[s] == -INFINITY) continue;
-      a += part_acc[(rowh * n_splits + s) * D + dd] * expf(pm[s] - M);
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, sm_m[w * G + gi]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float mw = sm_m[w * G + gi];
+      if (mw == -INFINITY) continue;
+      const float f = exp2f(mw - M);
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        L = fmaf(f, sm_l[(w * RPW + r) * G + gi], L);
+        A = fmaf(f, sm_acc[((w * RPW + r) * G + gi) * D + dd], A);
+      }
     }
-    store_f(o + bb * osb + hh * osh + dd, a * inv);
+    part_acc[gi * D + dd] = A;
+    if (dd == 0) {
+      part_ml[2 * gi] = M;
+      part_ml[2 * gi + 1] = L;
+    }
   }
+
+  // The splits of this (row, kv head) are one cluster, block rank = split.
+  // Each block joins a share of the outputs from all the splits' partials,
+  // read from their shared memory, in split order with a running max as the
+  // online softmax: M' = max(M, m_s), L' = L 2^(M - M') + l_s 2^(m_s - M'),
+  // acc likewise; a split past the row's length (m_s = -inf) weighs 0.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                     // every split's partial is written
+  for (int idx = split * kDecThreads + threadIdx.x; idx < g * D;
+       idx += n_splits * kDecThreads) {
+    const int gi = idx / D, dd = idx % D;
+    float M = -INFINITY, L = 0.f, a = 0.f;
+    for (int r = 0; r < n_splits; ++r) {
+      const float* ml = cluster.map_shared_rank(part_ml, r);
+      const float ms = ml[2 * gi], ls = ml[2 * gi + 1];
+      const float as = cluster.map_shared_rank(part_acc, r)[gi * D + dd];
+      const float m_new = fmaxf(M, ms);
+      const float c = M == m_new ? 1.f : exp2f(M - m_new);
+      const float w = ms == -INFINITY ? 0.f : exp2f(ms - m_new);
+      L = fmaf(L, c, w * ls);
+      a = fmaf(a, c, w * as);
+      M = m_new;
+    }
+    store_f(o + bb * osb + (long long)(kh * g + gi) * osh + dd, a / fmaxf(L, 1e-30f));
+  }
+  cluster.sync();                     // no block leaves while its partial is read
 }
 
 // bf16 on the tensor cores. At D 80 and 128 the kernel takes more than the
@@ -695,23 +844,74 @@ int launch_fwd_d(int d, const void* q, const void* k, const void* v, void* o, in
   }
 }
 
-template <typename TQ, typename TKV>
-int launch_decode(const void* q, const void* k, const void* v, const int* lengths,
-                  void* o, float* part_m, float* part_l, float* part_acc, int b,
-                  int h, int kvh, int S, int d, int split_len, int n_splits,
-                  const long long* st, float scale, cudaStream_t stream) {
-  // g <= 8 and d <= 128 (checked by the wrapper) keep this within the 48 KB
-  // a block may take without opting in
-  const size_t smem = sizeof(float) * decode_smem_floats(h / kvh, d);
-  flash_decode_split_kernel<TQ, TKV><<<dim3(n_splits, kvh, b), kDecThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      lengths, part_m, part_l, part_acc, h, kvh, S, d, split_len, n_splits,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], scale);
-  cudaError_t err = cudaGetLastError();
+struct DecodeArgs {
+  const void *q, *k, *v;
+  const int* lengths;
+  void* o;
+  int b, h, kvh, S, split_len, n_splits;
+  const long long* st;
+  float scale;
+  cudaStream_t stream;
+};
+
+// One cluster of n_splits blocks per (row, kv head). The ring takes 64 KB of
+// dynamic shared memory, more than a block gets without opting in; the
+// largest carveout lets three blocks share an SM. Both are set before every
+// launch, so they hold on whichever device is current.
+template <typename TQ, typename TKV, int D, int G>
+int launch_decode(const DecodeArgs& a) {
+  if (a.n_splits < 1 || a.n_splits > kDecMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_decode_kernel<TQ, TKV, D, G>;
+  constexpr int smem = DecodeGeometry<TKV, D, G>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<TQ><<<dim3(h, b), kDecThreads, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<TQ*>(o), h, d, n_splits, st[8], st[9]);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = a.n_splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_splits, a.kvh, a.b);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const long long* st = a.st;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+                           static_cast<const TKV*>(a.v), a.lengths, static_cast<TQ*>(a.o), a.h,
+                           a.kvh, a.S, a.split_len, a.n_splits, st[0], st[1], st[2], st[3],
+                           st[4], st[5], st[6], st[7], st[8], st[9], a.scale * kLog2e);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// g query heads per kv head, padded to G in {1, 2, 3, 4, 8}
+template <typename TQ, typename TKV, int D>
+int launch_decode_g(const DecodeArgs& a) {
+  switch (a.h / a.kvh) {
+    case 1: return launch_decode<TQ, TKV, D, 1>(a);
+    case 2: return launch_decode<TQ, TKV, D, 2>(a);
+    case 3: return launch_decode<TQ, TKV, D, 3>(a);
+    case 4: return launch_decode<TQ, TKV, D, 4>(a);
+    case 5: case 6: case 7: case 8: return launch_decode<TQ, TKV, D, 8>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename TQ, typename TKV>
+int launch_decode_d(int d, const DecodeArgs& a) {
+  switch (d) {
+    case 16: return launch_decode_g<TQ, TKV, 16>(a);
+    case 32: return launch_decode_g<TQ, TKV, 32>(a);
+    case 64: return launch_decode_g<TQ, TKV, 64>(a);
+    case 80: return launch_decode_g<TQ, TKV, 80>(a);
+    case 128: return launch_decode_g<TQ, TKV, 128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -737,25 +937,18 @@ int flash_attention_fwd(int dtype, int d, const void* q, const void* k, const vo
 // q_dtype / kv_dtype as above (the output takes q's): the cache is bf16 even
 // when the model computes in fp32, and bf16 -> fp32 is exact, as the JAX model's
 // read of the cache as its compute dtype. strides (in elements), 10 values:
-// q (b, h), k (b, kvh, s), v (b, kvh, s), o (b, h).
-// Scratch: part_m, part_l [b*h*n_splits]; part_acc [b*h*n_splits*d].
+// q (b, h), k (b, kvh, s), v (b, kvh, s), o (b, h). K and V are read 16 bytes
+// at a time: both pointers 16-byte aligned, their strides multiples of 16
+// bytes (the wrapper checks). 1 <= n_splits <= 8, splits of split_len keys.
 int flash_decode_fwd(int q_dtype, int kv_dtype, int d, const void* q, const void* k,
-                     const void* v,
-                     const int* lengths, void* o, float* part_m, float* part_l,
-                     float* part_acc, int b, int h, int kvh, int S, int split_len,
-                     int n_splits, const long long* strides, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_decode<float, float>(q, k, v, lengths, o, part_m, part_l, part_acc, b, h,
-                                       kvh, S, d, split_len, n_splits, strides, scale, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, k, v, lengths, o, part_m, part_l,
-                                                       part_acc, b, h, kvh, S, d, split_len,
-                                                       n_splits, strides, scale, st);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_decode<float, __nv_bfloat16>(q, k, v, lengths, o, part_m, part_l, part_acc,
-                                               b, h, kvh, S, d, split_len, n_splits, strides,
-                                               scale, st);
+                     const void* v, const int* lengths, void* o, int b, int h, int kvh,
+                     int S, int split_len, int n_splits, const long long* strides,
+                     float scale, void* stream) {
+  const DecodeArgs a{q, k, v, lengths, o, b, h, kvh, S, split_len, n_splits, strides,
+                     scale, static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0 && kv_dtype == 0) return launch_decode_d<float, float>(d, a);
+  if (q_dtype == 1 && kv_dtype == 1) return launch_decode_d<__nv_bfloat16, __nv_bfloat16>(d, a);
+  if (q_dtype == 0 && kv_dtype == 1) return launch_decode_d<float, __nv_bfloat16>(d, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,8 +20,13 @@ from . import build
 from .build import LAUNCHES
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
-MAX_GQA_GROUP = 8            # decode keeps g query heads in shared memory: <= 48 KB at d=128
-DECODE_BLOCK_K = 32          # keys per tile in the decode kernel (kDecBK)
+# decode keeps q and the accumulators of all g heads of a kv head in each
+# thread's registers (2 x g x 8 floats at a bf16 cache): past g 8 they would
+# spill
+MAX_GQA_GROUP = 8
+DECODE_TILE = 64             # keys per split unit
+DECODE_BLOCKS_PER_SM = 3     # a block takes 64 KB of shared memory: three fit an SM
+DECODE_MAX_SPLITS = 8        # the splits of a (row, kv head) are one cluster: <= 8 blocks
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -31,8 +36,7 @@ def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P, I, I, I, I, I, P, F, I, I, P]
     lib.flash_attention_fwd.restype = I
-    lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
-                                     I, I, I, I, I, I, P, F, P]
+    lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, F, P]
     lib.flash_decode_fwd.restype = I
     return lib
 
@@ -61,16 +65,16 @@ def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
 
 
-def _check_async_copy(*ts: torch.Tensor) -> None:
-    """The bf16 prefill kernel copies rows to shared memory 16 bytes at a
-    time (cp.async), so every row it reads starts on a 16-byte boundary:
-    the pointer aligned, every stride but the head dim's a multiple of 8
-    elements. The model's q/k/v views meet this; anything else raises."""
-    for name, t in zip("qkv", ts):
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
-            raise ValueError(f"{name}: bf16 prefill needs a 16-byte aligned pointer and "
-                             f"strides that are multiples of 8 elements, got pointer "
-                             f"{t.data_ptr():#x}, strides {t.stride()}")
+def _check_16b_rows(what: str, **ts: torch.Tensor) -> None:
+    """Kernels that read rows 16 bytes at a time (bf16 prefill's cp.async,
+    decode's K/V loads) need every row to start on a 16-byte boundary: the
+    pointer aligned, every stride but the head dim's a multiple of 16
+    bytes. The model's views meet this; anything else raises."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: {what} needs a 16-byte aligned pointer and strides "
+                             f"that are multiples of 16 bytes, got pointer "
+                             f"{t.data_ptr():#x}, strides {t.stride()} of {t.dtype}")
 
 
 def _check(rc: int, what: str) -> None:
@@ -83,7 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] -> [b, h, sq, d].
 
     Any strides with a contiguous head dim (in bf16, 16-byte aligned
-    rows: see ``_check_async_copy``); any sq and skv (ragged edges are
+    rows: see ``_check_16b_rows``); any sq and skv (ragged edges are
     masked in the kernel). The window applies with the causal mask.
     bf16 runs on the tensor cores (P rounded to bf16 before P·V, as
     FlashAttention does), fp32 on the CUDA cores. The result is a
@@ -98,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("causal attention needs skv >= sq (every query row "
                          "must see a key)")
     if q.dtype == torch.bfloat16:
-        _check_async_copy(q, k, v)
+        _check_16b_rows("bf16 prefill", q=q, k=k, v=v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 12)(
@@ -114,25 +118,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _decode_splits(b: int, kvh: int, S: int, device: torch.device) -> tuple:
-    """(split_len, n_splits): split the cache so that the grid holds about
-    two blocks per SM; each split is a whole number of key tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-S // DECODE_BLOCK_K)
-    n = max(1, min(-(-2 * sms // (b * kvh)), tiles))
-    split_len = -(-tiles // n) * DECODE_BLOCK_K
+def decode_plan(b: int, kvh: int, S: int, sms: int) -> tuple:
+    """(split_len, n_splits) of the decode kernel's grid (n_splits, kvh, b):
+    as many splits of the cache as let every block be resident at once
+    (``DECODE_BLOCKS_PER_SM`` on each of ``sms`` SMs), no more than there
+    are tiles or than a cluster holds (``DECODE_MAX_SPLITS``), and at least
+    one. A cluster holds its SMs until its last split is done, so a second
+    wave of clusters would wait on the first's slowest split. Each split is
+    a whole number of ``DECODE_TILE``-key tiles (rounding up, which can halve
+    the count), and together they cover [0, S)."""
+    tiles = -(-S // DECODE_TILE)
+    n = max(1, min(DECODE_BLOCKS_PER_SM * sms // (b * kvh), tiles, DECODE_MAX_SPLITS))
+    split_len = -(-tiles // n) * DECODE_TILE
     return split_len, -(-S // split_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """Single-token attention over a KV cache.
 
-    q: [b, h, 1, d]; k, v: [b, kvh, S, d] with any strides (the model
-    passes a permuted view of its [b, S, kvh, d] cache); lengths: int32
-    [b], each at least 1 (cache position t of row i is attended when
-    t < lengths[i]). The cache may be bf16 under an fp32 q (the model's
-    cache is always bf16). Returns [b, h, 1, d] in q's dtype."""
+    q: [b, h, 1, d]; k, v: [b, kvh, S, d] with any strides whose rows
+    start on 16-byte boundaries (the model passes a permuted view of its
+    [b, S, kvh, d] cache); lengths: int32 [b], each at least 1 (cache
+    position t of row i is attended when t < lengths[i]). The cache may be
+    bf16 under an fp32 q (the model's cache is always bf16). Returns
+    [b, h, 1, d] in q's dtype."""
     if (q.dtype, k.dtype) == (torch.bfloat16, torch.float32):
         raise ValueError("an fp32 cache needs an fp32 q")
     _check_common(q, k, v)
@@ -145,19 +160,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lengths.dtype != torch.int32 or lengths.shape != (b,) or \
             lengths.device != q.device or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous int32 [b] tensor on q's device")
-    split_len, n_splits = _decode_splits(b, kvh, S, q.device)
+    split_len, n_splits = decode_plan(b, kvh, S, _sm_count(q.device.index))
+    _check_16b_rows("flash_decode", k=k, v=v)
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
-    part_m = torch.empty((b * h * n_splits,), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b * h * n_splits * d,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 10)(
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1))
         rc = _lib().flash_decode_fwd(
             _DTYPES[q.dtype], _DTYPES[k.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), b, h, kvh, S, split_len, n_splits, strides,
+            lengths.data_ptr(), out.data_ptr(), b, h, kvh, S, split_len, n_splits, strides,
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     _check(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1

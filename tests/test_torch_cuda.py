@@ -108,30 +108,75 @@ def test_flash_attention_bf16_rejects_unaligned_rows(misalign, cuda):
     _close(out, ref_attention(q, k, v), "bfloat16")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,cache_dtype", [
+DECODE_DTYPES = [
     ("float32", "float32"),
     ("bfloat16", "bfloat16"),
     ("float32", "bfloat16"),         # the fp32 reduced model over its bf16 cache
-])
+]
+
+
+def _decode_inputs(rng, b, h, kvh, S, d, dtype, cache_dtype, device):
+    """q and a [b, S, kvh, d] cache read through [b, kvh, S, d] views, as the
+    model passes them; ragged lengths with row 0 at S and row 1 at 1."""
+    q = _randn(rng, (b, 1, h, d), dtype, device).permute(0, 2, 1, 3)
+    ck = _randn(rng, (b, S, kvh, d), cache_dtype, device).permute(0, 2, 1, 3)
+    cv = _randn(rng, (b, S, kvh, d), cache_dtype, device).permute(0, 2, 1, 3)
+    lengths = torch.from_numpy(rng.integers(1, S + 1, (b,)).astype(np.int32)).to(device)
+    lengths[0] = S
+    if b > 1:
+        lengths[1] = 1
+    return q, ck, cv, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cache_dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("b,h,kvh,S,d", [
     (8, 24, 8, 544, 128),            # llama3.2-3b decode
-    (3, 4, 2, 40, 16),               # reduced config, S not a tile multiple
+    (8, 32, 32, 520, 80),            # zamba2-2.7b decode (S not a tile multiple)
+    (3, 4, 2, 40, 16),               # reduced config, shorter than a tile
+    (2, 16, 2, 200, 64),             # GQA group 8
+    (2, 12, 4, 100, 32),             # d 32, group 3
+    (4, 8, 2, 300, 64),              # d 64, group 4
+    (2, 10, 2, 130, 80),             # group 5, run as 8 with 3 heads idle
+    (1, 8, 1, 512, 128),             # 8 splits, the most a cluster takes
 ])
 def test_flash_decode_kernel_vs_plain(b, h, kvh, S, d, dtype, cache_dtype, cuda):
-    """Ragged lengths, read in place through the model's [b, S, kvh, d]
-    cache layout."""
+    """Ragged lengths (one row at S, one at 1), read in place through the
+    model's [b, S, kvh, d] cache layout. ``decode_plan`` gives these shapes
+    1 to 8 splits (clusters of 1 to 8 blocks), some with a short last split
+    (2 keys at S 130)."""
     rng = np.random.default_rng(7)
-    q = _randn(rng, (b, 1, h, d), dtype, cuda).permute(0, 2, 1, 3)
-    ck = _randn(rng, (b, S, kvh, d), cache_dtype, cuda).permute(0, 2, 1, 3)
-    cv = _randn(rng, (b, S, kvh, d), cache_dtype, cuda).permute(0, 2, 1, 3)
-    lengths = torch.from_numpy(rng.integers(1, S + 1, (b,)).astype(np.int32)).to(cuda)
-    lengths[0] = S
+    q, ck, cv, lengths = _decode_inputs(rng, b, h, kvh, S, d, dtype, cache_dtype, cuda)
     n = LAUNCHES["flash_decode"]
     out = flash_decode(q, ck, cv, lengths)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_decode"] == n + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
     _close(out, ref_decode(q, ck, cv, lengths), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("misalign", ["pointer", "row_stride"])
+def test_flash_decode_rejects_unaligned_rows(cache_dtype, misalign, cuda):
+    """The decode kernel reads K/V rows 16 bytes at a time: a K view whose
+    pointer or row stride is not 16-byte aligned raises (never a quiet
+    detour to the plain version), and nothing is launched."""
+    rng = np.random.default_rng(11)
+    b, h, kvh, S, d = 2, 4, 2, 64, 16
+    q = _randn(rng, (b, h, 1, d), "float32", cuda)
+    v = _randn(rng, (b, kvh, S, d), cache_dtype, cuda)
+    if misalign == "pointer":      # starts one element into its buffer
+        k = _randn(rng, (b * kvh * S * d + 1,), cache_dtype, cuda)[1:].view(b, kvh, S, d)
+    else:                          # rows d + 2 elements apart
+        k = _randn(rng, (b, kvh, S, d + 2), cache_dtype, cuda)[..., :d]
+    lengths = torch.full((b,), S, dtype=torch.int32, device=cuda)
+    n = LAUNCHES["flash_decode"]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_decode(q, k, v, lengths)
+    assert LAUNCHES["flash_decode"] == n
+    out = flash_decode(q, k.clone(memory_format=torch.contiguous_format), v, lengths)
+    _close(out, ref_decode(q, k, v, lengths), "float32")
 
 
 @pytest.mark.cuda
