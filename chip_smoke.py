@@ -27,18 +27,20 @@ Phases, each printing JSON lines:
 5. profile: device time by kernel and the device's idle share for one
    prefill and a few decode steps at the serving shape; the prefill
    runs the tensor-core kernel once per layer and the scalar one never.
-6. ssm_kernels: the SSD chunk kernel against its plain version at
-   atol = rtol = 1e-4 on all three outputs (the mamba2 and zamba2
-   serving shapes, chunk 128, the reduced shape, two groups, three
-   chunks, strided views as the model's), the full scan ``ssd_scan_op``
-   against the sequential recurrence with an initial state and a ragged
-   length, and the kernel's and the plain version's device times beside
-   the kernel's bound at the mamba2 shape.
+6. ssm_kernels: the SSD chunk kernels (one wrapper call, two launches)
+   against their plain version at atol = rtol = 1e-4 on all three
+   outputs (the mamba2 and zamba2 serving shapes, chunk 128, the reduced
+   shape, two groups, three chunks, strided views as the model's, state
+   and head widths below one mma tile, a chunk of one), the full scan
+   ``ssd_scan_op`` against the sequential recurrence with an initial
+   state and a ragged length, and the kernels' and the plain version's
+   device times beside the bound at the mamba2 and zamba2 shapes.
 7. serve_ssm: ``run_serving`` for mamba2-2.7b (64 Mamba2 blocks, d_model
    2560, 80 SSD heads of 64, state 128) and zamba2-2.7b (54 blocks and 9
    applications of the shared attention + MLP block) at full width, each
    with its launch counts read around exactly that run; then their
-   consistency checks and a profile of the mamba2 prefill and decode.
+   consistency checks and a profile of the mamba2 prefill (one launch of
+   each SSD kernel per block) and decode.
 8. schedule_kernels: the feasibility kernel against its plain version,
    bit-exact (the seeds of tests/test_kernels.py, mask bits above 31, a
    strided aggregate table, a cluster the size of LLNL's Quartz), and the
@@ -78,6 +80,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # fp32 outside the tensor cores
+TF32_FLOPS = 495e12              # dense TF32 tensor-core peak; fp32-accurate 3xTF32 takes 3 passes
 # atol = rtol, as in tests/test_kernels.py:32: in bf16 the output itself is
 # rounded to bf16 (8 bits of mantissa); in fp32 only the order of the sums
 # differs between the kernel and the plain version
@@ -494,6 +497,11 @@ def phase_profile(dev, model, steps: int = 4) -> None:
     for name, fn in (("prefill", prefill), ("decode", lambda: decode(tok))):
         wall_ms, rows, _ = profiled(fn)
         busy_ms = sum(r[0] for r in rows)
+        if name == "prefill" and model.cfg.family == "ssm":
+            # one ssd_chunk call per Mamba2 block: one launch of each SSD kernel
+            n = {k: sum(c for _, c, key in rows if k in key) for k in SSD_KERNELS}
+            check(all(c == model.cfg.n_layers for c in n.values()),
+                  f"{model.cfg.name} prefill profile: {n} for {model.cfg.n_layers} blocks")
         if name == "prefill" and attn and model.cfg.dtype == "bfloat16":
             # bf16 prefill attention runs on the tensor cores, never the scalar kernel
             mma = sum(n for _, n, k in rows if "flash_fwd_mma_kernel" in k)
@@ -510,7 +518,7 @@ def phase_profile(dev, model, steps: int = 4) -> None:
 # phase 6: the SSD chunk kernel against its plain version
 # ---------------------------------------------------------------------- #
 SSD_SERVE = (8, 512, 80, 64, 1, 128, 256)       # mamba2-2.7b at batch 8 x 512: b, s, H, P, G, N, Q
-SSD_CASES = [  # name, (b, s, H, P, G, N, chunk), strided; timed at the first
+SSD_CASES = [  # name, (b, s, H, P, G, N, chunk), strided; timed at the serving shapes
     ("mamba2", SSD_SERVE, False),
     ("zamba2", (8, 512, 80, 64, 1, 64, 256), False),
     ("chunk128", (8, 512, 80, 64, 1, 128, 128), False),   # the configs' perf patch
@@ -518,7 +526,13 @@ SSD_CASES = [  # name, (b, s, H, P, G, N, chunk), strided; timed at the first
     ("groups2", (2, 128, 4, 32, 2, 16, 32), False),
     ("chunks3", (2, 768, 80, 64, 1, 128, 256), False),    # not a power of two
     ("strided", SSD_SERVE, True),
+    ("narrow", (2, 128, 8, 12, 2, 12, 32), True),          # N, P below one mma tile
+    ("state10", (1, 64, 4, 8, 1, 10, 16), True),           # 4-byte copies of B and C
+    ("chunk1", (1, 16, 4, 16, 1, 8, 1), False),
 ]
+SSD_TIMED = ("mamba2", "zamba2")
+SSD_SEEDS = range(100, 108)   # further draws at the timed shapes, for the margin
+SSD_KERNELS = ("ssd_scores_kernel", "ssd_chunk_kernel")   # the launches of one call
 SSD_SCAN = (2, 200, 16, 64, 1, 128, 64)         # ragged: 200 = 3 chunks of 64 + 8
 
 
@@ -557,28 +571,41 @@ def phase_ssm_kernels(dev) -> dict:
         torch.cuda.synchronize()
         ref = ref_ssd_chunk(x, dt, A, B, C, Q)
         errs = [compare(o, r, "float32", SSD_TOL) for o, r in zip(out, ref)]
+        # the largest |diff| / (atol + rtol |ref|): the share of the tolerance used
+        share = [((o - r).abs() / (SSD_TOL + SSD_TOL * r.abs())).max().item()
+                 for o, r in zip(out, ref)]
         emit("ssm_kernels", kernel="ssd_chunk", case=name, shape=[b, s, H, P, G, N, Q],
              strided=strided, max_abs_err={"y": errs[0], "states": errs[1], "decay": errs[2]},
+             tol_share={"y": share[0], "states": share[1], "decay": share[2]},
              max_abs_ref=[r.abs().max().item() for r in ref], tol=SSD_TOL)
         del out, ref
-        if name == SSD_CASES[0][0]:
-            ms = device_ms(lambda: ssd_chunk(x, dt, A, B, C, Q), iters=20)
-            event_ms = time_ms(lambda: ssd_chunk(x, dt, A, B, C, Q))
-            plain_ms = device_ms(lambda: ref_ssd_chunk(x, dt, A, B, C, Q), iters=5)
-            nc = s // Q
-            flops = b * nc * H * (2.0 * Q * (Q + 1) / 2 * (N + P) + 2.0 * Q * N * P)
-            nbytes = 4.0 * (2 * x.numel() + dt.numel() + A.numel() + B.numel() + C.numel()
-                            + b * nc * H * (N * P + 1))
-            t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-            timed = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=1e3 * max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         event_ms=event_ms)
-            emit("ssm_kernels", kernel="ssd_chunk", case=name, ms=ms, event_ms=event_ms,
-                 plain_ms=plain_ms, library_ms=None, bound_ms=timed["bound_ms"],
-                 bound_by=timed["bound_by"], gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                 tflops=flops / ms / 1e9)
+        if name in SSD_TIMED:
+            row, counts = ssd_timing(x, dt, A, B, C, Q)
+            emit("ssm_kernels", kernel="ssd_chunk", case=name, **row, **counts)
+            timed[name] = dict(max_abs_err=max(errs), **row)
         del x, dt, A, B, C
+
+    # the serving shapes' margin over fresh inputs: the share of the
+    # tolerance each seed's y and states use
+    for name, (b, s, H, P, G, N, Q), _ in SSD_CASES:
+        if name not in SSD_TIMED:
+            continue
+        shares = []
+        for seed in SSD_SEEDS:
+            inputs = ssd_inputs(torch.Generator(device=dev).manual_seed(seed), dev,
+                                b, s, H, P, G, N)
+            out = ssd_chunk(*inputs, Q)
+            torch.cuda.synchronize()
+            ref = ref_ssd_chunk(*inputs, Q)
+            for o, r in zip(out, ref):
+                compare(o, r, "float32", SSD_TOL)
+            shares.append([((o - r).abs() / (SSD_TOL + SSD_TOL * r.abs())).max().item()
+                           for o, r in zip(out[:2], ref[:2])])
+            del inputs, out, ref
+        emit("ssm_kernels", kernel="ssd_chunk", case=f"{name}_seeds", seeds=list(SSD_SEEDS),
+             tol_share={"y": [v[0] for v in shares], "states": [v[1] for v in shares]},
+             max_tol_share={"y": max(v[0] for v in shares),
+                            "states": max(v[1] for v in shares)}, tol=SSD_TOL)
 
     # the whole scan (kernel + inter-chunk carry) against the recurrence,
     # from an initial state, over a length that is not a chunk multiple
@@ -591,7 +618,56 @@ def phase_ssm_kernels(dev) -> dict:
     emit("ssm_kernels", kernel="ssd_scan_op", case="ragged_init", shape=[b, s, H, P, G, N, Q],
          max_abs_err={"y": compare(y, ry, "float32", SSD_TOL),
                       "final_state": compare(h, rh, "float32", SSD_TOL)}, tol=SSD_TOL)
-    return timed
+    # the table's row is the mamba2 shape's, with zamba2's beside it
+    return dict(timed["mamba2"], zamba2=timed["zamba2"])
+
+
+def ssd_bytes(b, s, H, P, G, N, Q) -> float:
+    """Bytes of ``ssd_chunk``'s inputs and outputs, each counted once."""
+    return 4.0 * (2 * b * s * H * P + b * s * H + H + 2 * b * s * G * N
+                  + b * (s // Q) * H * (N * P + 1))
+
+
+def ssd_bound(b, s, H, P, G, N, Q):
+    """(ms, by, gflop, mbytes) of the least time for ``ssd_chunk``'s work:
+    C B^T once per (batch, chunk, group) and the two products per head,
+    causal half only, at the fastest fp32-accurate rate (3xTF32: three TF32
+    passes), against each input read once and each output written once."""
+    nc = s // Q
+    tri = Q * (Q + 1) / 2
+    flops = b * nc * (G * tri * N * 2.0 + H * (tri * P * 2.0 + Q * N * P * 2.0))
+    nbytes = ssd_bytes(b, s, H, P, G, N, Q)
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops / 1e9, nbytes / 1e6)
+
+
+def ssd_bound_pr13(b, s, H, P, G, N, Q):
+    """The bound as first counted for the port's kernel (``bound_ms_pr13``):
+    every head computing its own C B^T, on the fp32 CUDA cores."""
+    flops = b * (s // Q) * H * (2.0 * Q * (Q + 1) / 2 * (N + P) + 2.0 * Q * N * P)
+    return 1e3 * max(flops / FP32_FLOPS, ssd_bytes(b, s, H, P, G, N, Q) / HBM_BYTES_PER_S)
+
+
+def ssd_timing(x, dt, A, B, C, Q):
+    """(row, counts): the device time of one ``ssd_chunk`` call (both
+    launches, and each kernel's), the CUDA-event time of the call and the
+    plain version's device time, beside the bound; then what is counted
+    and not measured (the work, ``bound_ms_pr13``) and the rate."""
+    from repro_torch.kernels.ref import ref_ssd_chunk
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    _, rows, _ = profiled(lambda: [ssd_chunk(x, dt, A, B, C, Q) for _ in range(20)])
+    per_kernel = {k: sum(ms for ms, _, key in rows if k in key) / 20 for k in SSD_KERNELS}
+    ms = device_ms(lambda: ssd_chunk(x, dt, A, B, C, Q), iters=20)
+    bound, by, gflop, mbytes = ssd_bound(b, s, H, P, G, N, Q)
+    row = dict(ms=ms, kernel_ms=per_kernel, event_ms=time_ms(lambda: ssd_chunk(x, dt, A, B, C, Q)),
+               plain_ms=device_ms(lambda: ref_ssd_chunk(x, dt, A, B, C, Q), iters=5),
+               library_ms=None, bound_ms=bound, bound_by=by)
+    return row, dict(bound_ms_pr13=ssd_bound_pr13(b, s, H, P, G, N, Q), gflop=gflop,
+                     mbytes=mbytes, tflops=gflop / ms)
 
 
 # ---------------------------------------------------------------------- #
@@ -931,6 +1007,10 @@ def main() -> int:
           f"ptxas reports {len(decode)} decode instantiations, not {DECODE_INSTANTIATIONS}")
     spilled = [r for r in decode if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"decode instantiations spill: {spilled}")
+    ssd = [r for r in ptxas if any(k in r["kernel"] for k in SSD_KERNELS)]
+    check(len(ssd) == len(SSD_KERNELS), f"ptxas reports {len(ssd)} SSD kernels")
+    spilled = [r for r in ssd if r.get("spill_stores") or r.get("spill_loads")]
+    check(not spilled, f"SSD kernels spill: {spilled}")
     drive(dev, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

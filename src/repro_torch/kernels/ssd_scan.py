@@ -1,12 +1,15 @@
-"""Wrapper of the CUDA SSD intra-chunk kernel (``csrc/ssd_chunk.cu``).
+"""Wrapper of the CUDA SSD intra-chunk kernels (``csrc/ssd_chunk.cu``).
 
 ``ssd_chunk`` replaces ``ssd_chunk_pallas`` in ``repro/kernels/ssd_scan.py``
 with the same signature and layouts: per (batch, chunk, head) the masked
 quadratic form ``y_intra``, the chunk's state and its total decay-log. The
 inter-chunk recurrence is ``ops.py::ssd_scan_op``. It takes CUDA tensors
-only and launches the kernel or raises: the plain version is
+only and launches the kernels or raises: the plain version is
 ``ref.py::ref_ssd_chunk``, and ``ops.py`` picks between the two by the
-tensor's device. Each launch adds one to ``build.LAUNCHES["ssd_chunk"]``.
+tensor's device. One call is two launches, ``ssd_scores_kernel`` (C B^T
+once per group, and the cumulative decay) and ``ssd_chunk_kernel`` (the
+per-head products), through a scratch the wrapper allocates; each call
+adds one to ``build.LAUNCHES["ssd_chunk"]``.
 """
 from __future__ import annotations
 
@@ -20,17 +23,24 @@ from . import build
 from .build import LAUNCHES
 
 MAX_CHUNK = 256          # kMaxQ: the chunk's dt, seg and weights sit in shared memory
-MAX_STATE = 128          # kMaxN: rows of C^T / B^T in shared memory
-MAX_HEAD_DIM = 64        # kMaxP: columns of dt*x in shared memory
+MAX_STATE = 128          # kMaxN: columns of the B and C tiles in shared memory
+MAX_HEAD_DIM = 64        # kMaxP: columns of the dt*x tile in shared memory
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a built ``ssd_chunk.cu``'s
+    C entry points on ``lib``, and return it."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_chunk_fwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]
+    lib.ssd_chunk_fwd.restype = I
+    lib.ssd_chunk_scratch_floats.argtypes = [I, I, I, I, I]
+    lib.ssd_chunk_scratch_floats.restype = ctypes.c_longlong
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load("ssd_chunk")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_chunk_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]
-    lib.ssd_chunk_fwd.restype = I
-    return lib
+    return bind(build.load("ssd_chunk"))
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -76,13 +86,16 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tenso
     if y.numel() == 0:
         return y, states, decay
     with torch.cuda.device(x.device):
+        lib = _lib()
+        scratch = torch.empty(lib.ssd_chunk_scratch_floats(b, s, H, G, chunk),
+                              dtype=torch.float32, device=x.device)
         strides = (ctypes.c_longlong * 12)(
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
             B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2))
-        rc = _lib().ssd_chunk_fwd(
+        rc = lib.ssd_chunk_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), states.data_ptr(), decay.data_ptr(), b, s, H, P, G, N, chunk,
-            strides, torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), states.data_ptr(), decay.data_ptr(), scratch.data_ptr(),
+            b, s, H, P, G, N, chunk, strides, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk: CUDA error {rc} at launch")
     LAUNCHES["ssd_chunk"] += 1

@@ -341,6 +341,10 @@ def _ssd_inputs(rng, b, s, H, P, G, N, device):
     (1, 64, 4, 32, 2, 16, 16),       # two groups
     (1, 96, 4, 16, 4, 8, 16),        # a chunk count that is not a power of two
     (1, 200, 4, 16, 1, 8, 200),      # a chunk that is not a tile multiple
+    (1, 64, 4, 4, 1, 12, 16),        # N and P below one mma tile: zero-padded in shared memory
+    (2, 96, 4, 12, 2, 12, 32),       # P 12: a ragged 8-column tile
+    (1, 64, 4, 8, 1, 10, 16),        # N 10: 4-byte copies of B and C rows
+    (1, 16, 4, 16, 1, 8, 1),         # a chunk of one position
 ])
 @pytest.mark.parametrize("strided", [False, True])
 def test_ssd_chunk_kernel_vs_plain(b, s, H, P, G, N, chunk, strided, cuda):
@@ -362,6 +366,26 @@ def test_ssd_chunk_kernel_vs_plain(b, s, H, P, G, N, chunk, strided, cuda):
     for out, ref in zip(got, ref_ssd_chunk(x, dt, A, B, C, chunk)):
         assert out.shape == ref.shape and out.dtype == torch.float32
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_launches_two_kernels(cuda):
+    """One wrapper call is one launch of ``ssd_scores_kernel`` and one of
+    ``ssd_chunk_kernel`` (read from the profiler), and one count in
+    ``LAUNCHES["ssd_chunk"]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _ssd_inputs(np.random.default_rng(14), 2, 512, 16, 64, 1, 128, cuda)
+    ssd_chunk(*args, 256)
+    torch.cuda.synchronize()
+    n = LAUNCHES["ssd_chunk"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_chunk(*args, 256)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("ssd_scores_kernel" in k for k in names) == 1
+    assert sum("ssd_chunk_kernel" in k for k in names) == 1
+    assert LAUNCHES["ssd_chunk"] == n + 1
 
 
 @pytest.mark.cuda
