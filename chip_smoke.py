@@ -7,8 +7,8 @@ Phases, each printing JSON lines:
 
 1. env: the card, its power limit, and the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` (nvcc, all started together),
-   with the registers and spills ptxas reports for each kernel; every
-   instantiation of the decode kernel must spill nothing.
+   with the registers and spills ptxas reports for each kernel; no
+   instantiation of the decode, SSD or feasibility kernels may spill.
 2. kernels: each attention kernel against its plain PyTorch version on
    the card, at the serving shapes and a few more: prefill in bf16 (the
    tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
@@ -31,10 +31,12 @@ Phases, each printing JSON lines:
    against their plain version at atol = rtol = 1e-4 on all three
    outputs (the mamba2 and zamba2 serving shapes, chunk 128, the reduced
    shape, two groups, three chunks, strided views as the model's, state
-   and head widths below one mma tile, a chunk of one), the full scan
-   ``ssd_scan_op`` against the sequential recurrence with an initial
-   state and a ragged length, and the kernels' and the plain version's
-   device times beside the bound at the mamba2 and zamba2 shapes.
+   and head widths below one mma tile, a chunk of one); at the mamba2 and
+   zamba2 shapes also against the formula evaluated in fp64, at the same
+   tolerance, over 9 draws each; the full scan ``ssd_scan_op`` against
+   the sequential recurrence with an initial state and a ragged length,
+   and the kernels' and the plain version's device times beside the bound
+   at the mamba2 and zamba2 shapes.
 7. serve_ssm: ``run_serving`` for mamba2-2.7b (64 Mamba2 blocks, d_model
    2560, 80 SSD heads of 64, state 128) and zamba2-2.7b (54 blocks and 9
    applications of the shared attention + MLP block) at full width, each
@@ -43,11 +45,15 @@ Phases, each printing JSON lines:
    each SSD kernel per block) and decode.
 8. schedule_kernels: the feasibility kernel against its plain version,
    bit-exact (the seeds of tests/test_kernels.py, mask bits above 31, a
-   strided aggregate table, a cluster the size of LLNL's Quartz), and the
-   per-level aggregate sweep on the card against the same call on the
-   CPU, at Quartz size; the kernel's, the plain version's and the sweep's
-   device times beside the kernel's bound, and the time per call as the
-   host launches them.
+   strided aggregate table, fewer vertices than a thread takes, ragged
+   vertex counts, 33 and 65 request rows, 1 and 8 types, agg rows 5 and 9
+   apart, columns that start one vertex into their storage, a cluster the
+   size of LLNL's Quartz), and the per-level aggregate sweep on the card
+   against the same call on the CPU, at Quartz size; the kernel's, the
+   plain version's and the sweep's device times beside the kernel's
+   bound, and the time per call as the host launches them (the kernel's
+   variants and other launch plans are timed by
+   tools/feasibility_variants.py).
 9. schedule: the scheduler slice's main path at Quartz size (3,018
    nodes of 2 sockets x 18 cores, 117,703 vertices): 512 jobs of a
    4,096-deep backlog matched and allocated in order, a kick every 64
@@ -86,7 +92,8 @@ TF32_FLOPS = 495e12              # dense TF32 tensor-core peak; fp32-accurate 3x
 # differs between the kernel and the plain version
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the SSD scan's tolerance, tests/test_kernels.py:79-81: fp32 on both sides,
-# which differ in the order of the sums of the three products
+# which differ in the order of the sums of the three products; the same
+# tolerance against the formula evaluated in fp64 at the serving shapes
 SSD_TOL = 1e-4
 ARCH = "llama3.2-3b"
 # flash_decode cases: name, (b, h, kvh, S, d), q dtype, cache dtype, timed. The
@@ -101,6 +108,7 @@ DECODE_CASES = [
 ]
 # the decode kernel's instantiations: 3 dtype pairs x 5 head dims x G 1, 2, 3, 4, 8
 DECODE_INSTANTIATIONS = 75
+FEASIBILITY_INSTANTIATIONS = 1     # feasible_kernel
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # full-width depths, checked against each config before its run
 DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560)}
@@ -166,8 +174,9 @@ def nvidia_smi() -> str:
 
 
 def ptxas_report(log: str) -> list:
-    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
-    log, by its mangled name (which holds its template arguments)."""
+    """Registers, stack frame and spill bytes of each kernel in an ``nvcc
+    -Xptxas -v`` log, by its mangled name (which holds its template
+    arguments)."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -175,6 +184,9 @@ def ptxas_report(log: str) -> list:
             cur = {"kernel": m.group(1)}
             rows.append(cur)
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and cur is not None:
+            cur["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur is not None:
             cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
@@ -548,6 +560,26 @@ def ssd_inputs(gen, dev, b, s, H, P, G, N):
             randn(b, s, G, N), randn(b, s, G, N))
 
 
+def tol_share(out, ref) -> float:
+    """The largest |out - ref| / (atol + rtol |ref|) at ``SSD_TOL``, in
+    fp64: the share of the tolerance used, at most 1 inside it."""
+    r = ref.double()
+    return ((out.double() - r).abs() / (SSD_TOL + SSD_TOL * r.abs())).max().item()
+
+
+def ssd_exact_shares(out, x, dt, A, B, C, Q) -> list:
+    """The kernels' share of the tolerance on y, states and decay against
+    the formula evaluated in fp64 (``ref_ssd_chunk(exact=True)``); fails
+    beyond it."""
+    from repro_torch.kernels.ref import ref_ssd_chunk
+
+    exact = ref_ssd_chunk(x, dt, A, B, C, Q, exact=True)
+    share = [tol_share(o, r) for o, r in zip(out, exact)]
+    check(all(math.isfinite(v) and v <= 1.0 for v in share),
+          f"ssd_chunk against fp64: shares {share} of atol=rtol={SSD_TOL}")
+    return share
+
+
 def phase_ssm_kernels(dev) -> dict:
     import torch
     from repro_torch.kernels.ops import ssd_scan_op
@@ -571,12 +603,14 @@ def phase_ssm_kernels(dev) -> dict:
         torch.cuda.synchronize()
         ref = ref_ssd_chunk(x, dt, A, B, C, Q)
         errs = [compare(o, r, "float32", SSD_TOL) for o, r in zip(out, ref)]
-        # the largest |diff| / (atol + rtol |ref|): the share of the tolerance used
-        share = [((o - r).abs() / (SSD_TOL + SSD_TOL * r.abs())).max().item()
-                 for o, r in zip(out, ref)]
+        share = [tol_share(o, r) for o, r in zip(out, ref)]
+        exact = {}
+        if name in SSD_TIMED:
+            exact = ssd_exact_shares(out, x, dt, A, B, C, Q)
+            exact = {"exact_tol_share": dict(zip(("y", "states", "decay"), exact))}
         emit("ssm_kernels", kernel="ssd_chunk", case=name, shape=[b, s, H, P, G, N, Q],
              strided=strided, max_abs_err={"y": errs[0], "states": errs[1], "decay": errs[2]},
-             tol_share={"y": share[0], "states": share[1], "decay": share[2]},
+             tol_share={"y": share[0], "states": share[1], "decay": share[2]}, **exact,
              max_abs_ref=[r.abs().max().item() for r in ref], tol=SSD_TOL)
         del out, ref
         if name in SSD_TIMED:
@@ -586,11 +620,12 @@ def phase_ssm_kernels(dev) -> dict:
         del x, dt, A, B, C
 
     # the serving shapes' margin over fresh inputs: the share of the
-    # tolerance each seed's y and states use
+    # tolerance each seed's y and states use, against the plain version and
+    # against the formula in fp64
     for name, (b, s, H, P, G, N, Q), _ in SSD_CASES:
         if name not in SSD_TIMED:
             continue
-        shares = []
+        shares, exact = [], []
         for seed in SSD_SEEDS:
             inputs = ssd_inputs(torch.Generator(device=dev).manual_seed(seed), dev,
                                 b, s, H, P, G, N)
@@ -599,13 +634,16 @@ def phase_ssm_kernels(dev) -> dict:
             ref = ref_ssd_chunk(*inputs, Q)
             for o, r in zip(out, ref):
                 compare(o, r, "float32", SSD_TOL)
-            shares.append([((o - r).abs() / (SSD_TOL + SSD_TOL * r.abs())).max().item()
-                           for o, r in zip(out[:2], ref[:2])])
+            shares.append([tol_share(o, r) for o, r in zip(out[:2], ref[:2])])
+            exact.append(ssd_exact_shares(out, *inputs, Q)[:2])
             del inputs, out, ref
         emit("ssm_kernels", kernel="ssd_chunk", case=f"{name}_seeds", seeds=list(SSD_SEEDS),
              tol_share={"y": [v[0] for v in shares], "states": [v[1] for v in shares]},
              max_tol_share={"y": max(v[0] for v in shares),
-                            "states": max(v[1] for v in shares)}, tol=SSD_TOL)
+                            "states": max(v[1] for v in shares)},
+             exact_tol_share={"y": [v[0] for v in exact], "states": [v[1] for v in exact]},
+             max_exact_tol_share={"y": max(v[0] for v in exact),
+                                  "states": max(v[1] for v in exact)}, tol=SSD_TOL)
 
     # the whole scan (kernel + inter-chunk carry) against the recurrence,
     # from an initial state, over a length that is not a chunk multiple
@@ -673,6 +711,21 @@ def ssd_timing(x, dt, A, B, C, Q):
 # ---------------------------------------------------------------------- #
 # phase 8: the scheduler slice's kernel and sweep against their plain versions
 # ---------------------------------------------------------------------- #
+def feasibility_args(dev, seed, n_req, n_vert, n_types, bits=(), width=None, offset=0):
+    """``feasibility_case`` as tensors on ``dev``: agg as the [:, :T] view
+    of a table ``width`` columns wide, and with ``offset`` 1 every vertex
+    column and agg the [1:] view of one vertex more."""
+    import torch
+    args = [torch.from_numpy(a).to(dev)
+            for a in feasibility_case(seed, n_req, n_vert + offset, n_types, bits)]
+    if width and width != n_types:
+        wide = torch.zeros((n_vert + offset, width), dtype=torch.int32, device=dev)
+        wide[:, :n_types] = args[4]
+        args[4] = wide[:, :n_types]
+    args[:5] = [t[offset:] for t in args[:5]]
+    return args
+
+
 def feasibility_case(seed, n_req, n_vert, n_types=5, extra_bits=()):
     """Random request/vertex tables in the draw order of the
     ``_feasibility_case`` of tests/test_kernels.py (every clause: type
@@ -727,29 +780,34 @@ def phase_schedule_kernels(dev) -> dict:
     from repro_torch.kernels.feasibility import feasible_mask
     from repro_torch.kernels.ref import ref_feasible
 
-    cases = [  # name, seed, n_req, n_vert, n_types, extra mask bits, agg row width
-        ("seed0", 0, 11, 300, 5, (), 5), ("seed1", 1, 8, 256, 5, (), 5),
-        ("seed2", 2, 1, 33, 5, (), 5), ("seed3", 3, 40, 1024, 5, (), 5),
-        ("seed4", 4, 13, 97, 5, (), 5), ("bit61", 5, 9, 200, 5, (61,), 5),
-        ("strided", 6, 7, 4096, 5, (), 9),
+    cases = [  # name, seed, n_req, n_vert, n_types, extra mask bits, agg row width, offset
+        ("seed0", 0, 11, 300, 5, (), 5, 0), ("seed1", 1, 8, 256, 5, (), 5, 0),
+        ("seed2", 2, 1, 33, 5, (), 5, 0), ("seed3", 3, 40, 1024, 5, (), 5, 0),
+        ("seed4", 4, 13, 97, 5, (), 5, 0), ("bit61", 5, 9, 200, 5, (61,), 5, 0),
+        ("strided", 6, 7, 4096, 5, (), 9, 0),
+        # the launch plan's edges: fewer vertices than one thread's VPT, a
+        # ragged tail (and rows that start inside a 16-byte piece), a second
+        # and third block of request rows, one and eight types (per-element
+        # agg loads), agg rows 5 and 9 apart, and columns that start one
+        # vertex into their storage ([1:] views: per-element loads)
+        ("v3", 35, 6, 3, 4, (), 4, 0), ("v1025", 10, 6, 1025, 4, (), 4, 0),
+        ("u33", 11, 33, 1025, 4, (), 4, 0), ("u65", 12, 65, 517, 4, (), 4, 0),
+        ("t1", 12, 6, 1025, 1, (), 1, 0), ("t8", 11, 9, 1025, 8, (), 8, 0),
+        ("stride5", 10, 6, 1025, 4, (), 5, 0), ("offset", 10, 33, 1025, 4, (), 4, 1),
+        ("offset_t5", 15, 9, 300, 5, (), 9, 1),
         # the main path's shape: the backlog's distinct request shapes
         # against 4 resource types (cluster, node, socket, core)
-        ("quartz", 7, BACKLOG_SHAPES, QUARTZ_VERTICES, 4, (), 4),
+        ("quartz", 7, BACKLOG_SHAPES, QUARTZ_VERTICES, 4, (), 4, 0),
     ]
-    for name, seed, n_req, n_vert, n_types, bits, width in cases:
-        args = [torch.from_numpy(a).to(dev)
-                for a in feasibility_case(seed, n_req, n_vert, n_types, bits)]
-        if width != n_types:        # agg as the [:, :T] view of a wider table
-            wide = torch.zeros((n_vert, width), dtype=torch.int32, device=dev)
-            wide[:, :n_types] = args[4]
-            args[4] = wide[:, :n_types]
+    for name, seed, n_req, n_vert, n_types, bits, width, offset in cases:
+        args = feasibility_args(dev, seed, n_req, n_vert, n_types, bits, width, offset)
         out = feasible_mask(*args)
         torch.cuda.synchronize()
         ref = ref_feasible(*args)
         mismatches = int((out != ref).sum().item())
         emit("schedule_kernels", kernel="feasibility", case=name, shape=[n_req, n_vert, n_types],
-             agg_row_stride=args[4].stride(0), feasible=int(ref.sum().item()),
-             mismatches=mismatches, tol=0)
+             agg_row_stride=args[4].stride(0), offset=offset,
+             feasible=int(ref.sum().item()), mismatches=mismatches, tol=0)
         check(mismatches == 0 and out.shape == ref.shape,
               f"feasibility {name}: {mismatches} elements differ from ref_feasible")
 
@@ -1011,6 +1069,13 @@ def main() -> int:
     check(len(ssd) == len(SSD_KERNELS), f"ptxas reports {len(ssd)} SSD kernels")
     spilled = [r for r in ssd if r.get("spill_stores") or r.get("spill_loads")]
     check(not spilled, f"SSD kernels spill: {spilled}")
+    feas = [r for r in ptxas if "feasible_kernel" in r["kernel"]]
+    emit("env", feasibility_ptxas=feas)
+    check(len(feas) == FEASIBILITY_INSTANTIATIONS,
+          f"ptxas reports {len(feas)} feasibility instantiations, not "
+          f"{FEASIBILITY_INSTANTIATIONS}")
+    spilled = [r for r in feas if r.get("spill_stores") or r.get("spill_loads")]
+    check(not spilled, f"feasibility kernels spill: {spilled}")
     drive(dev, smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

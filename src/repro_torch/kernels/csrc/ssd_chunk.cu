@@ -35,11 +35,18 @@
 //     ([b, nc, G, ceil(Q/16), ceil(Q/8), 32, 4] fp32, 4.2 MB at the mamba2
 //     shape, which stays in L2);
 //   - one more block per (batch, chunk, group) computes seg for the group's
-//     heads, one thread a head, in sequence over the chunk with dt*A rounded
-//     before each add (the order of torch.cumsum along the sequence, so
-//     exp(seg_i - seg_j) matches the plain version's); dt's rows are read
-//     across heads, seg goes to a scratch [b, nc, Q, H] and the total to
-//     decay.
+//     heads, one thread a head: each dt*A rounded to fp32 (as the reference
+//     rounds it), summed over the chunk in fp64 (53 bits hold the sum of
+//     such terms exactly unless their magnitudes span more than about 20
+//     binades, so the order of summation does not matter), and kept as an
+//     fp32 pair hi + lo, hi the sum rounded to fp32 and lo the rounding of
+//     the rest. At chunk 256 seg reaches about -190, where an fp32 ulp is
+//     1.5e-5, and L = exp(seg_i - seg_j) is formed from the difference of
+//     two such values: one fp32 seg puts y up to 3.5x the 1e-4 tolerance
+//     from an fp32 sum in another order, the pair within a quarter of it
+//     from the formula evaluated in fp64 (PERF.md;
+//     tests/test_torch_ssd_numerics.py). hi and lo go to a scratch [2, b,
+//     nc, Q, H] (dt's rows read across heads), hi's total to decay.
 //
 //  ssd_chunk_kernel, one block per (head, chunk, batch), 256 threads:
 //   - heads vary fastest, so the blocks that read one chunk's S and B run
@@ -56,14 +63,15 @@
 //     fragments wholly above the diagonal are never visited;
 //   - y's A fragments are read from the scores scratch straight into
 //     registers (one 16-byte load a lane, prefetched a step ahead), and the
-//     mask and decay L = exp(seg_i - seg_j) [j <= i] are applied there, exp
-//     taken only where j <= i (above it exp may overflow); the state's A
-//     fragments are B^T scaled by w = exp(total - seg_j), read from shared
-//     memory without bank conflicts (row pitches of 8 mod 32 floats);
+//     mask and decay L = exp((hi_i - hi_j) + (lo_i - lo_j)) [j <= i] are
+//     applied there, exp taken only where j <= i (above it exp may
+//     overflow); the state's A fragments are B^T scaled by w = exp(total -
+//     seg_j), formed from the pairs the same way, read from shared memory
+//     without bank conflicts (row pitches of 8 mod 32 floats);
 //   - y and the states go out as 16-byte stores after one shuffle a pair of
 //     lanes.
 //
-// Shared memory: 66 KB a scores block, 125 KB a chunk block (one an SM; a
+// Shared memory: 66 KB a scores block, 126 KB a chunk block (one an SM; a
 // thread may hold 255 registers, 96 of them accumulators). x, dt, B and C
 // are read through their strides (unit stride on the last axis), so views
 // into the model's projections need no copy. At 8 warps an SM the chunk
@@ -92,7 +100,7 @@ constexpr int kXP = kMaxP + 8;        // x tile pitch of a chunk block (8 mod 32
 constexpr int kBP = kMaxN + 8;        // B tile pitch of a chunk block (8 mod 32)
 constexpr int kScoreSmem = 2 * kTile * kCP * static_cast<int>(sizeof(float));
 constexpr int kChunkSmem =
-    (3 * kMaxQ + 3 * kTile * kXP + 2 * kTile * kBP) * static_cast<int>(sizeof(float));
+    (4 * kMaxQ + 3 * kTile * kXP + 2 * kTile * kBP) * static_cast<int>(sizeof(float));
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
@@ -222,8 +230,8 @@ __global__ void __launch_bounds__(kScoreThreads)
 ssd_scores_kernel(const float* __restrict__ dt, const float* __restrict__ A,
                   const float* __restrict__ B, const float* __restrict__ C,
                   float* __restrict__ scores, float* __restrict__ seg,
-                  float* __restrict__ decay, int H, int G, int N, int Q, Strides st, int vec_b,
-                  int vec_c) {
+                  float* __restrict__ seg_lo, float* __restrict__ decay, int H, int G, int N,
+                  int Q, Strides st, int vec_b, int vec_c) {
   extern __shared__ __align__(16) float smem[];
   const int n_tiles = (Q + kTile - 1) / kTile;
   const int pairs = n_tiles * (n_tiles + 1) / 2;
@@ -238,14 +246,17 @@ ssd_scores_kernel(const float* __restrict__ dt, const float* __restrict__ A,
       const int h = g * hpg + k;
       const float a = A[h];
       const float* dp = dt + bb * st.db + t0 * st.ds + h * st.dh;
-      float* out = seg + (static_cast<long long>(bb) * nc + c) * Q * H + h;
-      float acc = 0.f;
+      const long long o = (static_cast<long long>(bb) * nc + c) * Q * H + h;
+      double acc = 0.0;
+      float hi = 0.f;
 #pragma unroll 8
       for (int i = 0; i < Q; ++i) {
-        acc = __fadd_rn(acc, __fmul_rn(dp[i * st.ds], a));     // no FMA contraction
-        out[static_cast<long long>(i) * H] = acc;
+        acc += static_cast<double>(__fmul_rn(dp[i * st.ds], a));   // no FMA contraction
+        hi = __double2float_rn(acc);
+        seg[o + static_cast<long long>(i) * H] = hi;
+        seg_lo[o + static_cast<long long>(i) * H] = __double2float_rn(acc - hi);
       }
-      decay[(static_cast<long long>(bb) * nc + c) * H + h] = acc;
+      decay[(static_cast<long long>(bb) * nc + c) * H + h] = hi;
     }
     return;
   }
@@ -316,12 +327,14 @@ ssd_scores_kernel(const float* __restrict__ dt, const float* __restrict__ A,
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ B, const float* __restrict__ scores,
-                 const float* __restrict__ seg, float* __restrict__ y,
+                 const float* __restrict__ seg, const float* __restrict__ seg_lo,
+                 float* __restrict__ y,
                  float* __restrict__ states, int s, int H, int P, int G, int N, int Q,
                  Strides st, int vec_x, int vec_b) {
   extern __shared__ __align__(16) float smem[];
-  float* sSeg = smem;                   // [kMaxQ]  seg of the chunk (0 past Q)
-  float* sDt = sSeg + kMaxQ;            // [kMaxQ]  dt
+  float* sSeg = smem;                   // [kMaxQ]  seg of the chunk, high part (0 past Q)
+  float* sSegLo = sSeg + kMaxQ;         // [kMaxQ]  its low part
+  float* sDt = sSegLo + kMaxQ;          // [kMaxQ]  dt
   float* sW = sDt + kMaxQ;              // [kMaxQ]  exp(total - seg)
   float* sXlo = sW + kMaxQ;             // [kTile][kXP]  tf32 low part of dt*x
   float* sX = sXlo + kTile * kXP;       // [2][kTile][kXP]  x, then the high part of dt*x
@@ -346,25 +359,29 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   issue(0);
   cp_async_commit();
 
-  const float* segp = seg + (static_cast<long long>(bb) * nc + c) * Q * H + h;
+  const long long so = (static_cast<long long>(bb) * nc + c) * Q * H + h;
   const float* dp = dt + bb * st.db + t0 * st.ds + h * st.dh;
   for (int i = tid; i < kMaxQ; i += kThreads) {
-    sSeg[i] = i < Q ? segp[static_cast<long long>(i) * H] : 0.f;
+    sSeg[i] = i < Q ? seg[so + static_cast<long long>(i) * H] : 0.f;
+    sSegLo[i] = i < Q ? seg_lo[so + static_cast<long long>(i) * H] : 0.f;
     sDt[i] = i < Q ? dp[i * st.ds] : 0.f;
   }
   __syncthreads();
-  const float total = sSeg[Q - 1];
-  for (int i = tid; i < kMaxQ; i += kThreads) sW[i] = i < Q ? expf(total - sSeg[i]) : 0.f;
+  const float total = sSeg[Q - 1], total_lo = sSegLo[Q - 1];
+  for (int i = tid; i < kMaxQ; i += kThreads)
+    sW[i] = i < Q ? expf((total - sSeg[i]) + (total_lo - sSegLo[i])) : 0.f;
 
   // this warp's fragments: y rows 16 ry[0].. and 16 ry[1].., state rows 16 warp..
   const int ry[2] = {warp, 15 - warp};
   const bool has_y[2] = {warp < r16, 15 - warp < r16};
   const bool has_s = warp < rn;
-  float segi[2][2];
+  float segi[2][2], segi_lo[2][2];
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     segi[q][0] = sSeg[16 * ry[q] + gq];
     segi[q][1] = sSeg[16 * ry[q] + gq + 8];
+    segi_lo[q][0] = sSegLo[16 * ry[q] + gq];
+    segi_lo[q][1] = sSegLo[16 * ry[q] + gq + 8];
   }
   float acc[3][8][4];
 #pragma unroll
@@ -416,7 +433,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         bl[n][1] = __float_as_uint(sXlo[jo + 4 * kXP + n * 8]);
       }
       const int j = kt * kTile + kk * 8 + tq;      // key of a0 / a1; a2 / a3 at j + 4
-      const float sj0 = sSeg[j], sj1 = sSeg[j + 4];
+      const float sj0 = sSeg[j], sj1 = sSeg[j + 4], lj0 = sSegLo[j], lj1 = sSegLo[j + 4];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         if (!on[q]) continue;
@@ -424,10 +441,11 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         if (live(q, ks + 1))
           next[q] = __ldcg(sf + (static_cast<long long>(ry[q]) * k8 + ks + 1) * 32);
         const int i = 16 * ry[q] + gq;             // row of a0 / a2; a1 / a3 at i + 8
-        const float a[4] = {j <= i ? sv.x * exp_fast(segi[q][0] - sj0) : 0.f,
-                            j <= i + 8 ? sv.y * exp_fast(segi[q][1] - sj0) : 0.f,
-                            j + 4 <= i ? sv.z * exp_fast(segi[q][0] - sj1) : 0.f,
-                            j + 4 <= i + 8 ? sv.w * exp_fast(segi[q][1] - sj1) : 0.f};
+        const float a[4] = {
+            j <= i ? sv.x * exp_fast((segi[q][0] - sj0) + (segi_lo[q][0] - lj0)) : 0.f,
+            j <= i + 8 ? sv.y * exp_fast((segi[q][1] - sj0) + (segi_lo[q][1] - lj0)) : 0.f,
+            j + 4 <= i ? sv.z * exp_fast((segi[q][0] - sj1) + (segi_lo[q][0] - lj1)) : 0.f,
+            j + 4 <= i + 8 ? sv.w * exp_fast((segi[q][1] - sj1) + (segi_lo[q][1] - lj1)) : 0.f};
         mma_3xtf32(acc[q], a, bh, bl);
       }
       if (has_s) {
@@ -495,10 +513,11 @@ cudaError_t opt_in_smem() {
 
 extern "C" {
 
-// Floats of the two scratch buffers: the scores in fragment order, then seg.
+// Floats of the scratch: the scores in fragment order, then seg's high
+// and low parts, [b, nc, Q, H] each.
 long long ssd_chunk_scratch_floats(int b, int s, int H, int G, int Q) {
   const int nc = s / Q;
-  return scores_floats(b, nc, G, Q) + static_cast<long long>(b) * nc * Q * H;
+  return scores_floats(b, nc, G, Q) + 2LL * b * nc * Q * H;
 }
 
 // All tensors fp32. y [b, s, H, P], states [b, s/Q, H, N, P] and decay
@@ -519,6 +538,7 @@ int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const void* B, c
   const int n_tiles = (Q + kTile - 1) / kTile;
   float* scores = static_cast<float*>(scratch);
   float* seg = scores + scores_floats(b, nc, G, Q);
+  float* seg_lo = seg + static_cast<long long>(b) * nc * Q * H;
   const int vec_x = aligned16(x, st.xb, st.xs, st.xh);       // P % 4 == 0
   const int vec_b = N % 4 == 0 && aligned16(B, st.bb, st.bs, st.bg);
   const int vec_c = N % 4 == 0 && aligned16(C, st.cb, st.cs, st.cg);
@@ -526,14 +546,14 @@ int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const void* B, c
   ssd_scores_kernel<<<dim3(G * (n_tiles * (n_tiles + 1) / 2 + 1), nc, b), kScoreThreads,
                       kScoreSmem, strm>>>(
       static_cast<const float*>(dt), static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), scores, seg, static_cast<float*>(decay), H, G, N, Q, st,
-      vec_b, vec_c);
+      static_cast<const float*>(C), scores, seg, seg_lo, static_cast<float*>(decay), H, G, N,
+      Q, st, vec_b, vec_c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_chunk_kernel<<<dim3(H, nc, b), kThreads, kChunkSmem, strm>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(B),
-      scores, seg, static_cast<float*>(y), static_cast<float*>(states), s, H, P, G, N, Q, st,
-      vec_x, vec_b);
+      scores, seg, seg_lo, static_cast<float*>(y), static_cast<float*>(states), s, H, P, G, N,
+      Q, st, vec_x, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from .feasibility import feasible_mask
 from .flash_attention import flash_attention, flash_decode
-from .ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk
+from .ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk, seg_hi_lo
 from .ssd_scan import ssd_chunk
 
 
@@ -82,11 +82,12 @@ def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
         prev[:, c] = carry
         carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
 
-    # y_inter[i] = exp(seg_i) C_i S_prev, over the G groups of H / G heads
-    seg = torch.cumsum((dt.float() * A.float()).reshape(b, nc, chunk, H), dim=2)
+    # y_inter[i] = exp(seg_i) C_i S_prev, over the G groups of H / G heads,
+    # with seg kept as the kernel keeps it (e^seg = e^hi e^lo)
+    hi, lo = seg_hi_lo((dt.float() * A.float()).reshape(b, nc, chunk, H), dim=2)
     y_inter = torch.einsum("bcqgn,bcgrnp->bcqgrp",
                            C.float().reshape(b, nc, chunk, G, N),
                            prev.view(b, nc, G, rep, N, P)).reshape(b, nc, chunk, H, P)
-    y = y_intra.reshape(b, nc, chunk, H, P) + y_inter * torch.exp(seg)[..., None]
+    y = y_intra.reshape(b, nc, chunk, H, P) + y_inter * (torch.exp(hi) * torch.exp(lo))[..., None]
     y = y.reshape(b, sp, H, P)[:, :s].to(x.dtype)
     return (y, carry.transpose(-1, -2)) if return_state else y

@@ -107,8 +107,23 @@ def ref_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return (y, h) if return_state else y
 
 
+def seg_hi_lo(dA: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``seg = cumsum(dA)`` along ``dim`` as the ``ssd_chunk`` kernel keeps
+    it: the fp32 terms summed in fp64 (exactly, unless their magnitudes
+    span more than about 20 binades, so the order of the sum does not
+    matter), then split into fp32 ``hi``
+    (the sum rounded) and ``lo`` (the rounding of the rest). Differences
+    of seg are formed as ``(hi_i - hi_j) + (lo_i - lo_j)``: at chunk 256
+    seg reaches about -190, where one fp32 ulp is 1.5e-5, and a single
+    fp32 seg would put y up to a few times the 1e-4 tolerance from the
+    exact function (tests/test_torch_ssd_numerics.py)."""
+    seg = torch.cumsum(dA.double(), dim=dim)
+    hi = seg.float()
+    return hi, (seg - hi.double()).float()
+
+
 def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                  C: torch.Tensor, chunk: int
+                  C: torch.Tensor, chunk: int, exact: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The ``ssd_chunk`` contract (``repro/kernels/ssd_scan.py``'s
     ``ssd_chunk_pallas``), as the broadcast form of the intra-chunk part
@@ -121,26 +136,37 @@ def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
 
     x: [b, s, H, P]; dt: [b, s, H]; A: [H]; B, C: [b, s, G, N], head h
     reading group h // (H / G); s % chunk == 0. Returns fp32 (y_intra
-    [b, s, H, P], states [b, nc, H, N, P], decay_log [b, nc, H])."""
+    [b, s, H, P], states [b, nc, H, N, P], decay_log [b, nc, H]). In fp32
+    dt * A is rounded and seg kept as ``seg_hi_lo`` keeps it, as the
+    kernel does. ``exact`` evaluates every step in fp64 and returns fp64:
+    the function itself, which the kernel and this version are held to at
+    the serving chunk of 256."""
     b, s, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
     nc, rep = s // chunk, H // G
-    xg = x.float().reshape(b, nc, chunk, H, P)
-    dtg = dt.float().reshape(b, nc, chunk, H)
-    Bg = B.float().reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
-    Cg = C.float().reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    f = torch.float64 if exact else torch.float32
+    xg = x.to(f).reshape(b, nc, chunk, H, P)
+    dtg = dt.to(f).reshape(b, nc, chunk, H)
+    Bg = B.to(f).reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    Cg = C.to(f).reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
 
-    seg = torch.cumsum(dtg * A.float()[None, None, None, :], dim=2)   # [b,nc,q,H]
-    total = seg[:, :, -1, :]                                          # [b,nc,H]
-    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]               # [b,nc,q,q,H]
+    dA = dtg * A.to(f)[None, None, None, :]                           # [b,nc,q,H]
+    if exact:
+        hi = torch.cumsum(dA, dim=2)
+        lo = torch.zeros_like(hi)
+    else:
+        hi, lo = seg_hi_lo(dA, dim=2)
+    total, total_lo = hi[:, :, -1, :], lo[:, :, -1, :]                # [b,nc,H]
+    rel = ((hi[:, :, :, None, :] - hi[:, :, None, :, :])
+           + (lo[:, :, :, None, :] - lo[:, :, None, :, :]))           # [b,nc,q,q,H]
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
     # exp overflows above the diagonal (rel > 0): where() drops it, as JAX does
     L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
     scores = torch.einsum("bcqhn,bckhn->bcqkh", Cg, Bg)
     ydt = xg * dtg[..., None]
     y = torch.einsum("bcqkh,bckhp->bcqhp", scores * L, ydt)
-    decay_to_end = torch.exp(total[:, :, None, :] - seg)              # [b,nc,q,H]
+    decay_to_end = torch.exp((total[:, :, None, :] - hi) + (total_lo[:, :, None, :] - lo))
     states = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bg, decay_to_end, ydt)
     return y.reshape(b, s, H, P), states, total

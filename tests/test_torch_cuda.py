@@ -5,11 +5,13 @@ PyTorch; skipped without a card (the kernels have no CPU mode):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, feasibility
 from repro_torch.kernels.feasibility import feasible_mask
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode
 from repro_torch.kernels.ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk
@@ -232,27 +234,62 @@ def _feasibility_case(seed, n_req, n_vert, n_types=5, extra_bits=()):
     return [vtype, vok, vsize, vmask, agg, tid, msize, rmask, need]
 
 
+def _feasibility_args(device, seed, n_req, n_vert, bits=(), n_types=5, width=0, offset=0):
+    """``_feasibility_case`` on ``device``: agg as the [:, :T] view of a
+    table ``width`` columns wide (0: T), and with ``offset`` 1 every vertex
+    column and agg the [1:] view of one vertex more."""
+    case = _feasibility_case(seed, n_req, n_vert + offset, n_types, extra_bits=bits)
+    args = [torch.from_numpy(a).to(device) for a in case]
+    if width and width != n_types:
+        wide = torch.zeros((n_vert + offset, width), dtype=torch.int32, device=device)
+        wide[:, :n_types] = args[4]
+        args[4] = wide[:, :n_types]
+    args[:5] = [t[offset:] for t in args[:5]]
+    return args
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,n_req,n_vert,bits", [
-    (0, 11, 300, ()), (1, 8, 256, ()), (2, 1, 33, ()), (3, 40, 1024, ()),
-    (4, 13, 97, ()), (5, 9, 200, (61,)),
+@pytest.mark.parametrize("seed,n_req,n_vert,bits,n_types,width,offset", [
+    (0, 11, 300, (), 5, 0, 0), (1, 8, 256, (), 5, 0, 0), (2, 1, 33, (), 5, 0, 0),
+    (3, 40, 1024, (), 5, 0, 0), (4, 13, 97, (), 5, 0, 0), (5, 9, 200, (61,), 5, 0, 0),
+    # the launch plan's edges: fewer vertices than one thread takes, a
+    # ragged tail, 33 and 65 request rows (two and three blocks of rows),
+    # one and eight types, agg rows 5 apart, [1:] views of every column
+    (35, 6, 3, (), 4, 0, 0), (10, 6, 1025, (), 4, 0, 0), (11, 33, 1025, (), 4, 0, 0),
+    (12, 65, 517, (), 4, 0, 0), (12, 6, 1025, (), 1, 0, 0), (11, 9, 1025, (), 8, 0, 0),
+    (10, 6, 1025, (), 4, 5, 0), (10, 33, 1025, (), 4, 0, 1), (15, 9, 300, (), 5, 0, 1),
 ])
 @pytest.mark.parametrize("strided", [False, True])
-def test_feasibility_kernel_vs_plain(seed, n_req, n_vert, bits, strided, cuda):
+def test_feasibility_kernel_vs_plain(seed, n_req, n_vert, bits, n_types, width, offset, strided,
+                                     cuda):
     """Bit-exact against ref_feasible; ``strided`` reads agg as the
-    [:, :T] view of a wider table, as the flat graph hands it over."""
-    case = _feasibility_case(seed, n_req, n_vert, extra_bits=bits)
-    args = [torch.from_numpy(a).to(cuda) for a in case]
-    if strided:
-        wide = torch.zeros((n_vert, 9), dtype=torch.int32, device=cuda)
-        wide[:, :5] = args[4]
-        args[4] = wide[:, :5]
+    [:, :T] view of a table 9 columns wide, as the flat graph hands it
+    over."""
+    args = _feasibility_args(cuda, seed, n_req, n_vert, bits, n_types,
+                             9 if strided else width, offset)
     n = LAUNCHES["feasibility"]
     out = feasible_mask(*args)
     torch.cuda.synchronize()
     assert LAUNCHES["feasibility"] == n + 1
     assert out.dtype == torch.uint8 and out.shape == (n_req, n_vert)
     assert torch.equal(out, ref_feasible(*args))
+
+
+@pytest.mark.cuda
+def test_feasibility_plans_vs_plain(cuda):
+    """The launch plan is bit-exact against ref_feasible over several
+    blocks, on the vector path and the per-element one; a plan of another
+    VPT than the kernel's is refused at launch, not run."""
+    for offset, n_vert in ((0, 5000), (0, 4097), (1, 4097)):
+        args = _feasibility_args(cuda, 21, 37, n_vert, n_types=4, offset=offset)
+        out = feasible_mask(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref_feasible(*args)), (offset, n_vert)
+    n = LAUNCHES["feasibility"]
+    with mock.patch.object(feasibility, "VPT", 2 * feasibility.VPT):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            feasible_mask(*args)
+    assert LAUNCHES["feasibility"] == n
 
 
 @pytest.mark.cuda

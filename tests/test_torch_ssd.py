@@ -7,8 +7,13 @@ outputs; ``ref_ssd`` against JAX's ``ref_ssd``; ``ssd_scan_op`` against
 lengths, an initial state and the final state. Inputs are numpy draws
 shaped as ``_ssd_inputs`` in tests/test_kernels.py; the tolerance is
 that file's (atol = rtol = 1e-4: both sides compute in fp32 and differ in
-the order of sums and in the cumulative sum of dt*A). The CUDA kernel
-against ``ref_ssd_chunk`` is in test_torch_cuda.py.
+the order of sums and in how seg = cumsum(dt*A) is kept: the Pallas
+kernel sums it in fp32 with ``jnp.cumsum``, the port exactly, as an fp32
+pair hi + lo, ``seg_hi_lo``). At the serving chunk of 256, where the
+Pallas kernel itself lies up to 2.6x the tolerance from the formula in
+fp64, ``ref_ssd_chunk`` is held to its fp64 evaluation (``exact=True``)
+and to the Pallas kernel within the Pallas kernel's own error. The CUDA
+kernel against ``ref_ssd_chunk`` is in test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +25,7 @@ from repro.kernels.ref import ref_ssd as jax_ref_ssd
 from repro.kernels.ssd_scan import ssd_chunk_pallas
 from repro.models.mamba2 import ssd_chunked
 from repro_torch.kernels import LAUNCHES, ssd_scan_op
-from repro_torch.kernels.ref import ref_ssd, ref_ssd_chunk
+from repro_torch.kernels.ref import ref_ssd, ref_ssd_chunk, seg_hi_lo
 from repro_torch.kernels.ssd_scan import ssd_chunk
 
 TOL = 1e-4
@@ -68,6 +73,63 @@ def test_ref_ssd_chunk_vs_pallas(b, s, H, P, G, N, chunk):
     assert all(t.dtype == torch.float32 for t in got)
     for ours, ref in zip(got, want):
         _close(ours, ref)
+
+
+def _share(got, want):
+    """The largest |got - want| / (atol + rtol |want|) over the outputs."""
+    return max(float(np.max(np.abs(np.asarray(g, np.float64) - np.asarray(w, np.float64))
+                            / (TOL + TOL * np.abs(np.asarray(w, np.float64)))))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,s,H,P,G,N,chunk", SHAPES)
+def test_ref_ssd_chunk_exact_vs_pallas(b, s, H, P, G, N, chunk):
+    """``exact=True`` evaluates the same formula in fp64 and returns fp64;
+    at these chunks the Pallas kernel is within 1e-4 of it."""
+    arrays = _inputs(0, b, s, H, P, G, N)
+    got = ref_ssd_chunk(*_t(arrays), chunk, exact=True)
+    assert all(t.dtype == torch.float64 for t in got)
+    for ours, ref in zip(got, ssd_chunk_pallas(*_j(arrays), chunk, interpret=True)):
+        _close(ours, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 17, 103])
+@pytest.mark.parametrize("N", [128, 64])      # mamba2-2.7b's and zamba2-2.7b's state
+def test_ref_ssd_chunk_at_the_serving_chunk(N, seed):
+    """At chunk 256 the plain version lies within half the tolerance of the
+    formula in fp64, and no further from the Pallas kernel than the Pallas
+    kernel lies from the formula, plus 0.25."""
+    arrays = _inputs(seed, 1, 512, 2, 64, 1, N)
+    exact = [t.numpy() for t in ref_ssd_chunk(*_t(arrays), 256, exact=True)]
+    pallas = [np.asarray(t) for t in ssd_chunk_pallas(*_j(arrays), 256, interpret=True)]
+    got = [t.numpy() for t in ref_ssd_chunk(*_t(arrays), 256)]
+    assert _share(got, exact) < 0.5
+    assert _share(got, pallas) < _share(pallas, exact) + 0.25
+
+
+def test_seg_hi_lo_is_the_exact_sum():
+    """hi + lo is the fp64 sum of the fp32 terms whatever their order, hi
+    is that sum rounded to fp32 and lo the rounding of the rest (at most
+    half an fp32 ulp of hi); a running sum in fp32 differs from hi."""
+    rng = np.random.default_rng(5)
+    dA = torch.from_numpy((-np.logaddexp(rng.standard_normal((3, 256, 4)), 0)
+                           * np.exp(0.3 * rng.standard_normal(4))).astype(np.float32))
+    hi, lo = seg_hi_lo(dA, dim=1)
+    assert hi.dtype == lo.dtype == torch.float32 and hi.shape == lo.shape == dA.shape
+    exact = torch.cumsum(dA.double(), dim=1)
+    backward = torch.flip(torch.cumsum(torch.flip(dA.double(), [1]), dim=1), [1])
+    total = backward[:, 0]                         # the same sum, in the other order
+    assert torch.equal(hi[:, -1], total.float())
+    assert torch.equal(hi, exact.float())
+    assert torch.allclose(hi.double() + lo.double(), exact, rtol=1e-15, atol=0)
+    half_ulp = torch.nextafter(hi.abs(), torch.full_like(hi, np.inf)).double() - hi.abs().double()
+    assert torch.all(lo.double().abs() <= half_ulp / 2)
+    assert hi.min() < -150                         # the serving chunk's range
+    running, acc = torch.empty_like(dA), torch.zeros_like(dA[:, 0])
+    for i in range(dA.shape[1]):
+        acc = acc + dA[:, i]
+        running[:, i] = acc
+    assert not torch.equal(running, hi)
 
 
 def test_ref_ssd_chunk_refuses_a_ragged_length():

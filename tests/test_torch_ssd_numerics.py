@@ -3,21 +3,30 @@
 ``ssd_scores_kernel`` and ``ssd_chunk_kernel``
 (``repro_torch/kernels/csrc/ssd_chunk.cu``) run only on a card.
 ``_kernel_arithmetic`` repeats in plain torch how they divide the work and
-round: the scores S = C B^T once per (batch, chunk, group), seg summed in
-sequence over the chunk, then per head the masked, decayed scores times
-dt*x and (B w)^T times dt*x, every product in 3xTF32 (each operand split
-into a TF32 high part and the TF32 rounding of the rest, the low-low
-product dropped), TF32 rounding emulated bit for bit as ``cvt.rna`` does
-it, and each k-step of 8 summed as the tensor cores are modelled to sum
-(``tc_sum``: aligned to the largest term and cut toward zero). The tests
-hold it against ``ssd_chunk_pallas`` in interpret mode at the tolerance
-of tests/test_kernels.py (atol = rtol = 1e-4), at the serving widths over
-several draws and at the odd shapes the card tests use; show that at the
-serving chunk of 256 the remaining gap is the order in which seg is
-summed; that one TF32 pass would miss that tolerance, which is why the
-kernels split; and that summing every k-step into one accumulator on the
-tensor cores drifts further, which is why each k-step starts from zero.
+round: the scores S = C B^T once per (batch, chunk, group), seg summed
+exactly and kept as an fp32 pair hi + lo (``seg_hi_lo``, with differences
+formed as (hi_i - hi_j) + (lo_i - lo_j)), then per head the masked,
+decayed scores times dt*x and (B w)^T times dt*x, every product in
+3xTF32 (each operand split into a TF32 high part and the TF32 rounding of
+the rest, the low-low product dropped), TF32 rounding emulated bit for
+bit as ``cvt.rna`` does it, and each k-step of 8 summed as the tensor
+cores are modelled to sum (``tc_sum``: aligned to the largest term and cut
+toward zero). The tests hold it against ``ssd_chunk_pallas`` in interpret
+mode at the tolerance of tests/test_kernels.py (atol = rtol = 1e-4) at
+the odd shapes the card tests use. At the serving chunk of 256 seg
+reaches about -190, where an fp32 ulp is 1.5e-5, and no fp32 seg holds
+both references: the Pallas kernel itself lies up to 2.6x the tolerance
+from an fp64 evaluation of the formula (``_exact``). There the tests hold
+the kernels' arithmetic within half the tolerance of ``_exact``, and
+within the Pallas kernel's own share of it (plus 0.25) of the Pallas
+kernel, over 12 draws; and show that a single fp32 seg summed in sequence,
+as the kernels once did, lies more than the tolerance from ``_exact``;
+that one TF32 pass would miss the tolerance, which is why the kernels
+split; and that summing every k-step into one accumulator on the tensor
+cores drifts further, which is why each k-step starts from zero.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +34,7 @@ import pytest
 import torch
 
 from repro.kernels.ssd_scan import ssd_chunk_pallas
+from repro_torch.kernels.ref import seg_hi_lo
 
 TOL = 1e-4              # tests/test_kernels.py:79-81
 LOG2E = 1.4426950408889634
@@ -81,9 +91,16 @@ def mm_tf32(a, b):
     return tf32(a) @ tf32(b)
 
 
+def hi_lo_cumsum(dA):
+    """seg as the scores kernel keeps it: the fp32 terms summed exactly,
+    then the pair (hi, lo) of fp32 values, hi the sum rounded."""
+    return seg_hi_lo(dA, dim=-1)
+
+
 def sequential_cumsum(dA):
-    """seg as the scores kernel sums it: in order along the chunk, fp32,
-    dt*A rounded before each add (as torch.cumsum does on a card)."""
+    """seg as the scores kernel summed it before it kept the pair: in
+    order along the chunk, one fp32, dt*A rounded before each add (as
+    torch.cumsum does along a non-last axis on a card)."""
     seg, acc = torch.empty_like(dA), torch.zeros_like(dA[..., 0])
     for i in range(dA.shape[-1]):
         acc = acc + dA[..., i]
@@ -99,9 +116,10 @@ def pallas_cumsum(dA):
                             ).reshape(dA.shape)
 
 
-def _kernel_arithmetic(x, dt, A, B, C, Q, mm=mm_3xtf32, cumsum=sequential_cumsum):
+def _kernel_arithmetic(x, dt, A, B, C, Q, mm=mm_3xtf32, cumsum=hi_lo_cumsum):
     """(y_intra, states, decay_log) as the two kernels compute them; ``mm``
-    and ``cumsum`` replace their products or their seg."""
+    and ``cumsum`` replace their products or their seg (a ``cumsum`` that
+    returns one fp32 seg stands for the pair (seg, 0))."""
     b, s, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     nc, rep = s // Q, H // G
@@ -109,16 +127,41 @@ def _kernel_arithmetic(x, dt, A, B, C, Q, mm=mm_3xtf32, cumsum=sequential_cumsum
     Cc = C.reshape(b, nc, Q, G, N).transpose(2, 3)
     S = mm(Cc, Bc.transpose(-1, -2))                                # scores pass: once a group
     seg = cumsum((dt.reshape(b, nc, Q, H) * A).transpose(2, 3))     # [b, nc, H, Q]
-    total = seg[..., -1]
-    rel = seg[..., :, None] - seg[..., None, :]
+    hi, lo = seg if isinstance(seg, tuple) else (seg, torch.zeros_like(seg))
+    total, total_lo = hi[..., -1], lo[..., -1]
+    rel = (hi[..., :, None] - hi[..., None, :]) + (lo[..., :, None] - lo[..., None, :])
     causal = torch.ones((Q, Q), dtype=torch.bool).tril()
     L = torch.where(causal, torch.exp2(rel * torch.tensor(LOG2E)), 0.0)   # ex2.approx
     X = (x.reshape(b, nc, Q, H, P) * dt.reshape(b, nc, Q, H, 1)).transpose(2, 3)
     y = mm(S.repeat_interleave(rep, dim=2) * L, X)                  # [b, nc, H, Q, P]
-    w = torch.exp(total[..., None] - seg)
+    w = torch.exp((total[..., None] - hi) + (total_lo[..., None] - lo))
     Bw = Bc.repeat_interleave(rep, dim=2) * w[..., None]            # [b, nc, H, Q, N]
     states = mm(Bw.transpose(-1, -2), X)                            # [b, nc, H, N, P]
     return y.transpose(2, 3).reshape(b, s, H, P), states, total
+
+
+def _exact(x, dt, A, B, C, Q):
+    """(y_intra, states, decay_log) of the formula evaluated in fp64 with
+    numpy, from the definition: seg = cumsum(dt A) within the chunk, y_i =
+    sum_{j <= i} (C_i . B_j) e^(seg_i - seg_j) dt_j x_j, states = sum_j
+    e^(total - seg_j) B_j^T dt_j x_j, total = seg[-1]."""
+    x, dt, A, B, C = (np.asarray(a, np.float64) for a in (x, dt, A, B, C))
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc, rep = s // Q, H // G
+    xc, dtc = x.reshape(b, nc, Q, H, P), dt.reshape(b, nc, Q, H)
+    Bh = np.repeat(B.reshape(b, nc, Q, G, N), rep, axis=3)          # [b, nc, Q, H, N]
+    Ch = np.repeat(C.reshape(b, nc, Q, G, N), rep, axis=3)
+    seg = np.cumsum(dtc * A, axis=2)                                # [b, nc, Q, H]
+    causal = np.tril(np.ones((Q, Q), bool))[None, None, :, :, None]
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]             # [b, nc, i, j, H]
+    L = np.where(causal, np.exp(np.where(causal, rel, 0.0)), 0.0)
+    S = np.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    y = np.einsum("bcijh,bcjhp->bcihp", S * L * dtc[:, :, None, :, :], xc)
+    total = seg[:, :, -1, :]
+    w = np.exp(total[:, :, None, :] - seg) * dtc                    # [b, nc, Q, H]
+    states = np.einsum("bcjhn,bcjh,bcjhp->bchnp", Bh, w, xc)
+    return y.reshape(b, s, H, P), states, total
 
 
 def _inputs(seed, b, s, H, P, G, N):
@@ -191,22 +234,68 @@ def test_serving_widths_over_seeds_match_pallas(b, s, H, P, G, N, chunk, seed):
 def test_serving_width_gap_is_the_cumsum_order(b, s, H, P, G, N, chunk):
     """At chunk 256 seg reaches about -190, where an fp32 ulp is 1.5e-5, and
     y's terms of up to ~50 carry exp(seg_i - seg_j): two fp32 sums of seg in
-    different orders put y up to a few times the tolerance apart (ROADMAP,
-    Queue C). Whatever gap the kernels' seg (summed in sequence) leaves to
-    the Pallas kernel is not the split's: with either seg the 3xTF32
-    products stay within half the tolerance of exact fp32 products on the
-    same seg, and with seg summed as the Pallas body sums it they are
-    within half the tolerance of the Pallas kernel. On a card the plain
-    version sums seg in the kernels' order (torch.cumsum along a non-last
-    axis of a CUDA tensor runs in sequence), so the card's comparison
-    compares like with like."""
+    different orders (in sequence, as the kernels once summed it, and as
+    the Pallas body sums it) put y more than the tolerance apart, with the
+    same exact fp32 products. That gap is seg's and not the split's: with
+    any seg, either fp32 order or the kernels' pair, the 3xTF32 products
+    stay within half the tolerance of exact fp32 products on the same seg,
+    and with seg summed as the Pallas body sums it they are within half
+    the tolerance of the Pallas kernel."""
     arrays = _inputs(17, b, s, H, P, G, N)
     inputs = [torch.from_numpy(a) for a in arrays]
-    for cumsum in (sequential_cumsum, pallas_cumsum):
-        exact = _kernel_arithmetic(*inputs, chunk, mm=torch.matmul, cumsum=cumsum)
+    exact = {}
+    for cumsum in (sequential_cumsum, pallas_cumsum, hi_lo_cumsum):
+        exact[cumsum] = _kernel_arithmetic(*inputs, chunk, mm=torch.matmul, cumsum=cumsum)
         split = _kernel_arithmetic(*inputs, chunk, cumsum=cumsum)
-        assert _worst(split, [e.numpy() for e in exact]) < 0.5
-    assert _worst(split, _pallas(arrays, chunk)) < 0.5
+        assert _worst(split, [e.numpy() for e in exact[cumsum]]) < 0.5
+        if cumsum is pallas_cumsum:
+            assert _worst(split, _pallas(arrays, chunk)) < 0.5
+    assert _worst(exact[sequential_cumsum], [e.numpy() for e in exact[pallas_cumsum]]) > 1.0
+
+
+SEEDS = [0, 1, 2, 17, *range(100, 108)]
+
+
+@functools.lru_cache(maxsize=None)
+def _references(shape, seed):
+    """The inputs of one draw at a serving shape, ``_exact`` on them, the
+    Pallas kernel's outputs and its share of the tolerance against
+    ``_exact``."""
+    arrays = _inputs(seed, *shape[:6])
+    exact = _exact(*arrays, shape[6])
+    pallas = [np.asarray(p) for p in _pallas(arrays, shape[6])]
+    return arrays, exact, pallas, _worst([torch.from_numpy(p) for p in pallas], exact)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SERVING)
+def test_serving_widths_hold_the_exact_function(shape, seed):
+    """At chunk 256 the kernels' arithmetic (3xTF32 products, seg as the
+    pair hi + lo) lies within half the tolerance of the formula in fp64,
+    and no further from the Pallas kernel than the Pallas kernel lies from
+    the formula, plus 0.25: the kernels are held to the exact function at
+    the unchanged 1e-4, and to the Pallas kernel within its own error."""
+    arrays, exact, pallas, pallas_share = _references(shape, seed)
+    got = _kernel_arithmetic(*(torch.from_numpy(a) for a in arrays), shape[6])
+    assert _worst(got, exact) < 0.5
+    assert _worst(got, pallas) < pallas_share + 0.25
+
+
+def test_one_fp32_seg_misses_the_exact_function():
+    """The fault the pair repairs: with seg one fp32 summed in sequence, as
+    the kernels summed it before, the same arithmetic lies more than the
+    tolerance from the formula in fp64 on at least one draw at a serving
+    shape, where the pair stays under half of it (the test above)."""
+    worst = 0.0
+    for shape in SERVING:
+        for seed in SEEDS:
+            arrays, exact, _, _ = _references(shape, seed)
+            got = _kernel_arithmetic(*(torch.from_numpy(a) for a in arrays), shape[6],
+                                     cumsum=sequential_cumsum)
+            worst = max(worst, _worst(got, exact))
+            if worst > 1.0:
+                return
+    pytest.fail(f"one fp32 seg stays within {worst:.3f} of the tolerance of fp64")
 
 
 def test_chained_k_steps_drift_further():

@@ -23,7 +23,12 @@ the tolerance; they say what that work costs:
   accumulators on the tensor cores (no fp32 adds between k-steps);
 - ``one_pass`` (diagnostic): one TF32 product instead of three;
 - ``no_state`` (diagnostic): no state fragments;
-- ``no_sload`` (diagnostic): y's scores loaded for the first k-step only.
+- ``no_sload`` (diagnostic): y's scores loaded for the first k-step only;
+- ``seg_unroll32``: the seg loop unrolled 32 steps (dt read further ahead
+  of the sum);
+- ``seg_fp32`` (diagnostic): seg as one fp32 summed in sequence, its low
+  part dropped in both kernels (the arithmetic before seg was kept as an
+  exact pair), which says what the pair costs in time and in accuracy.
 
 Prints one JSON line per variant and shape, then the card's name and
 power limit as ``nvidia-smi`` prints them.
@@ -66,6 +71,22 @@ VARIANTS = {
     "no_state": [("const bool has_s = warp < rn;", "const bool has_s = false;")],
     "no_sload": [("next[q] = __ldcg(sf + (static_cast<long long>(ry[q]) * k8 + ks + 1) * 32);",
                   "next[q] = make_float4(sv.y, sv.z, sv.w, sv.x);")],
+    "seg_unroll32": [("#pragma unroll 8\n      for (int i = 0; i < Q; ++i) {\n        acc +=",
+                      "#pragma unroll 32\n      for (int i = 0; i < Q; ++i) {\n        acc +=")],
+    "seg_fp32": [
+        ("      double acc = 0.0;\n", ""),
+        ("        acc += static_cast<double>(__fmul_rn(dp[i * st.ds], a));   // no FMA contraction\n"
+         "        hi = __double2float_rn(acc);\n",
+         "        hi = __fadd_rn(hi, __fmul_rn(dp[i * st.ds], a));\n"),
+        ("        seg_lo[o + static_cast<long long>(i) * H] = __double2float_rn(acc - hi);\n", ""),
+        ("sSegLo[i] = i < Q ? seg_lo[so + static_cast<long long>(i) * H] : 0.f;",
+         "sSegLo[i] = 0.f;"),
+        ("sW[i] = i < Q ? expf((total - sSeg[i]) + (total_lo - sSegLo[i])) : 0.f;",
+         "sW[i] = i < Q ? expf(total - sSeg[i]) : 0.f;"),
+        ("exp_fast((segi[q][0] - sj0) + (segi_lo[q][0] - lj0))", "exp_fast(segi[q][0] - sj0)"),
+        ("exp_fast((segi[q][1] - sj0) + (segi_lo[q][1] - lj0))", "exp_fast(segi[q][1] - sj0)"),
+        ("exp_fast((segi[q][0] - sj1) + (segi_lo[q][0] - lj1))", "exp_fast(segi[q][0] - sj1)"),
+        ("exp_fast((segi[q][1] - sj1) + (segi_lo[q][1] - lj1))", "exp_fast(segi[q][1] - sj1)")],
 }
 
 
