@@ -60,6 +60,25 @@ Phases, each printing JSON lines:
    jobs (release the oldest 32, one ``feasible_roots_batch`` over the
    rest of the window), a 64-node grow and its shrink midway, all
    replayed in lockstep on a twin graph on the CPU that must agree.
+10. train_kernels: the attention backward kernel (three launches of one
+   ``flash_attention_bwd`` call) against ``ref_attention_bwd`` on the
+   forward kernel's o and logsumexp, fp32 at 1e-4 and bf16 at 2e-2 of
+   each gradient's largest |value| (the training shape, the model's
+   permuted views, GQA groups 1, 3 and 8, window 32, sq 72 < skv 200, head
+   dims 64 / 80 / 128), the logsumexp against the plain one, the autograd
+   path of ``attention_op`` against autograd through the plain forward;
+   the backward's registers and spills (none may spill); its device time,
+   the plain version's and the backward half of
+   ``scaled_dot_product_attention`` beside the bound at the training shape.
+11. train_consistency: reduced llama3.2-3b in fp32, three ``train_step``s
+   on the card against the same steps on the CPU.
+12. train: ``run_training("llama3.2-3b", smoke=False)`` at full width and
+   depth (28 layers, d_model 3072, vocab 128256, remat on) at batch 2 x
+   1024: a MATCHALLOCATE through the copied control plane, a grow, a
+   shrink and a node failure with replacement, six AdamW steps; finite
+   losses (the first within 1.0 of ln 128256), the events, exactly 56
+   forward and 28 backward attention launches a step, ms a step, tokens/s,
+   peak memory; then one step under the profiler.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -71,6 +90,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random
 import re
 import statistics
@@ -1028,7 +1048,341 @@ def phase_schedule(dev, sweep_ms: float) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# phases 10-12: the training slice
+# ---------------------------------------------------------------------- #
+# flash_attention_bwd cases: name, (b, h, kvh, sq, skv, d), window, dtype,
+# layout. The training shape (llama3.2-3b at batch 2 x 1024, the model's
+# permuted views) in both dtypes, GQA groups 1, 3 and 8, window 32, sq 72 <
+# skv 200, head dims 64 / 80 / 128, a ragged length
+BWD_SHAPE = (2, 24, 8, 1024, 1024, 128)
+BWD_CASES = [
+    ("train", BWD_SHAPE, 0, "bfloat16", "bshd"),
+    ("train_fp32", BWD_SHAPE, 0, "float32", "bshd"),
+    ("gqa3_d64", (2, 6, 2, 256, 256, 64), 0, "bfloat16", "bhsd"),
+    ("gqa3_d64_fp32", (2, 6, 2, 256, 256, 64), 0, "float32", "bhsd"),
+    ("gqa8", (2, 16, 2, 256, 256, 128), 0, "bfloat16", "bshd"),
+    ("gqa8_fp32", (2, 16, 2, 256, 256, 128), 0, "float32", "bshd"),
+    ("window32", (2, 8, 2, 256, 256, 64), 32, "bfloat16", "bshd"),
+    ("window32_fp32", (2, 8, 2, 256, 256, 64), 32, "float32", "bhsd"),
+    ("offset_q", (2, 6, 2, 72, 200, 64), 0, "bfloat16", "bshd"),
+    ("offset_q_fp32", (2, 6, 2, 72, 200, 64), 0, "float32", "bhsd"),
+    ("d80", (2, 8, 8, 192, 192, 80), 0, "bfloat16", "bshd"),
+    ("d80_fp32", (2, 8, 8, 192, 192, 80), 0, "float32", "bhsd"),
+    ("ragged", (2, 24, 8, 200, 200, 128), 0, "bfloat16", "bshd"),
+]
+# of the largest |grad| of each output: in bf16 dq, dk and dv are rounded to
+# bf16 (as are o and dO, which both sides read); in fp32 only the order of
+# the sums differs (the plain version's einsums against the kernel's tiles)
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# the full-width training run: llama3.2-3b, 28 layers, d_model 3072, vocab
+# 128256, remat on; JAX's train_4k cell (256 x 4096) cut to 2 x 1024 so
+# that the fp32 masters, gradients and AdamW moments fit one card
+TRAIN = dict(steps=6, grow_at=2, shrink_at=3, fail_at=4, start_chips=2)
+TRAIN_SHAPE = (1024, 2)                # seq_len, batch
+TRAIN_CONSISTENCY_STEPS = 3
+TRAIN_TOL = 1e-4                       # losses relative; params of their largest |value|
+
+
+def bwd_ptxas(rows: list) -> list:
+    """The ptxas rows of the backward's kernels; fails on a spill."""
+    out = [r for r in rows if any(k in r["kernel"] for k in BWD_KERNELS)]
+    # 3 kernels x 2 dtypes x 5 head dims
+    check(len(out) == 3 * 2 * 5, f"ptxas reports {len(out)} backward instantiations")
+    spilled = [r for r in out if r.get("spill_stores") or r.get("spill_loads")]
+    check(not spilled, f"backward kernels spill: {spilled}")
+    return out
+
+
+def bwd_inputs(gen, dev, b, h, kvh, sq, skv, d, dtype, layout):
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(
+            getattr(torch, dtype))
+    if layout == "bshd":
+        return (randn(b, sq, h, d).permute(0, 2, 1, 3), randn(b, skv, kvh, d).permute(0, 2, 1, 3),
+                randn(b, skv, kvh, d).permute(0, 2, 1, 3), randn(b, sq, h, d).permute(0, 2, 1, 3))
+    return randn(b, h, sq, d), randn(b, kvh, skv, d), randn(b, kvh, skv, d), randn(b, h, sq, d)
+
+
+def bwd_bound(b, h, kvh, sq, skv, d, itemsize):
+    """(ms, by, gflop, mbytes): the backward's five products (S, dP, dV, dK,
+    dQ: 2 d operations each per attended (query, key) pair of each head, the
+    causal half) at the bf16 tensor-core peak, against q, k, v, o, dO and
+    lse read once and dq, dk, dv written once."""
+    off = skv - sq
+    pairs = sum(min(skv, i + off + 1) for i in range(sq))
+    flops = 5 * 2.0 * d * pairs * b * h
+    nbytes = itemsize * (4 * b * h * sq * d + 4 * b * kvh * skv * d) + 4.0 * b * h * sq
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops / 1e9, nbytes / 1e6)
+
+
+def phase_train_kernels(dev, ptxas: list) -> dict:
+    """The attention backward kernel against ``ref_attention_bwd`` on the
+    card, each fed the kernel forward's o and logsumexp; the logsumexp
+    against the plain version's; the whole autograd path (``attention_op``
+    on inputs that want a gradient) against autograd through the plain
+    forward; then the times at the training shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ops import attention_op
+    from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
+
+    emit("train_kernels", ptxas=bwd_ptxas(ptxas))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    timed = {}
+    for name, (b, h, kvh, sq, skv, d), window, dtype, layout in BWD_CASES:
+        q, k, v, dO = bwd_inputs(gen, dev, b, h, kvh, sq, skv, d, dtype, layout)
+        o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        grads = flash_attention_bwd(q, k, v, o, lse, dO, window=window)
+        torch.cuda.synchronize()
+        ref_lse = ref_attention(q, k, v, window=window, return_lse=True)[1]
+        lse_err = compare(lse, ref_lse, "float32", TOL["float32"])
+        refs = ref_attention_bwd(q, k, v, o, lse, dO, window=window)
+        tol = BWD_TOL[dtype]
+        errs, scales = [], []
+        for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
+            scale = r.float().abs().max().item()
+            err = (g.float() - r.float()).abs().max().item()
+            check(g.shape == r.shape and math.isfinite(err) and err <= tol * scale,
+                  f"flash_attention_bwd {name} {gname}: {err} > {tol} * {scale}")
+            errs.append(err)
+            scales.append(scale)
+        emit("train_kernels", kernel="flash_attention_bwd", case=name,
+             shape=[b, h, kvh, sq, skv, d], window=window, dtype=dtype, layout=layout,
+             max_abs_err=dict(zip(("dq", "dk", "dv"), errs)),
+             max_abs_ref=dict(zip(("dq", "dk", "dv"), scales)), tol_of_largest=tol,
+             lse_max_abs_err=lse_err)
+        if name == "train":
+            timed = bwd_timing(q, k, v, o, lse, dO, max(e / s for e, s in zip(errs, scales)))
+            timed["max_abs_err"] = max(errs)
+        del q, k, v, dO, o, lse, grads, refs
+
+    # the autograd path: attention_op on leaves that want a gradient runs
+    # FlashAttention (forward with the logsumexp, then the backward kernel)
+    from repro_torch.kernels import LAUNCHES
+    b, h, kvh, sq, skv, d = 2, 8, 2, 256, 256, 128
+    q, k, v, dO = bwd_inputs(gen, dev, b, h, kvh, sq, skv, d, "bfloat16", "bshd")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = dict(LAUNCHES)
+    got = torch.autograd.grad(attention_op(*leaves), leaves, dO)
+    check(LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+          and LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1,
+          "attention_op under grad: one forward and one backward launch")
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref_attention(*plain), plain, dO.float())
+    errs = []
+    for g, w in zip(got, want):
+        err = (g.float() - w).abs().max().item()
+        check(err <= BWD_TOL["bfloat16"] * w.abs().max().item(),
+              f"attention_op autograd vs plain autograd: {err}")
+        errs.append(err)
+    emit("train_kernels", kernel="attention_op", case="autograd_bf16_vs_plain_fp32",
+         shape=[b, h, kvh, sq, skv, d], max_abs_err=errs, tol_of_largest=BWD_TOL["bfloat16"])
+    return timed
+
+
+def bwd_timing(q, k, v, o, lse, dO, err_share: float) -> dict:
+    """Device ms of one ``flash_attention_bwd`` call (its three launches),
+    of the plain version, and of the backward half of
+    ``scaled_dot_product_attention`` through autograd (the library's
+    yardstick; GQA as expanded k and v), beside the bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ref import ref_attention_bwd
+
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    _, rows, _ = profiled(lambda: [flash_attention_bwd(q, k, v, o, lse, dO) for _ in range(10)])
+    kernel_ms = {kn: sum(ms for ms, _, key in rows if kn in key) / 10 for kn in BWD_KERNELS}
+    ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dO), iters=10)
+    event_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dO), iters=10)
+    plain_ms = device_ms(lambda: ref_attention_bwd(q, k, v, o, lse, dO), iters=3)
+    g = h // kvh
+    lq = q.detach().requires_grad_()
+    lk = k.repeat_interleave(g, dim=1).detach().requires_grad_()
+    lv = v.repeat_interleave(g, dim=1).detach().requires_grad_()
+    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_ms = device_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), dO, retain_graph=True),
+                       iters=10)
+    bound_ms, by, gflop, mbytes = bwd_bound(b, h, kvh, sq, skv, d, q.element_size())
+    row = dict(ms=ms, event_ms=event_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+    emit("train_kernels", kernel="flash_attention_bwd", case="train", **row, gflop=gflop,
+         mbytes=mbytes, tflops=gflop / ms, max_err_share_of_largest=err_share)
+    return row
+
+
+def phase_train_consistency(dev) -> None:
+    """Reduced llama3.2-3b in fp32: three ``train_step``s on the card
+    against the same steps on the CPU from the same weights and batches.
+    Losses within ``TRAIN_TOL`` relative; every parameter within
+    ``TRAIN_TOL`` of the largest |value| of all parameters (AdamW moves an
+    element whose gradient is near zero by up to lr whatever that
+    gradient's size, so a leaf's own largest |value| is no scale for its
+    smallest leaves). Each step launches one forward and one backward per
+    layer (remat is off in the reduced config)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import make_model
+    from repro_torch.optim.adamw import OptConfig
+
+    cfg = get_config(ARCH).reduced()
+    opt = OptConfig(kind=cfg.optimizer, warmup=5, total_steps=10)
+    host = make_model(cfg, device="cpu", opt=opt)
+    host.init_params(torch.Generator().manual_seed(6))
+    card = make_model(cfg, device=dev, opt=opt)
+    card.load_params(host.state_dict())
+    pipe = SyntheticTokenPipeline(cfg, ShapeConfig("smoke_train", 32, 8, "train"), DataConfig())
+    states = [host.init_opt(), card.init_opt()]
+    reset_launches()
+    rows = []
+    for step in range(TRAIN_CONSISTENCY_STEPS):
+        batch = pipe.batch_at(step)
+        losses = []
+        for i, model in enumerate((host, card)):
+            tb = {n: torch.from_numpy(a).to(model.device, torch.long) for n, a in batch.items()}
+            states[i], m = model.train_step(states[i], tb)
+            losses.append(m["loss"].item())
+        rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        check(math.isfinite(losses[1]) and rel <= TRAIN_TOL,
+              f"train step {step}: card loss {losses[1]} vs CPU {losses[0]}")
+        rows.append({"step": step, "loss_cpu": losses[0], "loss_card": losses[1], "rel": rel})
+    launches = dict(LAUNCHES)
+    n = TRAIN_CONSISTENCY_STEPS * cfg.n_layers
+    check(launches["flash_attention"] == n and launches["flash_attention_bwd"] == n,
+          f"train consistency launches {launches}, expected {n} of each")
+    hp, cp = host.masters(), card.masters()
+    scale = max(t.abs().max().item() for t in hp.values())
+    diff = {name: (cp[name].cpu() - t).abs().max().item() for name, t in hp.items()}
+    worst = max(diff, key=diff.get)
+    check(diff[worst] <= TRAIN_TOL * scale,
+          f"params after {TRAIN_CONSISTENCY_STEPS} steps: {worst} {diff[worst]} > "
+          f"{TRAIN_TOL} * {scale}")
+    emit("train_consistency", arch=cfg.name, dtype=cfg.dtype, steps=rows,
+         max_param_diff=diff[worst], worst_param=worst, max_abs_param=scale,
+         tol=TRAIN_TOL, launches=launches)
+
+
+def phase_train(dev) -> dict:
+    """``run_training`` at full width and depth on the card (the cell of
+    ``TRAIN_SHAPE``): a MATCHALLOCATE through the copied control plane, a
+    grow, a shrink and a node failure with replacement, AdamW steps whose
+    attention runs the forward kernel twice a layer (once more under
+    remat) and the backward kernel once. Launch counts are read around
+    exactly this run; then one more step under the profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = get_config(ARCH)
+    check((cfg.n_layers, cfg.d_model) == DEPTH[ARCH] and cfg.remat, f"{ARCH}: full-width config")
+    seq, batch = TRAIN_SHAPE
+    steps = TRAIN["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_training(ARCH, smoke=False, shape=ShapeConfig("train_h100", seq, batch, "train"),
+                       device=dev, **TRAIN)
+    wall_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    expect = {name: n * steps for name, n in per_step.items()}
+    losses, kinds = res["losses"], [e.kind for e in res["events"]]
+    step_ms = [1e3 * s for s in res["step_s"]]
+    steady = step_ms[1:]                 # the first step also warms up cuBLAS and the allocator
+    emit("train", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         n_params=cfg.n_params(), seq_len=seq, batch=batch, steps=steps, remat=cfg.remat,
+         losses=losses, events=kinds, step_ms=step_ms,
+         step_ms_median=statistics.median(steady),
+         tokens_per_s=seq * batch / (statistics.median(steady) / 1e3), wall_s=wall_s,
+         peak_mem_gb=peak_gb, launches=launches, expected_launches=expect,
+         launches_per_step=per_step)
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 1.0,
+          f"first loss {losses[0]} is not within 1.0 of ln {cfg.vocab}")
+    check(kinds == ["rebind", "grow", "rebind", "shrink", "rebind", "eject", "rebind"],
+          f"events {kinds}")
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"train: {name} launches {n} != {expect.get(name, 0)}")
+    check(peak_gb < 80.0, f"peak memory {peak_gb} GB")
+
+    # where the time of one more step goes: its gradients (forward, loss,
+    # backward with the remat recompute), then the optimizer
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.optim.adamw import apply_updates
+    rt = res["runtime"]
+    model = rt.model
+    batch_np = SyntheticTokenPipeline(rt.cfg, rt.shape, DataConfig()).batch_at(steps)
+    tb = {n: torch.from_numpy(a).to(dev, torch.long) for n, a in batch_np.items()}
+    held = {}
+    parts = [("train_grads", lambda: held.update(vg=model.value_and_grad(tb))),
+             ("train_optimizer",
+              lambda: apply_updates(model.masters(), held["vg"][1], rt.opt_state, model.opt))]
+    total_wall = total_busy = 0.0
+    for part, fn in parts:
+        wall_ms, rows, _ = profiled(fn)
+        busy_ms = sum(r[0] for r in rows)
+        total_wall += wall_ms
+        total_busy += busy_ms
+        emit("profile", arch=ARCH, part=part, seq_len=seq, batch=batch, wall_ms=wall_ms,
+             device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+             by_class=kernel_classes(rows),
+             top=[{"op": k, "ms": ms, "calls": n} for ms, n, k in rows[:15]])
+        if part == "train_grads":
+            mma = sum(n for _, n, k in rows if "flash_fwd_mma_kernel" in k)
+            bwd = {k: sum(n for _, n, key in rows if k in key) for k in BWD_KERNELS}
+            check(mma == 2 * cfg.n_layers and set(bwd.values()) == {cfg.n_layers},
+                  f"profiled step: {mma} flash_fwd_mma_kernel, {bwd}")
+    emit("profile", arch=ARCH, part="train_step", wall_ms=total_wall, device_busy_ms=total_busy,
+         idle_share=max(0.0, 1 - total_busy / total_wall))
+    del rt, res, model, held
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_classes(rows) -> dict:
+    """Device ms of profiler rows by kind: the attention kernels, matrix
+    products (cuBLAS and CUTLASS), elementwise and reduction kernels,
+    copies, the rest."""
+    classes = {"attention_fwd": 0.0, "attention_bwd": 0.0, "matmul": 0.0, "elementwise": 0.0,
+               "reduction": 0.0, "copy": 0.0, "other": 0.0}
+    for ms, _, key in rows:
+        k = key.lower()
+        if "flash_fwd" in k:
+            cls = "attention_fwd"
+        elif "flash_bwd" in k:
+            cls = "attention_bwd"
+        elif any(t in k for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            cls = "matmul"
+        elif "elementwise" in k:
+            cls = "elementwise"
+        elif "reduce" in k:
+            cls = "reduction"
+        elif "memcpy" in k or "memset" in k:
+            cls = "copy"
+        else:
+            cls = "other"
+        classes[cls] += ms
+    return classes
+
+
 def main() -> int:
+    # the training phase holds about 64 of the card's 80 GB in tensors of up
+    # to 2.8 GB: segments that grow in place keep the caching allocator from
+    # splitting the card into pieces that no longer fit them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -1076,14 +1430,14 @@ def main() -> int:
           f"{FEASIBILITY_INSTANTIATIONS}")
     spilled = [r for r in feas if r.get("spill_stores") or r.get("spill_loads")]
     check(not spilled, f"feasibility kernels spill: {spilled}")
-    drive(dev, smi)
+    drive(dev, smi, ptxas)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def drive(dev, smi: str) -> None:
+def drive(dev, smi: str, ptxas: list) -> None:
     """Every phase after the build, then the kernel table and the card's
     name and power limit. Raises at the first failed check."""
     import torch
@@ -1115,9 +1469,17 @@ def drive(dev, smi: str) -> None:
     sched = phase_schedule_kernels(dev)
     timed["feasibility"] = sched["feasibility"]
     paths["schedule quartz"] = {"feasibility": phase_schedule(dev, sched["sweep_ms"])}
+    torch.cuda.empty_cache()
+
+    timed["flash_attention_bwd"] = phase_train_kernels(dev, ptxas)
+    torch.cuda.empty_cache()
+    phase_train_consistency(dev)
+    paths[f"train {ARCH}"] = phase_train(dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
+            # no Pallas backward: JAX differentiates its einsum attention with XLA
+            "flash_attention_bwd": ("flash_attention.cu", "src/repro/models/layers.py:210"),
             "flash_decode": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:179"),
             "feasibility": ("feasibility.cu", "src/repro/kernels/feasibility.py:93"),
             "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:71")}

@@ -6,6 +6,10 @@
 //   flash_decode_kernel       <- flash_decode / _decode_kernel (its splits of
 //     the cache meet in a thread block cluster: the cross-split combine that
 //     the TPU kernel did not need, its kv loop being one sequential grid axis).
+// and adds the backward of flash_attention, which has no Pallas counterpart
+// (flash_attention_bwd: flash_bwd_delta_kernel, flash_bwd_dkdv_kernel,
+// flash_bwd_dq_kernel; see the section "Backward" below). The forward
+// kernels write each row's logsumexp for it when given a buffer.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py). Kernels allocate
 // nothing: the Python wrapper allocates outputs and scratch on the current
@@ -105,7 +109,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long ksb, long long ksh, long long kss,
                  long long vsb, long long vsh, long long vss,
                  long long osb, long long osh, long long oss,
-                 float scale, int causal, int window) {
+                 float scale, int causal, int window, float* __restrict__ lse) {
   constexpr int DP = D / kTPR;
   __shared__ float Ks[kBK][D];
   __shared__ float Vs[kBK][D];
@@ -195,6 +199,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < DP; ++j) store_f(op + part + kTPR * j, acc[j] * inv);
+    // the row's logsumexp, for the backward (natural log units)
+    if (lse != nullptr && part == 0) lse[((long long)bb * h + hh) * sq + qi] = m + logf(l);
   }
 }
 
@@ -227,6 +233,7 @@ constexpr int kMmaThreads = 128;
 constexpr int kMmaPad = 8;            // bf16 per shared-memory row
 constexpr int kMmaMinBlocks = 3;      // per SM (68 KB each at D 128): <= 168 registers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
@@ -295,7 +302,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      long long ksb, long long ksh, long long kss,
                      long long vsb, long long vsh, long long vss,
                      long long osb, long long osh, long long oss,
-                     float scale_log2, int causal, int window) {
+                     float scale_log2, int causal, int window, float* __restrict__ lse) {
   constexpr int P = D + kMmaPad;            // shared-memory row pitch (elements)
   constexpr int KS = D / 16;                // k-steps of Q K^T
   constexpr int NT = D / 8;                 // n-tiles of the output
@@ -500,6 +507,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
         op[nt * 4] = pack_bf16(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
+      // the row's logsumexp in natural log units (m_r is in log2 units)
+      if (lse != nullptr && t == 0)
+        lse[((long long)bb * h + hh) * sq + qi] = (m_r[r] + log2f(l)) * kLn2;
     }
   }
 }
@@ -793,8 +803,8 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 // the largest shared-memory carveout, so that three blocks fit. Both are set
 // before every launch, so they hold on whichever device is current.
 template <int D>
-int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, int b, int h,
-                   int kvh, int sq, int skv, const long long* st, float scale,
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int h, int kvh, int sq, int skv, const long long* st, float scale,
                    int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
@@ -809,37 +819,38 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, int b, 
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), h, kvh, sq, skv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale * kLog2e, causal, window);
+      scale * kLog2e, causal, window, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 // fp32 on the CUDA cores (flash_fwd_kernel), bf16 on the tensor cores
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, int b, int h,
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b, int h,
                int kvh, int sq, int skv, const long long* st, float scale,
                int causal, int window, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_fwd_mma<D>(q, k, v, o, b, h, kvh, sq, skv, st, scale, causal, window, stream);
+    return launch_fwd_mma<D>(q, k, v, o, lse, b, h, kvh, sq, skv, st, scale, causal, window,
+                             stream);
   } else {
     dim3 grid((sq + kBQ - 1) / kBQ, h, b);
     flash_fwd_kernel<T, D><<<grid, kFwdThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), h, kvh, sq, skv, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window);
+        st[6], st[7], st[8], st[9], st[10], st[11], scale, causal, window, lse);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
 template <typename T>
-int launch_fwd_d(int d, const void* q, const void* k, const void* v, void* o, int b,
-                 int h, int kvh, int sq, int skv, const long long* st, float scale,
+int launch_fwd_d(int d, const void* q, const void* k, const void* v, void* o, float* lse,
+                 int b, int h, int kvh, int sq, int skv, const long long* st, float scale,
                  int causal, int window, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_fwd<T, 16>(q, k, v, o, b, h, kvh, sq, skv, st, scale, causal, window, stream);
-    case 32: return launch_fwd<T, 32>(q, k, v, o, b, h, kvh, sq, skv, st, scale, causal, window, stream);
-    case 64: return launch_fwd<T, 64>(q, k, v, o, b, h, kvh, sq, skv, st, scale, causal, window, stream);
-    case 80: return launch_fwd<T, 80>(q, k, v, o, b, h, kvh, sq, skv, st, scale, causal, window, stream);
-    case 128: return launch_fwd<T, 128>(q, k, v, o, b, h, kvh, sq, skv, st, scale, causal, window, stream);
+    case 16: return launch_fwd<T, 16>(q, k, v, o, lse, b, h, kvh, sq, skv, st, scale, causal, window, stream);
+    case 32: return launch_fwd<T, 32>(q, k, v, o, lse, b, h, kvh, sq, skv, st, scale, causal, window, stream);
+    case 64: return launch_fwd<T, 64>(q, k, v, o, lse, b, h, kvh, sq, skv, st, scale, causal, window, stream);
+    case 80: return launch_fwd<T, 80>(q, k, v, o, lse, b, h, kvh, sq, skv, st, scale, causal, window, stream);
+    case 128: return launch_fwd<T, 128>(q, k, v, o, lse, b, h, kvh, sq, skv, st, scale, causal, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -914,6 +925,378 @@ int launch_decode_d(int d, const DecodeArgs& a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (flash_attention_bwd). The Pallas kernel has no backward: the JAX
+// package trains through XLA's autodiff of its einsum attention
+// (src/repro/models/layers.py:210-217). This is FlashAttention-2's backward
+// on the CUDA cores, fp32 sums for fp32 and bf16 inputs alike, with P
+// recomputed from the logsumexp the forward saved (no [sq, skv] matrix in
+// device memory). Three launches:
+//   flash_bwd_delta_kernel  D = rowsum(dO o O), one warp a row;
+//   flash_bwd_dkdv_kernel   per (key tile, kv head, batch): loops over the
+//     query heads of its group and the query tiles that see its keys, so
+//     the GQA sum of dK and dV needs no atomics;
+//   flash_bwd_dq_kernel     per (query tile, head, batch): loops over the
+//     key tiles its rows see (the forward's tile range).
+// Both main kernels recompute S = Q K^T and dP = dO V^T for their tile pair
+// (7 products where a kernel with atomics would do 5). At the training shape
+// (b 2, h 24, kvh 8, s 1024, d 128, causal) the 5 products are 32 GFLOP,
+// 0.033 ms at 989 TFLOP/s, so the backward is bound by operations; this
+// first kernel runs them as fp32 FMAs from shared memory, bound by the rate
+// of shared-memory loads (5 16-byte loads for 16 FMAs in the S/dP step).
+// The tensor-core form is later work.
+//
+// Tiles: 32 query rows x 32 keys, 256 threads, all tiles staged in shared
+// memory as fp32 (rows padded by 4 floats: 16-byte aligned, and the 8 rows
+// of a quarter-warp's 16-byte loads fall in distinct bank groups). S/dP step:
+// thread (i = tid / 8, kq = tid % 8) takes row i against keys kq + 8j, j < 4.
+// Accumulation step: thread (c = tid / 8, kq = tid % 8) owns dims 4c..4c+3
+// of keys (or rows) kq + 8j; threads with 4c >= D sit it out.
+// ---------------------------------------------------------------------------
+constexpr int kBwdT = 32;             // query rows and keys per tile
+constexpr int kBwdThreads = 256;
+
+template <int D>
+__host__ __device__ constexpr int bwd_pitch() { return D + 4; }
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (4 * kBwdT * bwd_pitch<D>() + 2 * kBwdT * (kBwdT + 1) + 2 * kBwdT);
+}
+
+// rows [row0, row0 + 32) of a [rows, D] matrix with row stride `stride` into
+// a padded fp32 tile; rows at or past `rows` are zero
+template <typename T, int D>
+__device__ __forceinline__ void bwd_load_tile(float* dst, const T* __restrict__ src,
+                                              long long stride, int row0, int rows) {
+  for (int idx = threadIdx.x; idx < kBwdT * D; idx += kBwdThreads) {
+    const int r = idx / D, c = idx % D;
+    dst[r * bwd_pitch<D>() + c] = row0 + r < rows ? to_f(src[(long long)(row0 + r) * stride + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, float a, const float4 x) {
+  acc.x = fmaf(a, x.x, acc.x);
+  acc.y = fmaf(a, x.y, acc.y);
+  acc.z = fmaf(a, x.z, acc.z);
+  acc.w = fmaf(a, x.w, acc.w);
+}
+
+// P and dS of one (query tile, key tile) pair into Ps, dSs [32][33]: S and dP
+// from the staged Q, dO, K, V; P = exp(S scale - lse), 0 where masked (as the
+// forward masks: the causal diagonal with the query offset skv - sq, the
+// window, the ragged edges); dS = P (dP - D).
+template <int D>
+__device__ __forceinline__ void bwd_p_ds(const float* Qs, const float* dOs, const float* Ks,
+                                         const float* Vs, const float* lse_s,
+                                         const float* del_s, float* Ps, float* dSs, int q0,
+                                         int k0, int sq, int skv, float scale, int causal,
+                                         int window) {
+  constexpr int P = bwd_pitch<D>();
+  const int i = threadIdx.x / 8, kq = threadIdx.x % 8;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    const float4 qv = *reinterpret_cast<const float4*>(Qs + i * P + c);
+    const float4 ov = *reinterpret_cast<const float4*>(dOs + i * P + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = dot4(qv, *reinterpret_cast<const float4*>(Ks + (kq + 8 * j) * P + c), s[j]);
+      dp[j] = dot4(ov, *reinterpret_cast<const float4*>(Vs + (kq + 8 * j) * P + c), dp[j]);
+    }
+  }
+  const int qi = q0 + i, qpos = qi + skv - sq;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kk = kq + 8 * j, kpos = k0 + kk;
+    const bool ok = qi < sq && kpos < skv &&
+                    !(causal && (kpos > qpos || (window > 0 && kpos <= qpos - window)));
+    const float p = ok ? expf(s[j] * scale - lse_s[i]) : 0.f;
+    Ps[i * (kBwdT + 1) + kk] = p;
+    dSs[i * (kBwdT + 1) + kk] = p * (dp[j] - del_s[i]);
+  }
+}
+
+// D[b, h, i] = sum_d dO[i, d] O[i, d], fp32 [b, h, sq]. Grid (ceil(sq/8), h, b).
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
+                       float* __restrict__ delta, int h, int sq,
+                       long long osb, long long osh, long long oss,
+                       long long dsb, long long dsh, long long dss) {
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int qi = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (qi >= sq) return;
+  const T* op = o + bb * osb + hh * osh + (long long)qi * oss;
+  const T* dp = dO + bb * dsb + hh * dsh + (long long)qi * dss;
+  float acc = 0.f;
+  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) delta[((long long)bb * h + hh) * sq + qi] = acc;
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dO;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  int b, h, kvh, sq, skv;
+  // in elements: q, k, v, o, dO, dq, dk, dv, each (b, head, s)
+  const long long* st;
+  float scale;
+  int causal, window;
+  cudaStream_t stream;
+};
+
+// dK, dV of 32 keys of one kv head. Grid (ceil(skv/32), kvh, b).
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dO,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int h, int kvh, int sq, int skv,
+                      long long qsb, long long qsh, long long qss,
+                      long long ksb, long long ksh, long long kss,
+                      long long vsb, long long vsh, long long vss,
+                      long long dosb, long long dosh, long long doss,
+                      long long dksb, long long dksh, long long dkss,
+                      long long dvsb, long long dvsh, long long dvss,
+                      float scale, int causal, int window) {
+  constexpr int P = bwd_pitch<D>();
+  extern __shared__ __align__(16) float bsm[];
+  float* Qs = bsm;
+  float* dOs = Qs + kBwdT * P;
+  float* Ks = dOs + kBwdT * P;
+  float* Vs = Ks + kBwdT * P;
+  float* Ps = Vs + kBwdT * P;
+  float* dSs = Ps + kBwdT * (kBwdT + 1);
+  float* lse_s = dSs + kBwdT * (kBwdT + 1);
+  float* del_s = lse_s + kBwdT;
+
+  const int kt = blockIdx.x, kh = blockIdx.y, bb = blockIdx.z;
+  const int G = h / kvh;
+  const int k0 = kt * kBwdT;
+  const int off = skv - sq;
+  const int tid = threadIdx.x;
+  bwd_load_tile<T, D>(Ks, k + bb * ksb + kh * ksh, kss, k0, skv);
+  bwd_load_tile<T, D>(Vs, v + bb * vsb + kh * vsh, vss, k0, skv);
+
+  // query tiles whose rows see a key of this tile: none wholly before the
+  // tile's first key (causal), none wholly past its last key's window
+  int q_begin = 0, q_end = sq;
+  if (causal) {
+    q_begin = max(0, k0 - off);
+    if (window > 0) q_end = min(sq, k0 + kBwdT - 1 + window - off);
+  }
+  q_begin = (q_begin / kBwdT) * kBwdT;
+
+  const int c = tid / 8, kq = tid % 8;
+  const bool owner = 4 * c < D;
+  float4 dka[4], dva[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dka[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    dva[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int g = 0; g < G; ++g) {
+    const int hh = kh * G + g;
+    const T* qb = q + bb * qsb + hh * qsh;
+    const T* ob = dO + bb * dosb + hh * dosh;
+    const float* lb = lse + ((long long)bb * h + hh) * sq;
+    const float* db = delta + ((long long)bb * h + hh) * sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += kBwdT) {
+      __syncthreads();                   // the previous tile's Q, dO, P, dS are read
+      bwd_load_tile<T, D>(Qs, qb, qss, q0, sq);
+      bwd_load_tile<T, D>(dOs, ob, doss, q0, sq);
+      if (tid < kBwdT) {
+        const bool ok = q0 + tid < sq;
+        lse_s[tid] = ok ? lb[q0 + tid] : 0.f;
+        del_s[tid] = ok ? db[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      bwd_p_ds<D>(Qs, dOs, Ks, Vs, lse_s, del_s, Ps, dSs, q0, k0, sq, skv, scale, causal,
+                  window);
+      __syncthreads();
+      if (owner) {
+#pragma unroll 4
+        for (int i = 0; i < kBwdT; ++i) {
+          const float4 ov = *reinterpret_cast<const float4*>(dOs + i * P + 4 * c);
+          const float4 qv = *reinterpret_cast<const float4*>(Qs + i * P + 4 * c);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            axpy4(dva[j], Ps[i * (kBwdT + 1) + kq + 8 * j], ov);
+            axpy4(dka[j], dSs[i * (kBwdT + 1) + kq + 8 * j], qv);
+          }
+        }
+      }
+    }
+  }
+
+  if (owner) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kpos = k0 + kq + 8 * j;
+      if (kpos >= skv) continue;
+      T* kp = dk + bb * dksb + kh * dksh + (long long)kpos * dkss + 4 * c;
+      T* vp = dv + bb * dvsb + kh * dvsh + (long long)kpos * dvss + 4 * c;
+      store_f(kp + 0, dka[j].x * scale);
+      store_f(kp + 1, dka[j].y * scale);
+      store_f(kp + 2, dka[j].z * scale);
+      store_f(kp + 3, dka[j].w * scale);
+      store_f(vp + 0, dva[j].x);
+      store_f(vp + 1, dva[j].y);
+      store_f(vp + 2, dva[j].z);
+      store_f(vp + 3, dva[j].w);
+    }
+  }
+}
+
+// dQ of 32 query rows of one head. Grid (ceil(sq/32), h, b).
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int h, int kvh, int sq, int skv,
+                    long long qsb, long long qsh, long long qss,
+                    long long ksb, long long ksh, long long kss,
+                    long long vsb, long long vsh, long long vss,
+                    long long dosb, long long dosh, long long doss,
+                    long long dqsb, long long dqsh, long long dqss,
+                    float scale, int causal, int window) {
+  constexpr int P = bwd_pitch<D>();
+  extern __shared__ __align__(16) float bsm[];
+  float* Qs = bsm;
+  float* dOs = Qs + kBwdT * P;
+  float* Ks = dOs + kBwdT * P;
+  float* Vs = Ks + kBwdT * P;
+  float* Ps = Vs + kBwdT * P;
+  float* dSs = Ps + kBwdT * (kBwdT + 1);
+  float* lse_s = dSs + kBwdT * (kBwdT + 1);
+  float* del_s = lse_s + kBwdT;
+
+  const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int kh = hh / (h / kvh);
+  const int q0 = qt * kBwdT;
+  const int off = skv - sq;
+  const int tid = threadIdx.x;
+  bwd_load_tile<T, D>(Qs, q + bb * qsb + hh * qsh, qss, q0, sq);
+  bwd_load_tile<T, D>(dOs, dO + bb * dosb + hh * dosh, doss, q0, sq);
+  if (tid < kBwdT) {
+    const bool ok = q0 + tid < sq;
+    const long long row = ((long long)bb * h + hh) * sq + q0 + tid;
+    lse_s[tid] = ok ? lse[row] : 0.f;
+    del_s[tid] = ok ? delta[row] : 0.f;
+  }
+
+  // key tiles, as the forward takes them
+  int k_begin = 0, k_end = skv;
+  if (causal) {
+    const int q_lo = q0 + off;
+    const int q_hi = min(q0 + kBwdT, sq) - 1 + off;
+    k_end = min(skv, q_hi + 1);
+    if (window > 0) k_begin = max(0, q_lo - window + 1);
+  }
+  k_begin = (k_begin / kBwdT) * kBwdT;
+
+  const int c = tid / 8, iq = tid % 8;
+  const bool owner = 4 * c < D;
+  float4 dqa[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dqa[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const T* kb = k + bb * ksb + kh * ksh;
+  const T* vb = v + bb * vsb + kh * vsh;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBwdT) {
+    __syncthreads();                     // the previous tile's K and dS are read
+    bwd_load_tile<T, D>(Ks, kb, kss, k0, skv);
+    bwd_load_tile<T, D>(Vs, vb, vss, k0, skv);
+    __syncthreads();
+    bwd_p_ds<D>(Qs, dOs, Ks, Vs, lse_s, del_s, Ps, dSs, q0, k0, sq, skv, scale, causal, window);
+    __syncthreads();
+    if (owner) {
+#pragma unroll 4
+      for (int kk = 0; kk < kBwdT; ++kk) {
+        const float4 kv = *reinterpret_cast<const float4*>(Ks + kk * P + 4 * c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) axpy4(dqa[j], dSs[(iq + 8 * j) * (kBwdT + 1) + kk], kv);
+      }
+    }
+  }
+
+  if (owner) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qi = q0 + iq + 8 * j;
+      if (qi >= sq) continue;
+      T* qp = dq + bb * dqsb + hh * dqsh + (long long)qi * dqss + 4 * c;
+      store_f(qp + 0, dqa[j].x * scale);
+      store_f(qp + 1, dqa[j].y * scale);
+      store_f(qp + 2, dqa[j].z * scale);
+      store_f(qp + 3, dqa[j].w * scale);
+    }
+  }
+}
+
+// The three launches of one backward; shared memory above 48 KB is opted
+// into before each launch, so it holds on whichever device is current.
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a) {
+  const long long* st = a.st;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* o = static_cast<const T*>(a.o);
+  const T* dO = static_cast<const T*>(a.dO);
+  flash_bwd_delta_kernel<T, D><<<dim3((a.sq + 7) / 8, a.h, a.b), 256, 0, a.stream>>>(
+      o, dO, a.delta, a.h, a.sq, st[9], st[10], st[11], st[12], st[13], st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t smem = bwd_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<T, D><<<dim3((a.skv + kBwdT - 1) / kBwdT, a.kvh, a.b), kBwdThreads,
+                                smem, a.stream>>>(
+      q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.kvh,
+      a.sq, a.skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
+      st[13], st[14], st[18], st[19], st[20], st[21], st[22], st[23], a.scale, a.causal,
+      a.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T, D><<<dim3((a.sq + kBwdT - 1) / kBwdT, a.h, a.b), kBwdThreads, smem,
+                              a.stream>>>(
+      q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dq), a.h, a.kvh, a.sq, a.skv, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], st[15],
+      st[16], st[17], a.scale, a.causal, a.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_d(int d, const BwdArgs& a) {
+  switch (d) {
+    case 16: return launch_bwd<T, 16>(a);
+    case 32: return launch_bwd<T, 32>(a);
+    case 64: return launch_bwd<T, 64>(a);
+    case 80: return launch_bwd<T, 80>(a);
+    case 128: return launch_bwd<T, 128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -922,15 +1305,19 @@ extern "C" {
 // strides (in elements), 12 values: q (b, h, s), k (b, kvh, s), v (b, kvh, s),
 // o (b, h, s); the head dim is contiguous in all four. In bf16 every pointer
 // is 16-byte aligned and every stride a multiple of 8 (the wrapper checks).
+// lse: null, or fp32 [b, h, sq] contiguous, where each row's logsumexp
+// m + log(l) (natural log units) is written for the backward.
 int flash_attention_fwd(int dtype, int d, const void* q, const void* k, const void* v,
                         void* o, int b, int h, int kvh, int sq, int skv,
                         const long long* strides, float scale, int causal, int window,
-                        void* stream) {
+                        float* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fwd_d<float>(d, q, k, v, o, b, h, kvh, sq, skv, strides, scale, causal, window, st);
+    return launch_fwd_d<float>(d, q, k, v, o, lse, b, h, kvh, sq, skv, strides, scale, causal,
+                               window, st);
   if (dtype == 1)
-    return launch_fwd_d<__nv_bfloat16>(d, q, k, v, o, b, h, kvh, sq, skv, strides, scale, causal, window, st);
+    return launch_fwd_d<__nv_bfloat16>(d, q, k, v, o, lse, b, h, kvh, sq, skv, strides, scale,
+                                       causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -949,6 +1336,24 @@ int flash_decode_fwd(int q_dtype, int kv_dtype, int d, const void* q, const void
   if (q_dtype == 0 && kv_dtype == 0) return launch_decode_d<float, float>(d, a);
   if (q_dtype == 1 && kv_dtype == 1) return launch_decode_d<__nv_bfloat16, __nv_bfloat16>(d, a);
   if (q_dtype == 0 && kv_dtype == 1) return launch_decode_d<float, __nv_bfloat16>(d, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of flash_attention_fwd: dq, dk, dv (in the inputs' dtype) of
+// q, k, v given o, dO and the forward's lse. dtype as above. strides (in
+// elements), 24 values: q, k, v, o, dO, dq, dk, dv, each (b, head, s); the
+// head dim is contiguous in all eight. delta: fp32 [b, h, sq] scratch
+// (contiguous); lse: fp32 [b, h, sq] (contiguous). Three launches on
+// `stream`: delta, then dk and dv, then dq.
+int flash_attention_bwd(int dtype, int d, const void* q, const void* k, const void* v,
+                        const void* o, const void* dO, const float* lse, float* delta,
+                        void* dq, void* dk, void* dv, int b, int h, int kvh, int sq, int skv,
+                        const long long* strides, float scale, int causal, int window,
+                        void* stream) {
+  const BwdArgs a{q, k, v, o, dO, lse, delta, dq, dk, dv, b, h, kvh, sq, skv, strides,
+                  scale, causal, window, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_bwd_d<float>(d, a);
+  if (dtype == 1) return launch_bwd_d<__nv_bfloat16>(d, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

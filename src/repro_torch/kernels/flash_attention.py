@@ -3,10 +3,13 @@
 ``flash_attention`` replaces the Pallas kernel of the same name in
 ``repro/kernels/flash_attention.py`` (prefill), ``flash_decode`` replaces
 ``flash_decode`` there (decode over the KV cache). Both keep the JAX
-signatures and layouts at their public functions. They take CUDA tensors
-only and launch the kernel or raise: the plain versions are in
-``ref.py``, and ``ops.py`` picks between the two by the tensor's device.
-Each launch adds one to its count in ``build.LAUNCHES``.
+signatures and layouts at their public functions. ``flash_attention_bwd``
+is the backward of ``flash_attention``, which the Pallas kernel lacks (the
+JAX package trains through XLA's autodiff of its einsum attention);
+``FlashAttention`` joins the two in a ``torch.autograd.Function``. They
+take CUDA tensors only and launch the kernel or raise: the plain versions
+are in ``ref.py``, and ``ops.py`` picks between the two by the tensor's
+device. Each wrapper call adds one to its count in ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from . import build
 from .build import LAUNCHES
+from .ref import ref_attention, ref_attention_bwd
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 # decode keeps q and the accumulators of all g heads of a kv head in each
@@ -34,8 +38,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P, I, I, I, I, I, P, F, I, I, P]
+    lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P, I, I, I, I, I, P, F, I, I, P, P]
     lib.flash_attention_fwd.restype = I
+    lib.flash_attention_bwd.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
+                                        F, I, I, P]
+    lib.flash_attention_bwd.restype = I
     lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, F, P]
     lib.flash_decode_fwd.restype = I
     return lib
@@ -83,8 +90,9 @@ def _check(rc: int, what: str) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] -> [b, h, sq, d].
+                    causal: bool = True, window: int = 0, return_lse: bool = False):
+    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] -> [b, h, sq, d] (and, with
+    ``return_lse``, each row's logsumexp, fp32 [b, h, sq], for the backward).
 
     Any strides with a contiguous head dim (in bf16, 16-byte aligned
     rows: see ``_check_16b_rows``); any sq and skv (ragged edges are
@@ -104,6 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         _check_16b_rows("bf16 prefill", q=q, k=k, v=v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 12)(
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
@@ -112,10 +121,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _lib().flash_attention_fwd(
             _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, h, kvh, sq, skv, strides, 1.0 / math.sqrt(d),
-            int(causal), int(window), torch.cuda.current_stream().cuda_stream)
+            int(causal), int(window), None if lse is None else lse.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, dO: torch.Tensor, causal: bool = True,
+                        window: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal,
+    window)`` = o against the output gradient dO, from the forward's
+    ``lse`` (fp32 [b, h, sq]). Any strides with a contiguous head dim for
+    q, k, v and o; dO is made contiguous here. Returns tensors of q's, k's
+    and v's shapes in their dtype, as views of [b, s, heads, d] buffers
+    (the layout the model's head split reads back without a copy).
+    Three launches (the row sums D = rowsum(dO o), then dK and dV, then
+    dQ) on the current stream; D lives in a scratch allocated here."""
+    _check_common(q, k, v)
+    if q.dtype != k.dtype or o.dtype != q.dtype or dO.dtype != q.dtype:
+        raise ValueError("q, k, v, o and dO must share one dtype")
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("dO", dO)):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} on {t.device}")
+    if o.stride(-1) != 1:
+        raise ValueError("o: the head dim must be contiguous")
+    if lse.dtype != torch.float32 or lse.shape != (b, h, sq) or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError("lse must be a contiguous fp32 [b, h, sq] tensor on q's device")
+    if causal and sq > skv:
+        raise ValueError("causal attention needs skv >= sq")
+    dO = dO.contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    dk = torch.empty((b, skv, kvh, d), dtype=k.dtype, device=q.device).permute(0, 2, 1, 3)
+    dv = torch.empty((b, skv, kvh, d), dtype=v.dtype, device=q.device).permute(0, 2, 1, 3)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, o, dO, dq, dk, dv)
+    with torch.cuda.device(q.device):
+        strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in ts for i in range(3)))
+        rc = _lib().flash_attention_bwd(
+            _DTYPES[q.dtype], d, *(t.data_ptr() for t in ts[:5]), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq,
+            skv, strides, 1.0 / math.sqrt(d), int(causal), int(window),
+            torch.cuda.current_stream().cuda_stream)
+    _check(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward kernel (saving each row's
+    logsumexp) and the backward kernel on CUDA tensors, the plain pair
+    (``ref_attention`` with its logsumexp, ``ref_attention_bwd``) on CPU
+    tensors. ``ops.attention_op`` calls it when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, window: int = 0):
+        fwd = flash_attention if _on_card(q) else ref_attention
+        o, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, dO):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if _on_card(q) else ref_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, dO, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def decode_plan(b: int, kvh: int, S: int, sms: int) -> tuple:

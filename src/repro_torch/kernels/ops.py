@@ -3,6 +3,12 @@
 The tensor's device decides: CPU tensors go to the plain PyTorch
 version in ``ref.py``, CUDA tensors to the kernel. There is no fallback:
 a kernel that fails to build or launch raises.
+
+No gradient stops silently at a kernel. Attention carries gradients on
+the card through ``FlashAttention`` (the forward kernel and the backward
+kernel). The decode kernel and the SSD chunk kernel have no backward: on
+CUDA tensors that want a gradient they raise. On the CPU the plain
+versions are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .feasibility import feasible_mask
-from .flash_attention import flash_attention, flash_decode
+from .flash_attention import FlashAttention, flash_attention, flash_decode
 from .ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk, seg_hi_lo
 from .ssd_scan import ssd_chunk
 
@@ -25,10 +31,25 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_backward(kernel: str, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{kernel} has no backward kernel ({why}); SSM and hybrid training on the card "
+        "waits for the ssd_chunk backward. Train a dense arch, or run under "
+        "torch.no_grad()")
+
+
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d]."""
+    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d]. On the card a gradient
+    goes through ``FlashAttention`` (the forward then saves each row's
+    logsumexp); without one the forward kernel runs alone."""
     if _on_cuda(q):
+        if _wants_grad(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window)
     return ref_attention(q, k, v, causal=causal, window=window)
 
@@ -37,6 +58,9 @@ def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
     """q: [b, h, 1, d]; k, v: [b, kvh, S, d] (any strides); lengths [b]."""
     if _on_cuda(q):
+        if _wants_grad(q, k, v):
+            raise _no_backward("flash_decode",
+                               "decode serves; training runs the full-sequence path")
         return flash_decode(q, k, v, lengths)
     return ref_decode(q, k, v, lengths)
 
@@ -70,6 +94,8 @@ def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
     if pad:
         x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C))
     sp, nc, rep = s + pad, (s + pad) // chunk, H // G
+    if _on_cuda(x) and _wants_grad(x, dt, A, B, C):
+        raise _no_backward("ssd_chunk", "a gradient would stop at its output")
     intra = ssd_chunk if _on_cuda(x) else ref_ssd_chunk
     y_intra, states, decay_log = intra(x, dt, A, B, C, chunk)
 

@@ -4,6 +4,7 @@ Deliberately naive (no tiling, no online softmax): the CPU runs these in
 place of the CUDA kernels, and ``chip_smoke.py`` holds each kernel
 against them on the card. In attention, softmax is in fp32 and masked
 scores are -1e30, as in ``repro/kernels/ref.py`` and the Pallas kernels.
+``ref_attention_bwd`` is the attention backward by its explicit formulas.
 ``ref_ssd`` is the definitional SSD recurrence, the oracle of the whole
 chunked scan; ``ref_ssd_chunk`` is the ``ssd_chunk`` kernel's contract.
 """
@@ -17,19 +18,12 @@ import torch
 NEG_INF = -1e30
 
 
-def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] (GQA: h % kvh == 0).
-
-    Query positions are offset by ``skv - sq``; the window applies only
-    together with the causal mask, as in the JAX oracle.
-    """
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
+            scale: float) -> torch.Tensor:
+    """Scaled fp32 scores [b, kvh, g, sq, skv] with masked entries NEG_INF."""
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    g = h // kvh
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.reshape(b, kvh, g, sq, d).float()
+    qg = q.reshape(b, kvh, h // kvh, sq, d).float()
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * scale
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
@@ -38,9 +32,52 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window:
             mask = mask & (kpos > qpos - window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None, return_lse: bool = False):
+    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] (GQA: h % kvh == 0).
+
+    Query positions are offset by ``skv - sq``; the window applies only
+    together with the causal mask, as in the JAX oracle. With
+    ``return_lse`` also each row's logsumexp of the scaled scores, fp32
+    [b, h, sq] (what the forward kernel saves for the backward).
+    """
+    b, h, sq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = _scores(q, k, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    o = o.reshape(b, h, sq, d).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return o
+
+
+def ref_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                      lse: torch.Tensor, dO: torch.Tensor, causal: bool = True,
+                      window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``flash_attention_bwd`` contract, by the explicit formulas in
+    fp32: P = exp(S - lse) from the forward's logsumexp ``lse`` [b, h, sq],
+    D = rowsum(dO o O), dS = P o (dO V^T - D); dV = P^T dO, dK = dS^T Q
+    scale and dQ = dS K scale, the query heads of each kv head summed into
+    its dK and dV. Masked entries have P = 0. Returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    p = torch.exp(_scores(q, k, causal, window, scale)
+                  - lse.float().reshape(b, kvh, g, sq, 1))
+    dOg = dO.float().reshape(b, kvh, g, sq, d)
+    delta = (dOg * o.float().reshape(b, kvh, g, sq, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dOg)
+    ds = p * (torch.einsum("bkgqd,bktd->bkgqt", dOg, v.float()) - delta)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, q.float().reshape(b, kvh, g, sq, d)) * scale
+    return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

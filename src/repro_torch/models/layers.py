@@ -201,11 +201,33 @@ def embed_tokens(tokens: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor
 
 
 def lm_logits(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
-    """The LM head runs in fp32 (as JAX does without ``cast_params_once``).
-    On a card this needs ``torch.backends.cuda.matmul.allow_tf32 = False``,
-    which the entry points set."""
-    if cfg.cast_params_once or cfg.seq_sharded_loss:
-        raise NotImplementedError("bf16-input LM head variants")
+    """fp32 logits. The LM head runs in fp32 (as JAX does by default); with
+    ``cast_params_once`` or ``seq_sharded_loss`` its inputs are rounded to
+    the compute dtype first and multiplied with an fp32 result, as JAX's
+    ``dot_general(..., preferred_element_type=float32)`` does: a product of
+    two bf16 values is exact in fp32, so rounding the inputs and then
+    multiplying in fp32 is that product (``torch.matmul`` of two bf16
+    tensors would round its output to bf16). Without a mesh the two
+    variants are the same arithmetic. On a card this needs
+    ``torch.backends.cuda.matmul.allow_tf32 = False``, which the entry
+    points set."""
     xn = rmsnorm(x, p["final_norm"], cfg.norm_eps)
     head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    if cfg.cast_params_once or cfg.seq_sharded_loss:
+        cdt = getattr(torch, cfg.dtype)
+        return xn.to(cdt).float() @ head.to(cdt).float()
     return xn.float() @ head.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  onehot: bool = False) -> torch.Tensor:
+    """Mean token cross-entropy; logits [b, s, v] fp32, labels [b, s].
+    ``onehot`` takes the gold logit through an iota == label select, as
+    JAX's §Perf variant does, instead of a gather: the same value."""
+    logz = torch.logsumexp(logits, dim=-1)
+    if onehot:
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(iota == labels[..., None], logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -1,10 +1,11 @@
-"""Model facade: config -> parameters, prefill step, serve step, cache.
+"""Model facade: config -> parameters, train step, prefill step, serve
+step, cache.
 
-The port of ``repro/models/model.py`` for serving (no optimizer in this
-slice). ``Model`` is an ``nn.Module`` holding the stacked ``[L, ...]``
-parameters of ``transformer.init_specs``; its ``state_dict`` keys are the
-JAX tree's paths joined by dots (``blocks.attn.wq``), so
-``convert.params_from_jax`` loads JAX weights one to one.
+The port of ``repro/models/model.py``. ``Model`` is an ``nn.Module``
+holding the stacked ``[L, ...]`` parameters of ``transformer.init_specs``;
+its ``state_dict`` keys are the JAX tree's paths joined by dots
+(``blocks.attn.wq``), so ``convert.params_from_jax`` loads JAX weights one
+to one.
 
 Parameters are fp32 masters, cast to the compute dtype at each use in
 JAX. For serving, the model keeps a copy of the matrices that JAX casts
@@ -14,6 +15,11 @@ weights are set: the same rounding of the same fp32 numbers, so the
 values are bit-identical to a cast at each use, without re-reading 11 GB
 of fp32 masters every step at full width. Norm weights, Mamba's
 ``A_log``, ``D`` and ``dt_bias``, and the embedding/LM head stay fp32.
+
+Training (``train_step``) builds that cast anew inside the autograd graph
+at every step, from the masters as they are, and drops the serving copy:
+a cached cast would be detached from the graph and stale after the
+update. The optimizer (``optim/adamw.py``) updates the masters in place.
 """
 from __future__ import annotations
 
@@ -23,9 +29,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..optim.adamw import OptConfig, OptState, apply_updates, init_opt_state
 from .config import ArchConfig, ShapeConfig
 from .layers import ParamSpec
-from .transformer import decode_step, forward, init_cache_specs, init_specs
+from .transformer import decode_step, forward, init_cache_specs, init_specs, loss_fn
 
 
 def _params_module(specs: Dict, device: torch.device) -> nn.Module:
@@ -54,6 +61,18 @@ def _cast(tree: Dict, dtype: torch.dtype) -> Dict:
             for k, v in tree.items()}
 
 
+def _unflatten(flat: Mapping[str, torch.Tensor]) -> Dict:
+    """{"a.b.c": t} -> {"a": {"b": {"c": t}}}."""
+    tree: Dict = {}
+    for name, t in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return tree
+
+
 def _flat_specs(specs: Dict, prefix: str = "") -> Dict[str, ParamSpec]:
     out = {}
     for k in sorted(specs):
@@ -66,9 +85,11 @@ def _flat_specs(specs: Dict, prefix: str = "") -> Dict[str, ParamSpec]:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device] = "cuda",
+                 opt: Optional[OptConfig] = None):
         super().__init__()
         self.cfg = cfg
+        self.opt = opt if opt is not None else OptConfig(kind=cfg.optimizer)
         self.device = resolve_device(device)
         specs = init_specs(cfg)
         self.parts = tuple(specs)                    # embed, blocks (, shared)
@@ -106,8 +127,77 @@ class Model(nn.Module):
                              for name in self.parts}
         return self._compute
 
+    def masters(self) -> Dict[str, torch.Tensor]:
+        """The fp32 master parameters, {state_dict name: tensor} in JAX's
+        flatten order; updating them updates the model."""
+        params = dict(self.named_parameters())
+        return {name: params[name].data for name in self.param_specs()}
+
     # -------------------------------------------------------------- #
-    # steps
+    # training
+    # -------------------------------------------------------------- #
+    def init_opt(self) -> OptState:
+        return init_opt_state(self.masters(), self.opt)
+
+    def _value_and_grad(self, batch: Dict[str, torch.Tensor]):
+        """(loss, {name: grad}) of ``loss_fn`` at the current masters. The
+        leaves are the masters themselves (detached aliases), or with
+        ``cfg.bf16_grads`` copies of the fp32 ones in the compute dtype,
+        whose gradients come back in that dtype (JAX's
+        ``_value_and_grad``). The compute-dtype casts of the weight
+        matrices are made inside the graph, from those leaves."""
+        cdt = getattr(torch, self.cfg.dtype)
+        leaves = {}
+        for name, p in self.masters().items():
+            leaf = p.detach()
+            if self.cfg.bf16_grads and leaf.dtype == torch.float32:
+                leaf = leaf.to(cdt)
+            leaves[name] = leaf.requires_grad_()
+        tree = _unflatten(leaves)
+        params = {name: _cast(tree[name], cdt) for name in self.parts}
+        loss = loss_fn(params, self.cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def value_and_grad(self, batch: Dict[str, torch.Tensor]):
+        """(loss, {name: grad}) of a step's batch. With ``cfg.grad_accum``
+        k > 1 the batch is split into k microbatches whose gradients are
+        summed in fp32 and divided by k, and the loss is their mean (JAX's
+        ``train_step``)."""
+        k = self.cfg.grad_accum
+        if k <= 1:
+            return self._value_and_grad(batch)
+        micro = {n: t.reshape((k, t.shape[0] // k) + t.shape[1:]) for n, t in batch.items()}
+        grads, losses = {}, []
+        for i in range(k):
+            loss, g = self._value_and_grad({n: t[i] for n, t in micro.items()})
+            losses.append(loss)
+            for name, gi in g.items():
+                if name in grads:
+                    grads[name].add_(gi.float())
+                else:
+                    grads[name] = gi.float() if gi.dtype != torch.float32 else gi
+            del g
+        for g in grads.values():
+            g.div_(k)
+        return torch.stack(losses).mean(), grads
+
+    def train_step(self, opt_state: OptState, batch: Dict[str, torch.Tensor]):
+        """One optimizer step on ``batch`` ({"tokens", "labels"} [b, s] on
+        the model's device): updates the masters and the moments in place
+        and returns (opt_state, {"loss": loss})."""
+        self._compute = None                 # the serving cast is stale after the step
+        loss, grads = self.value_and_grad(batch)
+        opt_state = apply_updates(self.masters(), grads, opt_state, self.opt)
+        return opt_state, {"loss": loss}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The loss of ``batch`` at the current masters."""
+        return loss_fn(self.compute_params(), self.cfg, batch)
+
+    # -------------------------------------------------------------- #
+    # serving steps
     # -------------------------------------------------------------- #
     @torch.no_grad()
     def prefill_step(self, tokens: torch.Tensor):
@@ -140,5 +230,6 @@ class Model(nn.Module):
                 for k, (s, dt) in self.cache_specs(shape).items()}
 
 
-def make_model(cfg: ArchConfig, device: Union[str, torch.device] = "cuda") -> Model:
-    return Model(cfg, device=device)
+def make_model(cfg: ArchConfig, device: Union[str, torch.device] = "cuda",
+               opt: Optional[OptConfig] = None) -> Model:
+    return Model(cfg, device=device, opt=opt)

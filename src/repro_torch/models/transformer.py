@@ -12,16 +12,20 @@ The port of the dense, ssm and hybrid branches of
 
 The layers are stacked on a leading ``[L, ...]`` axis as in JAX, so
 weights copy across one to one; the JAX ``scan`` over layers is a Python
-loop.
+loop over the stack's slices (one ``unbind`` per leaf, so a training
+step's gradient of each stacked leaf is one stack of its layers' parts).
+``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
-from .layers import (attention, attn_specs, embed_specs, embed_tokens,
+from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
 from .mamba2 import mamba_layer, mamba_specs, mamba_state_specs
 
@@ -64,8 +68,18 @@ def make_positions(cfg: ArchConfig, batch: int, seq: int, offset: int = 0,
     return pos.expand(batch, seq)
 
 
-def _layer(blocks: Dict, i: int) -> Dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
+def _unstack(blocks: Dict, n: int) -> List[Dict]:
+    """The n per-layer trees of a stacked ``[L, ...]`` tree."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in blocks.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _cast_blocks(blocks: Dict, dtype: torch.dtype) -> Dict:
+    """``cast_params_once``: every fp32 block leaf in the compute dtype."""
+    return {k: _cast_blocks(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.dtype == torch.float32 else v
+            for k, v in blocks.items()}
 
 
 def _shared_block(x: torch.Tensor, params: Dict, cfg: ArchConfig,
@@ -95,25 +109,51 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             for k, v in part.items():
                 cache.setdefault(prefix + k, []).append(v)
 
+    def run(body, *args):
+        """A layer's body, recomputed in the backward under ``cfg.remat``
+        when a gradient is being taken (the cache path never is)."""
+        if cfg.remat and not want_cache and torch.is_grad_enabled():
+            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        return body(*args)
+
+    blocks = params["blocks"]
+    if cfg.cast_params_once:
+        blocks = _cast_blocks(blocks, getattr(torch, cfg.dtype))
+    layers = _unstack(blocks, cfg.n_layers)
     if cfg.family in ("ssm", "hybrid"):
+        def ssm_body(x, bp):
+            y, st = mamba_layer(x, bp, cfg, want_state=want_cache)
+            return x + y, st
+
+        def shared_body(x, shared):
+            return _shared_block(x, {"shared": shared}, cfg, positions, want_cache=want_cache)
+
         for i in range(cfg.n_layers):
-            y, st = mamba_layer(x, _layer(params["blocks"], i), cfg, want_state=want_cache)
-            x = x + y
+            x, st = run(ssm_body, x, layers[i])
             collect(st)
             if cfg.family == "hybrid" and (i + 1) % per == 0:
-                x, kv = _shared_block(x, params, cfg, positions, want_cache=want_cache)
+                x, kv = run(shared_body, x, params["shared"])
                 collect(kv, "shared_")
     else:
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
+        def dense_body(x, bp):
             a, kv = attention(x, bp["attn"], cfg, positions, want_cache=want_cache)
             x = x + a
-            x = x + mlp(x, bp["mlp"], cfg)
+            return x + mlp(x, bp["mlp"], cfg), kv
+
+        for i in range(cfg.n_layers):
+            x, kv = run(dense_body, x, layers[i])
             collect(kv)
     if logits_positions == "last":
         x = x[:, -1:, :]
     logits = lm_logits(x, params["embed"], cfg)
     return logits, ({k: torch.stack(v) for k, v in cache.items()} if want_cache else None)
+
+
+def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
+    [b, s]), as ``repro/models/transformer.py::loss_fn``."""
+    logits, _ = forward(params, cfg, batch["tokens"])
+    return cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
 
 
 def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
@@ -143,10 +183,11 @@ def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
     x = embed_tokens(tokens, params["embed"], cfg)
     positions = make_positions(cfg, b, 1, offset=pos, device=tokens.device)
     _, per = _group_layout(cfg)
+    layers = _unstack(params["blocks"], cfg.n_layers)
 
     if cfg.family in ("ssm", "hybrid"):
         for i in range(cfg.n_layers):
-            y, st = mamba_layer(x, _layer(params["blocks"], i), cfg,
+            y, st = mamba_layer(x, layers[i], cfg,
                                 state={"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
             cache["conv"][i].copy_(st["conv"])
             cache["ssm"][i].copy_(st["ssm"])
@@ -159,7 +200,7 @@ def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
                                      cache_index=pos)
     else:
         for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
+            bp = layers[i]
             a, _ = attention(x, bp["attn"], cfg, positions,
                              cache={"k": cache["k"][i], "v": cache["v"][i]},
                              cache_index=pos)

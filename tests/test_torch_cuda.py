@@ -13,8 +13,10 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, feasibility
 from repro_torch.kernels.feasibility import feasible_mask
-from repro_torch.kernels.flash_attention import flash_attention, flash_decode
-from repro_torch.kernels.ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_decode)
+from repro_torch.kernels.ref import (ref_attention, ref_attention_bwd, ref_decode, ref_feasible,
+                                     ref_ssd_chunk)
 from repro_torch.kernels.ssd_scan import ssd_chunk
 
 # atol = rtol as in tests/test_kernels.py:32: in bf16 the output is rounded
@@ -70,6 +72,75 @@ def test_flash_attention_kernel_vs_plain(b, h, kvh, sq, skv, d, window, layout, 
     assert LAUNCHES["flash_attention"] == n + 1
     assert out.shape == q.shape and out.dtype == q.dtype
     _close(out, ref_attention(q, k, v, window=window), dtype)
+
+
+# the backward: of each gradient's largest |value| (dq, dk and dv are rounded
+# to bf16 in bf16; in fp32 only the order of the sums differs)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,sq,skv,d,window", [
+    (2, 24, 8, 256, 256, 128, 0),    # llama3.2-3b's heads
+    (2, 16, 2, 128, 128, 128, 0),    # GQA group 8
+    (2, 6, 2, 256, 256, 64, 32),     # GQA group 3, window
+    (1, 6, 2, 72, 200, 32, 0),       # sq < skv
+    (2, 8, 8, 200, 200, 80, 0),      # head_dim 80, ragged
+    (1, 4, 2, 100, 100, 16, 0),
+])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_vs_plain(b, h, kvh, sq, skv, d, window, layout, dtype,
+                                             cuda):
+    rng = np.random.default_rng(7)
+    shapes = [(b, h, sq, d), (b, kvh, skv, d), (b, kvh, skv, d), (b, h, sq, d)]
+    if layout == "bhsd":
+        q, k, v, dO = (_randn(rng, sh, dtype, cuda) for sh in shapes)
+    else:
+        q, k, v, dO = (_randn(rng, (sh[0], sh[2], sh[1], sh[3]), dtype, cuda).permute(0, 2, 1, 3)
+                       for sh in shapes)
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    _close(lse, ref_attention(q, k, v, window=window, return_lse=True)[1], "float32")
+    n = LAUNCHES["flash_attention_bwd"]
+    grads = flash_attention_bwd(q, k, v, o, lse, dO, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == n + 1
+    for g, r, t in zip(grads, ref_attention_bwd(q, k, v, o, lse, dO, window=window), (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        scale = r.float().abs().max().item()
+        assert (g.float() - r.float()).abs().max().item() <= BWD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_attention_op_carries_gradients_through_the_kernels(cuda):
+    from repro_torch.kernels.ops import attention_op
+    rng = np.random.default_rng(8)
+    q = _randn(rng, (2, 128, 8, 64), "bfloat16", cuda).permute(0, 2, 1, 3).requires_grad_()
+    k = _randn(rng, (2, 128, 2, 64), "bfloat16", cuda).permute(0, 2, 1, 3).requires_grad_()
+    v = _randn(rng, (2, 128, 2, 64), "bfloat16", cuda).permute(0, 2, 1, 3).requires_grad_()
+    dO = _randn(rng, (2, 8, 128, 64), "bfloat16", cuda)
+    n = dict(LAUNCHES)
+    got = torch.autograd.grad(attention_op(q, k, v), (q, k, v), dO)
+    assert LAUNCHES["flash_attention"] == n["flash_attention"] + 1
+    assert LAUNCHES["flash_attention_bwd"] == n["flash_attention_bwd"] + 1
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref_attention(*plain), plain, dO.float())
+    for g, w in zip(got, want):
+        assert (g.float() - w).abs().max().item() <= BWD_TOL["bfloat16"] * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad_on_card(cuda):
+    from repro_torch.kernels.ops import decode_attention_op, ssd_scan_op
+    q = torch.randn(2, 4, 1, 16, device=cuda, requires_grad=True)
+    kv = torch.randn(2, 2, 64, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
+        decode_attention_op(q, kv, kv, torch.full((2,), 64, dtype=torch.int32, device=cuda))
+    x = torch.randn(1, 16, 4, 8, device=cuda, requires_grad=True)
+    B = torch.randn(1, 16, 1, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
+        ssd_scan_op(x, torch.full((1, 16, 4), 0.5, device=cuda), -torch.ones(4, device=cuda),
+                    B, B, chunk=8)
 
 
 @pytest.mark.cuda

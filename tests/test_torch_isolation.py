@@ -90,3 +90,26 @@ def test_import_and_schedule_with_jax_blocked():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_import_and_train_with_jax_blocked():
+    """The training slice runs its loop, control plane included, with no JAX."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        import math
+        from repro_torch.launch.train import run_training
+        res = run_training("llama3.2-3b", steps=3, grow_at=1, fail_at=2, device="cpu")
+        assert all(math.isfinite(l) for l in res["losses"])
+        assert [e.kind for e in res["events"]].count("rebind") == 3
+        assert not any(m.split(".")[0] in ("jax", "repro") and sys.modules[m] is not None
+                       for m in sys.modules)
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
