@@ -61,15 +61,18 @@ Phases, each printing JSON lines:
    rest of the window), a 64-node grow and its shrink midway, all
    replayed in lockstep on a twin graph on the CPU that must agree.
 10. train_kernels: the attention backward kernel (three launches of one
-   ``flash_attention_bwd`` call) against ``ref_attention_bwd`` on the
-   forward kernel's o and logsumexp, fp32 at 1e-4 and bf16 at 2e-2 of
-   each gradient's largest |value| (the training shape, the model's
-   permuted views, GQA groups 1, 3 and 8, window 32, sq 72 < skv 200, head
-   dims 64 / 80 / 128), the logsumexp against the plain one, the autograd
-   path of ``attention_op`` against autograd through the plain forward;
-   the backward's registers and spills (none may spill); its device time,
-   the plain version's and the backward half of
-   ``scaled_dot_product_attention`` beside the bound at the training shape.
+   ``flash_attention_bwd`` call: the row sums, then dK/dV and dQ on the
+   tensor cores in bf16, on the CUDA cores in fp32) against
+   ``ref_attention_bwd`` on the forward kernel's o and logsumexp, fp32 at
+   1e-4 and bf16 at 2e-2 of each gradient's largest |value| and, in each
+   64-row tile, at 1e-5 and 1e-2 of the tile's own norm (the training
+   shape, the model's permuted views, GQA groups 1, 3 and 8, window 32,
+   sq 72 < skv 200, head dims 16 / 64 / 80 / 128, ragged lengths), the
+   logsumexp against the plain one, the autograd path of ``attention_op``
+   against autograd through the plain forward; the backward's registers
+   and spills (none may spill); its device time by kernel, the plain
+   version's and the backward half of ``scaled_dot_product_attention``
+   beside the bound at the training shape.
 11. train_consistency: reduced llama3.2-3b in fp32, three ``train_step``s
    on the card against the same steps on the CPU.
 12. train: ``run_training("llama3.2-3b", smoke=False)`` at full width and
@@ -78,7 +81,8 @@ Phases, each printing JSON lines:
    shrink and a node failure with replacement, six AdamW steps; finite
    losses (the first within 1.0 of ln 128256), the events, exactly 56
    forward and 28 backward attention launches a step, ms a step, tokens/s,
-   peak memory; then one step under the profiler.
+   peak memory; then one step under the profiler, which must show 28
+   launches of each bf16 backward kernel and none of the fp32 ones.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -1054,7 +1058,7 @@ def phase_schedule(dev, sweep_ms: float) -> int:
 # flash_attention_bwd cases: name, (b, h, kvh, sq, skv, d), window, dtype,
 # layout. The training shape (llama3.2-3b at batch 2 x 1024, the model's
 # permuted views) in both dtypes, GQA groups 1, 3 and 8, window 32, sq 72 <
-# skv 200, head dims 64 / 80 / 128, a ragged length
+# skv 200, head dims 16 / 64 / 80 / 128, ragged lengths
 BWD_SHAPE = (2, 24, 8, 1024, 1024, 128)
 BWD_CASES = [
     ("train", BWD_SHAPE, 0, "bfloat16", "bshd"),
@@ -1070,12 +1074,28 @@ BWD_CASES = [
     ("d80", (2, 8, 8, 192, 192, 80), 0, "bfloat16", "bshd"),
     ("d80_fp32", (2, 8, 8, 192, 192, 80), 0, "float32", "bhsd"),
     ("ragged", (2, 24, 8, 200, 200, 128), 0, "bfloat16", "bshd"),
+    ("d16", (2, 4, 2, 100, 100, 16), 0, "bfloat16", "bshd"),
 ]
 # of the largest |grad| of each output: in bf16 dq, dk and dv are rounded to
 # bf16 (as are o and dO, which both sides read); in fp32 only the order of
 # the sums differs (the plain version's einsums against the kernel's tiles)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# of each 64-row tile of each (batch, head) of a gradient, ||g - r|| / ||r||
+# (``tile_rel_err``): a wrong tile of small gradients shows, where the max
+# check above weighs it against the tensor's largest |grad|. The bf16 limit
+# lies between the sound kernels' readings and those of faults planted in
+# them (tools/attention_bwd_faults.py)
+BWD_TILE_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# the backward's kernels and their instantiations: the row sums in both
+# dtypes, the tensor-core kernels in bf16, the CUDA-core ones in fp32; at
+# each of the 5 head dims
+BWD_INSTANTIATIONS = {"flash_bwd_delta_kernel": 10, "flash_bwd_dkdv_mma_kernel": 5,
+                      "flash_bwd_dq_mma_kernel": 5, "flash_bwd_dkdv_kernel": 5,
+                      "flash_bwd_dq_kernel": 5}
+BWD_KERNELS = tuple(BWD_INSTANTIATIONS)
+# what one flash_attention_bwd call launches in each dtype
+BWD_BF16 = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
+BWD_FP32 = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 # the full-width training run: llama3.2-3b, 28 layers, d_model 3072, vocab
 # 128256, remat on; JAX's train_4k cell (256 x 4096) cut to 2 x 1024 so
 # that the fp32 masters, gradients and AdamW moments fit one card
@@ -1086,13 +1106,19 @@ TRAIN_TOL = 1e-4                       # losses relative; params of their larges
 
 
 def bwd_ptxas(rows: list) -> list:
-    """The ptxas rows of the backward's kernels; fails on a spill."""
+    """The ptxas rows of the backward's kernels; fails on a spill or on an
+    instantiation count other than ``BWD_INSTANTIATIONS``'s."""
     out = [r for r in rows if any(k in r["kernel"] for k in BWD_KERNELS)]
-    # 3 kernels x 2 dtypes x 5 head dims
-    check(len(out) == 3 * 2 * 5, f"ptxas reports {len(out)} backward instantiations")
+    counts = {k: sum(k in r["kernel"] for r in out) for k in BWD_KERNELS}
+    check(counts == BWD_INSTANTIATIONS, f"ptxas reports backward instantiations {counts}")
     spilled = [r for r in out if r.get("spill_stores") or r.get("spill_loads")]
     check(not spilled, f"backward kernels spill: {spilled}")
     return out
+
+
+def norm_rel_err(g, r) -> float:
+    """||g - r||_2 / ||r||_2 over the whole tensor."""
+    return ((g.float() - r.float()).norm() / r.float().norm()).item()
 
 
 def bwd_inputs(gen, dev, b, h, kvh, sq, skv, d, dtype, layout):
@@ -1130,9 +1156,10 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.ops import attention_op
-    from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
+    from repro_torch.kernels.ref import ref_attention, ref_attention_bwd, tile_rel_err
 
-    emit("train_kernels", ptxas=bwd_ptxas(ptxas))
+    bwd_rows = bwd_ptxas(ptxas)
+    emit("train_kernels", ptxas=bwd_rows)
     gen = torch.Generator(device=dev).manual_seed(5)
     timed = {}
     for name, (b, h, kvh, sq, skv, d), window, dtype, layout in BWD_CASES:
@@ -1143,23 +1170,40 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
         ref_lse = ref_attention(q, k, v, window=window, return_lse=True)[1]
         lse_err = compare(lse, ref_lse, "float32", TOL["float32"])
         refs = ref_attention_bwd(q, k, v, o, lse, dO, window=window)
-        tol = BWD_TOL[dtype]
-        errs, scales = [], []
+        tol, tile_tol = BWD_TOL[dtype], BWD_TILE_TOL[dtype]
+        errs, scales, tiles, norms = [], [], [], []
         for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
             scale = r.float().abs().max().item()
             err = (g.float() - r.float()).abs().max().item()
             check(g.shape == r.shape and math.isfinite(err) and err <= tol * scale,
                   f"flash_attention_bwd {name} {gname}: {err} > {tol} * {scale}")
+            tile = tile_rel_err(g, r)
+            check(tile <= tile_tol,
+                  f"flash_attention_bwd {name} {gname}: a 64-row tile off by {tile} > {tile_tol}")
             errs.append(err)
             scales.append(scale)
+            tiles.append(tile)
+            norms.append(norm_rel_err(g, r))
         emit("train_kernels", kernel="flash_attention_bwd", case=name,
              shape=[b, h, kvh, sq, skv, d], window=window, dtype=dtype, layout=layout,
              max_abs_err=dict(zip(("dq", "dk", "dv"), errs)),
              max_abs_ref=dict(zip(("dq", "dk", "dv"), scales)), tol_of_largest=tol,
-             lse_max_abs_err=lse_err)
+             tile_rel_err=dict(zip(("dq", "dk", "dv"), tiles)), tile_tol=tile_tol,
+             norm_rel_err=dict(zip(("dq", "dk", "dv"), norms)), lse_max_abs_err=lse_err)
+        if name in ("train", "train_fp32"):
+            # the kernels a call launches, profiled over ten calls (the
+            # window of one call can come back empty)
+            want = BWD_BF16 if dtype == "bfloat16" else BWD_FP32
+            _, rows, _ = profiled(lambda: [flash_attention_bwd(q, k, v, o, lse, dO, window=window)
+                                           for _ in range(10)])
+            got = [kn for kn in BWD_KERNELS if any(kn in key for _, _, key in rows)]
+            check(sorted(got) == sorted(want), f"flash_attention_bwd {name} launched {got}")
         if name == "train":
             timed = bwd_timing(q, k, v, o, lse, dO, max(e / s for e, s in zip(errs, scales)))
             timed["max_abs_err"] = max(errs)
+            emit("train_kernels", kernel="flash_attention_bwd", case=name,
+                 registers={r["kernel"]: r.get("registers") for r in bwd_rows
+                            if f"Li{d}E" in r["kernel"] and "mma" in r["kernel"]})
         del q, k, v, dO, o, lse, grads, refs
 
     # the autograd path: attention_op on leaves that want a gradient runs
@@ -1199,6 +1243,7 @@ def bwd_timing(q, k, v, o, lse, dO, err_share: float) -> dict:
     kvh, skv = k.shape[1], k.shape[2]
     _, rows, _ = profiled(lambda: [flash_attention_bwd(q, k, v, o, lse, dO) for _ in range(10)])
     kernel_ms = {kn: sum(ms for ms, _, key in rows if kn in key) / 10 for kn in BWD_KERNELS}
+    kernel_ms = {kn: t for kn, t in kernel_ms.items() if t}     # those this dtype launches
     ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dO), iters=10)
     event_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dO), iters=10)
     plain_ms = device_ms(lambda: ref_attention_bwd(q, k, v, o, lse, dO), iters=3)
@@ -1341,9 +1386,12 @@ def phase_train(dev) -> dict:
              by_class=kernel_classes(rows),
              top=[{"op": k, "ms": ms, "calls": n} for ms, n, k in rows[:15]])
         if part == "train_grads":
+            # bf16: 28 launches a step of each tensor-core backward kernel,
+            # none of the CUDA-core ones
             mma = sum(n for _, n, k in rows if "flash_fwd_mma_kernel" in k)
             bwd = {k: sum(n for _, n, key in rows if k in key) for k in BWD_KERNELS}
-            check(mma == 2 * cfg.n_layers and set(bwd.values()) == {cfg.n_layers},
+            want = {k: cfg.n_layers if k in BWD_BF16 else 0 for k in BWD_KERNELS}
+            check(mma == 2 * cfg.n_layers and bwd == want,
                   f"profiled step: {mma} flash_fwd_mma_kernel, {bwd}")
     emit("profile", arch=ARCH, part="train_step", wall_ms=total_wall, device_busy_ms=total_busy,
          idle_share=max(0.0, 1 - total_busy / total_wall))

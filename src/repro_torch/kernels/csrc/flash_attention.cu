@@ -7,8 +7,9 @@
 //     the cache meet in a thread block cluster: the cross-split combine that
 //     the TPU kernel did not need, its kv loop being one sequential grid axis).
 // and adds the backward of flash_attention, which has no Pallas counterpart
-// (flash_attention_bwd: flash_bwd_delta_kernel, flash_bwd_dkdv_kernel,
-// flash_bwd_dq_kernel; see the section "Backward" below). The forward
+// (flash_attention_bwd: flash_bwd_delta_kernel, then flash_bwd_dkdv_mma_kernel
+// and flash_bwd_dq_mma_kernel in bf16, flash_bwd_dkdv_kernel and
+// flash_bwd_dq_kernel in fp32; see the section "Backward" below). The forward
 // kernels write each row's logsumexp for it when given a buffer.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py). Kernels allocate
@@ -928,30 +929,50 @@ int launch_decode_d(int d, const DecodeArgs& a) {
 // ---------------------------------------------------------------------------
 // Backward (flash_attention_bwd). The Pallas kernel has no backward: the JAX
 // package trains through XLA's autodiff of its einsum attention
-// (src/repro/models/layers.py:210-217). This is FlashAttention-2's backward
-// on the CUDA cores, fp32 sums for fp32 and bf16 inputs alike, with P
-// recomputed from the logsumexp the forward saved (no [sq, skv] matrix in
-// device memory). Three launches:
+// (src/repro/models/layers.py:210-217). This is FlashAttention-2's backward,
+// fp32 sums for fp32 and bf16 inputs alike, with P recomputed from the
+// logsumexp the forward saved (no [sq, skv] matrix in device memory). Three
+// launches:
 //   flash_bwd_delta_kernel  D = rowsum(dO o O), one warp a row;
-//   flash_bwd_dkdv_kernel   per (key tile, kv head, batch): loops over the
+//   dK, dV                  per (key tile, kv head, batch): loops over the
 //     query heads of its group and the query tiles that see its keys, so
 //     the GQA sum of dK and dV needs no atomics;
-//   flash_bwd_dq_kernel     per (query tile, head, batch): loops over the
+//   dQ                      per (query tile, head, batch): loops over the
 //     key tiles its rows see (the forward's tile range).
 // Both main kernels recompute S = Q K^T and dP = dO V^T for their tile pair
-// (7 products where a kernel with atomics would do 5). At the training shape
-// (b 2, h 24, kvh 8, s 1024, d 128, causal) the 5 products are 32 GFLOP,
-// 0.033 ms at 989 TFLOP/s, so the backward is bound by operations; this
-// first kernel runs them as fp32 FMAs from shared memory, bound by the rate
-// of shared-memory loads (5 16-byte loads for 16 FMAs in the S/dP step).
-// The tensor-core form is later work.
+// (7 products where a kernel with atomics would do 5), so every gradient is
+// the same from run to run. At the training shape (b 2, h 24, kvh 8, s 1024,
+// d 128, causal) the 5 products are 32 GFLOP, 0.033 ms at 989 TFLOP/s, and
+// the inputs and outputs 67 MB (0.020 ms at 3.35 TB/s): the backward is bound
+// by operations.
 //
-// Tiles: 32 query rows x 32 keys, 256 threads, all tiles staged in shared
-// memory as fp32 (rows padded by 4 floats: 16-byte aligned, and the 8 rows
-// of a quarter-warp's 16-byte loads fall in distinct bank groups). S/dP step:
-// thread (i = tid / 8, kq = tid % 8) takes row i against keys kq + 8j, j < 4.
-// Accumulation step: thread (c = tid / 8, kq = tid % 8) owns dims 4c..4c+3
-// of keys (or rows) kq + 8j; threads with 4c >= D sit it out.
+// bf16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel): all 7 products
+// on the tensor cores as mma.sync m16n8k16 (bf16 in, fp32 sums), 4 warps of
+// 16 rows, tiles arriving through cp.async rings as in flash_fwd_mma_kernel.
+// The dK/dV kernel forms the products transposed, S^T = K Q^T and dP^T =
+// V dO^T, so that P^T and dS^T leave the accumulators already in the
+// A-fragment layout of dV += P^T dO and dK += dS^T Q (rounded to bf16 there,
+// as FlashAttention-2 rounds them); K and V stay in shared memory and are
+// read by ldmatrix (one warp's dK and dV sums take 128 registers a thread at
+// d 128, which leaves no room for K and V fragments), while Q, dO and their
+// rows' lse and D stream through a two-stage ring. The dQ kernel holds its
+// rows of Q and dO as A-fragments in registers, as the forward holds Q, and
+// streams K and V through the forward's ring. Only steps that straddle the
+// diagonal, the window edge or a ragged edge are masked; steps wholly masked
+// are skipped. What is left on the table is Hopper's own path: wgmma fed by
+// TMA with warp-specialised producers, and 8 warps a block so that a
+// larger tile halves the reloads of Q and dO (later work).
+//
+// fp32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): fp32 FMAs on the CUDA
+// cores, where fp32 inputs keep a 1e-4 tolerance that bf16 or TF32 tensor
+// cores cannot meet. Tiles of 32 query rows x 32 keys, 256 threads, all
+// staged in shared memory as fp32 (rows padded by 4 floats: 16-byte aligned,
+// and the 8 rows of a quarter-warp's 16-byte loads fall in distinct bank
+// groups). S/dP step: thread (i = tid / 8, kq = tid % 8) takes row i against
+// keys kq + 8j, j < 4. Accumulation step: thread (c = tid / 8, kq = tid % 8)
+// owns dims 4c..4c+3 of keys (or rows) kq + 8j; threads with 4c >= D sit it
+// out. Bound by the rate of shared-memory loads (5 16-byte loads for 16 FMAs
+// in the S/dP step).
 // ---------------------------------------------------------------------------
 constexpr int kBwdT = 32;             // query rows and keys per tile
 constexpr int kBwdThreads = 256;
@@ -1247,24 +1268,487 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The three launches of one backward; shared memory above 48 KB is opted
-// into before each launch, so it holds on whichever device is current.
+// ---------------------------------------------------------------------------
+// Backward on the tensor cores (bf16). 128 threads, 4 warps of 16 rows; the
+// fragment layouts, ldmatrix patterns and row padding are the forward's
+// (see flash_fwd_mma_kernel). Tiles of 64 query rows and 64 keys.
+// ---------------------------------------------------------------------------
+constexpr int kBwdMmaMinBlocks = 2;   // per SM: <= 255 registers a thread
+
+// K and V tiles, then two ring stages of Q and dO tiles with their rows'
+// lse and D (fp32): 103 KB at D 128, so two blocks share an SM
+template <int D>
+constexpr size_t bwd_dkdv_smem_bytes() {
+  return sizeof(__nv_bfloat16) * 6 * kMmaBK * (D + kMmaPad) + sizeof(float) * 2 * 2 * kMmaBQ;
+}
+
+// 4 bytes global -> shared (one fp32); src-size 0 zero-fills
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// rows [row0, row0 + 64) of a [rows, D] bf16 matrix with row stride
+// `stride` into a shared tile of pitch D + kMmaPad, 16 bytes a cp.async;
+// rows at or past `rows` are zero-filled
+template <int D>
+__device__ __forceinline__ void bwd_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               long long stride, int row0, int rows) {
+  constexpr int ROW_CHUNKS = D / 8;
+#pragma unroll
+  for (int c = threadIdx.x; c < kMmaBQ * ROW_CHUNKS; c += kMmaThreads) {
+    const int r = c / ROW_CHUNKS, col = (c % ROW_CHUNKS) * 8;
+    const bool ok = row0 + r < rows;
+    const __nv_bfloat16* s = ok ? src + (long long)(row0 + r) * stride + col : src;
+    cp_async_16(smem_u32(dst + r * (D + kMmaPad) + col), s, ok);
+  }
+}
+
+// dK, dV of 64 keys of one kv head. Grid (kvh, b, ceil(skv/64)): the first
+// key tiles, which the most query rows see under the causal mask, go first.
+// Warp w owns keys k0 + 16w .. + 15. Each query tile of each head of the
+// group is taken in steps of QH rows: S^T (16 x QH) = K_w Q^T and dP^T =
+// V_w dO^T, then P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T =
+// P^T o (dP^T - D) in registers, packed to bf16 A-fragments (a C-fragment
+// row is a key, its columns query rows), then dV += P^T dO and dK += dS^T Q
+// with dO and Q read by ldmatrix.trans.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kBwdMmaMinBlocks)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dO,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                          int h, int kvh, int sq, int skv,
+                          long long qsb, long long qsh, long long qss,
+                          long long ksb, long long ksh, long long kss,
+                          long long vsb, long long vsh, long long vss,
+                          long long dosb, long long dosh, long long doss,
+                          long long dksb, long long dksh, long long dkss,
+                          long long dvsb, long long dvsh, long long dvss,
+                          float scale, float scale_log2, int causal, int window) {
+  constexpr int P = D + kMmaPad;
+  constexpr int KS = D / 16;                // k-steps of S^T and dP^T
+  constexpr int NT = D / 8;                 // n-tiles of dK and dV
+  // query rows per step: 32 at D 128 keeps the step's S^T and dP^T beside
+  // the 128 registers of the dK and dV sums; 64 elsewhere
+  constexpr int QH = D == 128 ? 32 : 64;
+  constexpr int SN = QH / 8;                // n-tiles of S^T per step
+  static_assert(D % 16 == 0 && kMmaBK == 16 * (kMmaThreads / 32), "tile shapes");
+
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);   // [BK][P]
+  __nv_bfloat16* Vs = Ks + kMmaBK * P;                                // [BK][P]
+  __nv_bfloat16* Qs = Vs + kMmaBK * P;                                // [2][BQ][P]
+  __nv_bfloat16* dOs = Qs + 2 * kMmaBQ * P;                           // [2][BQ][P]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kMmaBQ * P);         // [2][BQ] lse
+  float* Ds = Ls + 2 * kMmaBQ;                                        // [2][BQ] D
+
+  const int kh = blockIdx.x, bb = blockIdx.y;
+  const int k0 = blockIdx.z * kMmaBK;
+  const int G = h / kvh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int off = skv - sq;
+  const int kw0 = k0 + warp * 16;           // this warp's first key
+
+  // query rows that see a key of this tile: none before the tile's first
+  // key (causal), none past its last key's window
+  int q_begin = 0, q_end = sq;
+  if (causal) {
+    q_begin = max(0, k0 - off);
+    if (window > 0) q_end = min(sq, k0 + kMmaBK - 1 + window - off);
+  }
+  const int nq = q_end > q_begin ? (q_end - q_begin + kMmaBQ - 1) / kMmaBQ : 0;
+  const int n_tiles = G * nq;               // (head of the group, query tile) pairs
+
+  // ring stage i % 2 <- query tile i % nq of head kh * G + i / nq
+  auto fetch = [&](int i) {
+    if (i < n_tiles) {
+      const int hh = kh * G + i / nq, q0 = q_begin + (i % nq) * kMmaBQ, st = i & 1;
+      bwd_tile_async<D>(Qs + st * kMmaBQ * P, q + bb * qsb + hh * qsh, qss, q0, sq);
+      bwd_tile_async<D>(dOs + st * kMmaBQ * P, dO + bb * dosb + hh * dosh, doss, q0, sq);
+      if (tid < kMmaBQ) {
+        const bool ok = q0 + tid < sq;
+        const long long row = ((long long)bb * h + hh) * sq + (ok ? q0 + tid : 0);
+        cp_async_4(smem_u32(Ls + st * kMmaBQ + tid), lse + row, ok);
+        cp_async_4(smem_u32(Ds + st * kMmaBQ + tid), delta + row, ok);
+      }
+    }
+    cp_async_commit();                      // an empty group past the last tile
+  };
+  bwd_tile_async<D>(Ks, k + bb * ksb + kh * ksh, kss, k0, skv);
+  bwd_tile_async<D>(Vs, v + bb * vsb + kh * vsh, vss, k0, skv);
+  fetch(0);                                 // one group: K, V and query tile 0
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+  }
+  // A-fragment rows of K_w and V_w; the keys of C-fragment rows g and g + 8
+  const int a_row = warp * 16 + (lane / 8 % 2) * 8 + lane % 8;
+  const int a_col = (lane / 16) * 8;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    fetch(i + 1);                           // into the stage tile i - 1 has left
+    cp_async_wait<1>();                     // tile i (and K, V) have landed
+    __syncthreads();
+    const int st = i & 1;
+    const int q0 = q_begin + (i % nq) * kMmaBQ;
+    const __nv_bfloat16* Qt = Qs + st * kMmaBQ * P;
+    const __nv_bfloat16* dOt = dOs + st * kMmaBQ * P;
+    const float* Lt = Ls + st * kMmaBQ;
+    const float* Dt = Ds + st * kMmaBQ;
+
+#pragma unroll
+    for (int qh = 0; qh < kMmaBQ; qh += QH) {
+      const int qs0 = q0 + qh;              // first query row of the step
+      const int qs_last = min(qs0 + QH, sq) - 1;
+      const int qp_lo = qs0 + off, qp_hi = qs_last + off;
+      // a step past sq, past the ragged edge of the keys, or wholly masked
+      // for this warp's keys adds 0
+      if (qs0 >= sq || kw0 >= skv ||
+          (causal && (kw0 > qp_hi || (window > 0 && kw0 + 15 <= qp_lo - window))))
+        continue;
+
+      // S^T = K_w Q^T and dP^T = V_w dO^T: 16 keys x QH rows, fp32
+      float s[SN][4], dp[SN][4];
+#pragma unroll
+      for (int nt = 0; nt < SN; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kf[4], vf[4];
+        ldmatrix_x4(kf, smem_u32(Ks + a_row * P + ks * 16 + a_col));
+        ldmatrix_x4(vf, smem_u32(Vs + a_row * P + ks * 16 + a_col));
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t qf[4], of[4];
+          const int row = qh + np * 16 + (lane / 16) * 8 + lane % 8;
+          ldmatrix_x4(qf, smem_u32(Qt + row * P + ks * 16 + (lane / 8 % 2) * 8));
+          ldmatrix_x4(of, smem_u32(dOt + row * P + ks * 16 + (lane / 8 % 2) * 8));
+          mma_bf16(s[2 * np], kf, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], kf, qf[2], qf[3]);
+          mma_bf16(dp[2 * np], vf, of[0], of[1]);
+          mma_bf16(dp[2 * np + 1], vf, of[2], of[3]);
+        }
+      }
+
+      // P^T and dS^T, masked only in a step that straddles an edge, as
+      // bf16 A-fragments of 16 query rows each
+      const bool edge = kw0 + 15 >= skv || qs0 + QH > sq ||
+                        (causal && (kw0 + 15 > qp_lo || (window > 0 && kw0 <= qp_hi - window)));
+      uint32_t pf[SN / 2][4], sf[SN / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < SN; ++nt) {
+        const int qc = qh + nt * 8 + 2 * t;   // tile row of c0 and c2; c1, c3 at qc + 1
+        const float2 lr = *reinterpret_cast<const float2*>(Lt + qc);
+        const float2 dr = *reinterpret_cast<const float2*>(Dt + qc);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l2 = (e & 1 ? lr.y : lr.x) * kLog2e;
+          float pe = fast_exp2(fmaf(s[nt][e], scale_log2, -l2));
+          if (edge) {
+            const int kpos = kw0 + g + (e >> 1) * 8;
+            const int qi = q0 + qc + (e & 1), qpos = qi + off;
+            if (kpos >= skv || qi >= sq ||
+                (causal && (kpos > qpos || (window > 0 && kpos <= qpos - window))))
+              pe = 0.f;
+          }
+          p[e] = pe;
+          ds[e] = pe * (dp[nt][e] - (e & 1 ? dr.y : dr.x));
+        }
+        pf[nt / 2][(nt % 2) * 2] = pack_bf16(p[0], p[1]);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        sf[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        sf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < SN / 2; ++kk) {
+        const int row = qh + kk * 16 + (lane / 8 % 2) * 8 + lane % 8;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t of[4], qf[4];
+          ldmatrix_x4_trans(of, smem_u32(dOt + row * P + np * 16 + a_col));
+          ldmatrix_x4_trans(qf, smem_u32(Qt + row * P + np * 16 + a_col));
+          mma_bf16(dva[2 * np], pf[kk], of[0], of[1]);
+          mma_bf16(dva[2 * np + 1], pf[kk], of[2], of[3]);
+          mma_bf16(dka[2 * np], sf[kk], qf[0], qf[1]);
+          mma_bf16(dka[2 * np + 1], sf[kk], qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();                        // the stage is free for tile i + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = kw0 + g + 8 * r;
+    if (kpos >= skv) continue;
+    uint32_t* kp = reinterpret_cast<uint32_t*>(dk + bb * dksb + kh * dksh + kpos * dkss + 2 * t);
+    uint32_t* vp = reinterpret_cast<uint32_t*>(dv + bb * dvsb + kh * dvsh + kpos * dvss + 2 * t);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      kp[nt * 4] = pack_bf16(dka[nt][2 * r] * scale, dka[nt][2 * r + 1] * scale);
+      vp[nt * 4] = pack_bf16(dva[nt][2 * r], dva[nt][2 * r + 1]);
+    }
+  }
+}
+
+// dQ of 64 query rows of one head. Grid (h, b, ceil(sq/64)), the last query
+// tiles (the heaviest under the causal mask) first, as the forward. Warp w
+// owns rows q0 + 16w .. + 15 and holds them of Q and dO as A-fragments;
+// K and V stream through the forward's two-stage ring over the forward's key
+// range. Each key tile in steps of KH keys: S = Q K^T and dP = dO V^T,
+// P = exp2(S scale log2 e - lse log2 e) and dS = P o (dP - D) in registers,
+// packed to bf16 A-fragments, then dQ += dS K with K read by ldmatrix.trans.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kBwdMmaMinBlocks)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dO,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int h, int kvh, int sq, int skv,
+                        long long qsb, long long qsh, long long qss,
+                        long long ksb, long long ksh, long long kss,
+                        long long vsb, long long vsh, long long vss,
+                        long long dosb, long long dosh, long long doss,
+                        long long dqsb, long long dqsh, long long dqss,
+                        float scale, float scale_log2, int causal, int window) {
+  constexpr int P = D + kMmaPad;
+  constexpr int KS = D / 16;                // k-steps of S and dP
+  constexpr int NT = D / 8;                 // n-tiles of dQ
+  // keys per step: 32 at D 128 keeps the step's S and dP (32 registers a
+  // thread) beside Q, dO and dQ (128); 64 elsewhere
+  constexpr int KH = D == 128 ? 32 : 64;
+  constexpr int SN = KH / 8;
+  static_assert(D % 16 == 0 && kMmaBQ == 16 * (kMmaThreads / 32), "tile shapes");
+
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);   // [2][BK][P]
+  __nv_bfloat16* Vs = Ks + 2 * kMmaBK * P;                            // [2][BK][P]
+  __nv_bfloat16* Qs = Ks + kMmaBK * P;      // [BQ][P]: K stage 1
+  __nv_bfloat16* dOs = Vs + kMmaBK * P;     // [BQ][P]: V stage 1
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int kh = hh / (h / kvh);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int off = skv - sq;
+  const int q0 = qt * kMmaBQ;
+
+  // key tiles, as the forward takes them
+  int k_begin = 0, k_end = skv;
+  if (causal) {
+    const int q_lo = q0 + off;
+    const int q_hi = min(q0 + kMmaBQ, sq) - 1 + off;
+    k_end = min(skv, q_hi + 1);
+    if (window > 0) k_begin = max(0, q_lo - window + 1);
+  }
+  k_begin = (k_begin / kMmaBK) * kMmaBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kMmaBK - 1) / kMmaBK : 0;
+
+  const __nv_bfloat16* kb = k + bb * ksb + kh * ksh;
+  const __nv_bfloat16* vb = v + bb * vsb + kh * vsh;
+  bwd_tile_async<D>(Qs, q + bb * qsb + hh * qsh, qss, q0, sq);
+  bwd_tile_async<D>(dOs, dO + bb * dosb + hh * dosh, doss, q0, sq);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    bwd_tile_async<D>(Ks, kb, kss, k_begin, skv);
+    bwd_tile_async<D>(Vs, vb, vss, k_begin, skv);
+  }
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: lse in log2 units and D (0 past sq, where
+  // nothing is stored)
+  const int row_a = q0 + warp * 16 + g;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row_a + 8 * r;
+    const long long row = ((long long)bb * h + hh) * sq + qi;
+    l2[r] = qi < sq ? lse[row] * kLog2e : 0.f;
+    dl[r] = qi < sq ? delta[row] : 0.f;
+  }
+
+  cp_async_wait<1>();                       // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[KS][4], of[KS][4];
+  {
+    const int r = warp * 16 + (lane / 8 % 2) * 8 + lane % 8;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldmatrix_x4(qf[ks], smem_u32(Qs + r * P + ks * 16 + (lane / 16) * 8));
+      ldmatrix_x4(of[ks], smem_u32(dOs + r * P + ks * 16 + (lane / 16) * 8));
+    }
+  }
+  __syncthreads();                          // stage 1 is free for tile 1
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const int wq_lo = q0 + warp * 16 + off;   // this warp's first and last query position
+  const int wq_hi = wq_lo + 15;
+  const bool warp_rows = q0 + warp * 16 < sq;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_begin + j * kMmaBK;
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {                  // prefetch tile j+1 into the other stage
+      bwd_tile_async<D>(Ks + (buf ^ 1) * kMmaBK * P, kb, kss, k0 + kMmaBK, skv);
+      bwd_tile_async<D>(Vs + (buf ^ 1) * kMmaBK * P, vb, vss, k0 + kMmaBK, skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                     // tile j has landed
+    __syncthreads();
+
+    const __nv_bfloat16* Kt = Ks + buf * kMmaBK * P;
+    const __nv_bfloat16* Vt = Vs + buf * kMmaBK * P;
+#pragma unroll
+    for (int h0 = 0; h0 < kMmaBK; h0 += KH) {
+      const int kb0 = k0 + h0;
+      // a step past the ragged edge, past this warp's diagonal or before its
+      // window, or for a warp whose rows all lie past sq, adds 0
+      if (!warp_rows || kb0 >= skv ||
+          (causal && (kb0 > wq_hi || (window > 0 && kb0 + KH - 1 <= wq_lo - window))))
+        continue;
+
+      // S = Q K^T and dP = dO V^T: 16 x KH per warp, fp32
+      float s[SN][4], dp[SN][4];
+#pragma unroll
+      for (int nt = 0; nt < SN; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t kf[4], vf[4];
+          const int key = h0 + np * 16 + (lane / 16) * 8 + lane % 8;
+          ldmatrix_x4(kf, smem_u32(Kt + key * P + ks * 16 + (lane / 8 % 2) * 8));
+          ldmatrix_x4(vf, smem_u32(Vt + key * P + ks * 16 + (lane / 8 % 2) * 8));
+          mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+          mma_bf16(dp[2 * np], of[ks], vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], of[ks], vf[2], vf[3]);
+        }
+      }
+
+      // dS as bf16 A-fragments of 16 keys each; masked only in a step that
+      // straddles an edge
+      const bool edge = kb0 + KH > skv ||
+                        (causal && (kb0 + KH - 1 > wq_lo ||
+                                    (window > 0 && kb0 <= wq_hi - window)));
+      uint32_t sf[SN / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < SN; ++nt) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pe = fast_exp2(fmaf(s[nt][e], scale_log2, -l2[e >> 1]));
+          if (edge) {
+            const int kpos = kb0 + nt * 8 + 2 * t + (e & 1);
+            const int qpos = row_a + (e >> 1) * 8 + off;
+            if (kpos >= skv ||
+                (causal && (kpos > qpos || (window > 0 && kpos <= qpos - window))))
+              pe = 0.f;
+          }
+          ds[e] = pe * (dp[nt][e] - dl[e >> 1]);
+        }
+        sf[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        sf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < SN / 2; ++kk) {
+        const int key = h0 + kk * 16 + (lane / 8 % 2) * 8 + lane % 8;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kf[4];
+          ldmatrix_x4_trans(kf, smem_u32(Kt + key * P + np * 16 + (lane / 16) * 8));
+          mma_bf16(acc[2 * np], sf[kk], kf[0], kf[1]);
+          mma_bf16(acc[2 * np + 1], sf[kk], kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();                        // the stage is free for tile j+2
+  }
+
+  __nv_bfloat16* qb = dq + bb * dqsb + hh * dqsh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row_a + 8 * r;
+    if (qi >= sq) continue;
+    uint32_t* qp = reinterpret_cast<uint32_t*>(qb + (long long)qi * dqss + 2 * t);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      qp[nt * 4] = pack_bf16(acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
+  }
+}
+
+// bf16: the dK/dV and dQ kernels on the tensor cores, each opting into its
+// shared memory and the largest carveout before its launch, so that both
+// hold on whichever device is current
+template <int D>
+int launch_bwd_mma(const BwdArgs& a) {
+  const long long* st = a.st;
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dO = static_cast<const bf16*>(a.dO);
+  constexpr size_t smem_kv = bwd_dkdv_smem_bytes<D>(), smem_q = mma_smem_bytes<D>();
+  const auto dkdv_kernel = flash_bwd_dkdv_mma_kernel<D>;
+  const auto dq_kernel = flash_bwd_dq_mma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = a.scale * kLog2e;
+  dkdv_kernel<<<dim3(a.kvh, a.b, (a.skv + kMmaBK - 1) / kMmaBK), kMmaThreads, smem_kv, a.stream>>>(
+      q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h,
+      a.kvh, a.sq, a.skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[12], st[13], st[14], st[18], st[19], st[20], st[21], st[22], st[23], a.scale,
+      scale_log2, a.causal, a.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_kernel<<<dim3(a.h, a.b, (a.sq + kMmaBQ - 1) / kMmaBQ), kMmaThreads, smem_q, a.stream>>>(
+      q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dq), a.h, a.kvh, a.sq, a.skv, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], st[15],
+      st[16], st[17], a.scale, scale_log2, a.causal, a.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32: the dK/dV and dQ kernels on the CUDA cores
 template <typename T, int D>
-int launch_bwd(const BwdArgs& a) {
+int launch_bwd_scalar(const BwdArgs& a) {
   const long long* st = a.st;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  const T* o = static_cast<const T*>(a.o);
   const T* dO = static_cast<const T*>(a.dO);
-  flash_bwd_delta_kernel<T, D><<<dim3((a.sq + 7) / 8, a.h, a.b), 256, 0, a.stream>>>(
-      o, dO, a.delta, a.h, a.sq, st[9], st[10], st[11], st[12], st[13], st[14]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
   constexpr size_t smem = bwd_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1283,6 +1767,23 @@ int launch_bwd(const BwdArgs& a) {
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], st[15],
       st[16], st[17], a.scale, a.causal, a.window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The three launches of one backward: the row sums, then dK and dV, then
+// dQ, on the tensor cores in bf16 and on the CUDA cores in fp32
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a) {
+  const long long* st = a.st;
+  flash_bwd_delta_kernel<T, D><<<dim3((a.sq + 7) / 8, a.h, a.b), 256, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dO), a.delta, a.h, a.sq, st[9],
+      st[10], st[11], st[12], st[13], st[14]);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_bwd_mma<D>(a);
+  } else {
+    return launch_bwd_scalar<T, D>(a);
+  }
 }
 
 template <typename T>
@@ -1343,8 +1844,10 @@ int flash_decode_fwd(int q_dtype, int kv_dtype, int d, const void* q, const void
 // q, k, v given o, dO and the forward's lse. dtype as above. strides (in
 // elements), 24 values: q, k, v, o, dO, dq, dk, dv, each (b, head, s); the
 // head dim is contiguous in all eight. delta: fp32 [b, h, sq] scratch
-// (contiguous); lse: fp32 [b, h, sq] (contiguous). Three launches on
-// `stream`: delta, then dk and dv, then dq.
+// (contiguous); lse: fp32 [b, h, sq] (contiguous). In bf16 every pointer
+// but lse's and delta's is 16-byte aligned and every stride a multiple of 8
+// (the wrapper checks). Three launches on `stream`: delta, then dk and dv,
+// then dq.
 int flash_attention_bwd(int dtype, int d, const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const float* lse, float* delta,
                         void* dq, void* dk, void* dv, int b, int h, int kvh, int sq, int skv,

@@ -34,9 +34,9 @@ DECODE_MAX_SPLITS = 8        # the splits of a (row, kv head) are one cluster: <
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a built
+    ``flash_attention.cu``'s C entry points on ``lib``, and return it."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P, I, I, I, I, I, P, F, I, I, P, P]
     lib.flash_attention_fwd.restype = I
@@ -46,6 +46,11 @@ def _lib() -> ctypes.CDLL:
     lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, F, P]
     lib.flash_decode_fwd.restype = I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build.load("flash_attention"))
 
 
 def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -73,10 +78,11 @@ def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _check_16b_rows(what: str, **ts: torch.Tensor) -> None:
-    """Kernels that read rows 16 bytes at a time (bf16 prefill's cp.async,
-    decode's K/V loads) need every row to start on a 16-byte boundary: the
-    pointer aligned, every stride but the head dim's a multiple of 16
-    bytes. The model's views meet this; anything else raises."""
+    """Kernels that read rows 16 bytes at a time (the bf16 prefill's and
+    backward's cp.async, decode's K/V loads) need every row to start on a
+    16-byte boundary: the pointer aligned, every stride but the head dim's
+    a multiple of 16 bytes. The model's views meet this; anything else
+    raises."""
     for name, t in ts.items():
         if t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:-1]):
             raise ValueError(f"{name}: {what} needs a 16-byte aligned pointer and strides "
@@ -138,7 +144,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     and v's shapes in their dtype, as views of [b, s, heads, d] buffers
     (the layout the model's head split reads back without a copy).
     Three launches (the row sums D = rowsum(dO o), then dK and dV, then
-    dQ) on the current stream; D lives in a scratch allocated here."""
+    dQ) on the current stream; D lives in a scratch allocated here. bf16
+    runs on the tensor cores (P and dS rounded to bf16 before their
+    products, as FlashAttention-2 does) and copies rows 16 bytes at a
+    time, so every one of the eight tensors needs 16-byte aligned rows
+    (see ``_check_16b_rows``); fp32 runs on the CUDA cores."""
     _check_common(q, k, v)
     if q.dtype != k.dtype or o.dtype != q.dtype or dO.dtype != q.dtype:
         raise ValueError("q, k, v, o and dO must share one dtype")
@@ -158,8 +168,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     dk = torch.empty((b, skv, kvh, d), dtype=k.dtype, device=q.device).permute(0, 2, 1, 3)
     dv = torch.empty((b, skv, kvh, d), dtype=v.dtype, device=q.device).permute(0, 2, 1, 3)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ts = (q, k, v, o, dO, dq, dk, dv)
+    if q.dtype == torch.bfloat16:
+        _check_16b_rows("bf16 backward", **dict(zip(("q", "k", "v", "o", "dO", "dq", "dk", "dv"),
+                                                    ts)))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in ts for i in range(3)))
         rc = _lib().flash_attention_bwd(

@@ -7,6 +7,8 @@ scores are -1e30, as in ``repro/kernels/ref.py`` and the Pallas kernels.
 ``ref_attention_bwd`` is the attention backward by its explicit formulas.
 ``ref_ssd`` is the definitional SSD recurrence, the oracle of the whole
 chunked scan; ``ref_ssd_chunk`` is the ``ssd_chunk`` kernel's contract.
+``tile_rel_err`` measures a kernel's output against one of these tile by
+tile.
 """
 from __future__ import annotations
 
@@ -207,3 +209,19 @@ def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
     decay_to_end = torch.exp((total[:, :, None, :] - hi) + (total_lo[:, :, None, :] - lo))
     states = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bg, decay_to_end, ydt)
     return y.reshape(b, s, H, P), states, total
+
+
+def tile_rel_err(out: torch.Tensor, ref: torch.Tensor, rows: int = 64) -> float:
+    """The largest ||out - ref||_2 / ||ref||_2 over ``rows``-row tiles of
+    axis -2 of [..., s, d] tensors (each batch and head apart); a tile whose
+    ``ref`` is 0 counts 0 where ``out`` is 0 there too, else inf. A wrong
+    tile shows against its own scale, where a max check weighs it against
+    the tensor's largest value and a norm over the whole tensor dilutes it
+    by the number of tiles."""
+    e, n = (x.float().square().sum(-1) for x in (out.float() - ref.float(), ref))
+    pad = -e.shape[-1] % rows
+    e, n = (torch.nn.functional.pad(x, (0, pad)).unflatten(-1, (-1, rows)).sum(-1)
+            for x in (e, n))
+    ratio = torch.where(n > 0, e / n.clamp_min(torch.finfo(torch.float32).tiny),
+                        torch.where(e > 0, math.inf, 0.0))
+    return math.sqrt(ratio.max().item())

@@ -16,7 +16,7 @@ from repro_torch.kernels.feasibility import feasible_mask
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                  flash_decode)
 from repro_torch.kernels.ref import (ref_attention, ref_attention_bwd, ref_decode, ref_feasible,
-                                     ref_ssd_chunk)
+                                     ref_ssd_chunk, tile_rel_err)
 from repro_torch.kernels.ssd_scan import ssd_chunk
 
 # atol = rtol as in tests/test_kernels.py:32: in bf16 the output is rounded
@@ -77,6 +77,9 @@ def test_flash_attention_kernel_vs_plain(b, h, kvh, sq, skv, d, window, layout, 
 # the backward: of each gradient's largest |value| (dq, dk and dv are rounded
 # to bf16 in bf16; in fp32 only the order of the sums differs)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# and of each 64-row tile of each (batch, head), ||g - r|| / ||r||, so that a
+# wrong tile of small gradients shows (chip_smoke.py's BWD_TILE_TOL)
+BWD_TILE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 @pytest.mark.cuda
@@ -87,6 +90,8 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
     (1, 6, 2, 72, 200, 32, 0),       # sq < skv
     (2, 8, 8, 200, 200, 80, 0),      # head_dim 80, ragged
     (1, 4, 2, 100, 100, 16, 0),
+    (2, 6, 2, 130, 130, 16, 32),     # head_dim 16, ragged under a window
+    (1, 8, 2, 72, 200, 80, 0),       # head_dim 80, sq < skv, GQA group 4
 ])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -109,6 +114,34 @@ def test_flash_attention_bwd_kernel_vs_plain(b, h, kvh, sq, skv, d, window, layo
         assert g.shape == t.shape and g.dtype == t.dtype
         scale = r.float().abs().max().item()
         assert (g.float() - r.float()).abs().max().item() <= BWD_TOL[dtype] * scale
+        assert tile_rel_err(g, r) <= BWD_TILE_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misalign", ["pointer", "row_stride"])
+def test_flash_attention_bwd_bf16_rejects_unaligned_rows(misalign, cuda):
+    """The bf16 backward copies 16-byte rows with cp.async: a q whose
+    pointer or row stride is not 16-byte aligned raises, and nothing is
+    launched; the same values through aligned rows pass."""
+    rng = np.random.default_rng(11)
+    b, h, kvh, s, d = 1, 4, 2, 100, 16
+    k, v = (_randn(rng, (b, kvh, s, d), "bfloat16", cuda) for _ in range(2))
+    dO = _randn(rng, (b, h, s, d), "bfloat16", cuda)
+    if misalign == "pointer":      # starts one element into its buffer
+        q = _randn(rng, (b * h * s * d + 1,), "bfloat16", cuda)[1:].view(b, h, s, d)
+    else:                          # rows 20 elements (40 bytes) apart
+        q = _randn(rng, (b, h, s, d + 4), "bfloat16", cuda)[..., :d]
+    aligned = q.clone(memory_format=torch.contiguous_format)
+    o, lse = flash_attention(aligned, k, v, return_lse=True)
+    n = LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, v, o, lse, dO)
+    assert LAUNCHES["flash_attention_bwd"] == n
+    grads = flash_attention_bwd(aligned, k, v, o, lse, dO)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref_attention_bwd(aligned, k, v, o, lse, dO)):
+        assert (g.float() - r.float()).abs().max().item() <= \
+            BWD_TOL["bfloat16"] * r.float().abs().max().item()
 
 
 @pytest.mark.cuda
