@@ -67,8 +67,9 @@ Phases, each printing JSON lines:
    1e-4 and bf16 at 2e-2 of each gradient's largest |value| and, in each
    64-row tile, at 1e-5 and 1e-2 of the tile's own norm (the training
    shape, the model's permuted views, GQA groups 1, 3 and 8, window 32,
-   sq 72 < skv 200, head dims 16 / 64 / 80 / 128, ragged lengths), the
-   logsumexp against the plain one, the autograd path of ``attention_op``
+   sq 72 < skv 200, head dims 16 / 64 / 80 / 128, ragged lengths,
+   zamba2's shared block at its training shape), the forward's o and
+   logsumexp against the plain ones, the autograd path of ``attention_op``
    against autograd through the plain forward; the backward's registers
    and spills (none may spill); its device time by kernel, the plain
    version's and the backward half of ``scaled_dot_product_attention``
@@ -83,6 +84,25 @@ Phases, each printing JSON lines:
    forward and 28 backward attention launches a step, ms a step, tokens/s,
    peak memory; then one step under the profiler, which must show 28
    launches of each bf16 backward kernel and none of the fp32 ones.
+13. ssm_train_kernels: the SSD chunk forward kernel's y, states and
+   decay against ``ref_ssd_chunk`` on each case below (and against the
+   formula in fp64 at the two training shapes), then the backward kernel
+   (five launches of one ``ssd_chunk_bwd`` call) against
+   ``ref_ssd_chunk_bwd`` on all five gradients (the mamba2 and zamba2
+   training shapes, chunk 128, the
+   reduced shape, two groups, the model's strided views, a state of 10, a
+   chunk of one): finite, within 1e-4 of each gradient's largest |value|
+   of the plain version and of the formula in fp64, each (batch, chunk,
+   head) tile within ``SSD_BWD_TILE_TOL`` of its own norm; the autograd
+   path of ``ssd_scan_op`` against autograd through the recurrence; the
+   backward's registers and spills (none may spill); its device time by
+   kernel, the plain version's and the bound at the two training shapes.
+14. train_consistency for reduced mamba2 and zamba2, as phase 11.
+15. train for mamba2-2.7b (64 Mamba2 blocks) and zamba2-2.7b (54 blocks,
+   9 applications of the shared attention block) at full width and depth
+   as phase 12: exactly 128 forward and 64 backward SSD chunk launches a
+   step for mamba2, 108 and 54 (and 18 and 9 of attention) for zamba2;
+   then one mamba2 step under the profiler.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -584,6 +604,21 @@ def ssd_inputs(gen, dev, b, s, H, P, G, N):
             randn(b, s, G, N), randn(b, s, G, N))
 
 
+def model_views(x, dt, B, C):
+    """x, dt, B and C as strided views, as the model passes them: x, B and
+    C into one [b, s, H*P + 2*G*N] projection (its conv output), dt into a
+    wider one."""
+    import torch
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
+    views = (wide[..., :H * P].reshape(b, s, H, P), torch.cat([dt, dt], -1)[..., :H],
+             wide[..., H * P:H * P + G * N].reshape(b, s, G, N),
+             wide[..., H * P + G * N:].reshape(b, s, G, N))
+    check(not any(t.is_contiguous() for t in views[:3]), "views")
+    return views
+
+
 def tol_share(out, ref) -> float:
     """The largest |out - ref| / (atol + rtol |ref|) at ``SSD_TOL``, in
     fp64: the share of the tolerance used, at most 1 inside it."""
@@ -615,14 +650,7 @@ def phase_ssm_kernels(dev) -> dict:
     for name, (b, s, H, P, G, N, Q), strided in SSD_CASES:
         x, dt, A, B, C = ssd_inputs(gen, dev, b, s, H, P, G, N)
         if strided:
-            # views into one [b, s, H*P + 2*G*N] projection, as the model's
-            # x, B and C are into its conv output, and dt into a wider one
-            wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
-            x = wide[..., :H * P].reshape(b, s, H, P)
-            B = wide[..., H * P:H * P + G * N].reshape(b, s, G, N)
-            C = wide[..., H * P + G * N:].reshape(b, s, G, N)
-            dt = torch.cat([dt, dt], -1)[..., :H]
-            check(not (x.is_contiguous() or B.is_contiguous() or dt.is_contiguous()), "views")
+            x, dt, B, C = model_views(x, dt, B, C)
         out = ssd_chunk(x, dt, A, B, C, Q)
         torch.cuda.synchronize()
         ref = ref_ssd_chunk(x, dt, A, B, C, Q)
@@ -1075,6 +1103,8 @@ BWD_CASES = [
     ("d80_fp32", (2, 8, 8, 192, 192, 80), 0, "float32", "bhsd"),
     ("ragged", (2, 24, 8, 200, 200, 128), 0, "bfloat16", "bshd"),
     ("d16", (2, 4, 2, 100, 100, 16), 0, "bfloat16", "bshd"),
+    # zamba2-2.7b's shared attention block as its training run calls it
+    ("zamba2_train", (2, 32, 32, 1024, 1024, 80), 0, "bfloat16", "bshd"),
 ]
 # of the largest |grad| of each output: in bf16 dq, dk and dv are rounded to
 # bf16 (as are o and dO, which both sides read); in fp32 only the order of
@@ -1167,8 +1197,10 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
         o, lse = flash_attention(q, k, v, window=window, return_lse=True)
         grads = flash_attention_bwd(q, k, v, o, lse, dO, window=window)
         torch.cuda.synchronize()
-        ref_lse = ref_attention(q, k, v, window=window, return_lse=True)[1]
+        ref_o, ref_lse = ref_attention(q, k, v, window=window, return_lse=True)
+        o_err = compare(o, ref_o, dtype)
         lse_err = compare(lse, ref_lse, "float32", TOL["float32"])
+        del ref_o
         refs = ref_attention_bwd(q, k, v, o, lse, dO, window=window)
         tol, tile_tol = BWD_TOL[dtype], BWD_TILE_TOL[dtype]
         errs, scales, tiles, norms = [], [], [], []
@@ -1189,7 +1221,8 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
              max_abs_err=dict(zip(("dq", "dk", "dv"), errs)),
              max_abs_ref=dict(zip(("dq", "dk", "dv"), scales)), tol_of_largest=tol,
              tile_rel_err=dict(zip(("dq", "dk", "dv"), tiles)), tile_tol=tile_tol,
-             norm_rel_err=dict(zip(("dq", "dk", "dv"), norms)), lse_max_abs_err=lse_err)
+             norm_rel_err=dict(zip(("dq", "dk", "dv"), norms)), o_max_abs_err=o_err,
+             lse_max_abs_err=lse_err)
         if name in ("train", "train_fp32"):
             # the kernels a call launches, profiled over ten calls (the
             # window of one call can come back empty)
@@ -1262,15 +1295,26 @@ def bwd_timing(q, k, v, o, lse, dO, err_share: float) -> dict:
     return row
 
 
-def phase_train_consistency(dev) -> None:
-    """Reduced llama3.2-3b in fp32: three ``train_step``s on the card
-    against the same steps on the CPU from the same weights and batches.
-    Losses within ``TRAIN_TOL`` relative; every parameter within
-    ``TRAIN_TOL`` of the largest |value| of all parameters (AdamW moves an
-    element whose gradient is near zero by up to lr whatever that
-    gradient's size, so a leaf's own largest |value| is no scale for its
-    smallest leaves). Each step launches one forward and one backward per
-    layer (remat is off in the reduced config)."""
+def per_step_launches(cfg) -> dict:
+    """Kernel launches of one training step: each forward kernel once a
+    block and once more under remat, each backward kernel once a block
+    (attention per attention block, the SSD chunk per Mamba2 block)."""
+    blocks = expected_launches(cfg, 1)
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * blocks["flash_attention"],
+            "flash_attention_bwd": blocks["flash_attention"],
+            "ssd_chunk": fwd * blocks["ssd_chunk"], "ssd_chunk_bwd": blocks["ssd_chunk"]}
+
+
+def phase_train_consistency(dev, arch: str = ARCH) -> None:
+    """Reduced ``arch`` in fp32: three ``train_step``s on the card against
+    the same steps on the CPU from the same weights and batches. Losses
+    within ``TRAIN_TOL`` relative; every parameter within ``TRAIN_TOL`` of
+    the largest |value| of all parameters (AdamW moves an element whose
+    gradient is near zero by up to lr whatever that gradient's size, so a
+    leaf's own largest |value| is no scale for its smallest leaves). Each
+    step launches each forward and backward kernel once a block (remat is
+    off in the reduced config)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
@@ -1279,7 +1323,7 @@ def phase_train_consistency(dev) -> None:
     from repro_torch.models.model import make_model
     from repro_torch.optim.adamw import OptConfig
 
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     opt = OptConfig(kind=cfg.optimizer, warmup=5, total_steps=10)
     host = make_model(cfg, device="cpu", opt=opt)
     host.init_params(torch.Generator().manual_seed(6))
@@ -1298,120 +1342,344 @@ def phase_train_consistency(dev) -> None:
             losses.append(m["loss"].item())
         rel = abs(losses[1] - losses[0]) / abs(losses[0])
         check(math.isfinite(losses[1]) and rel <= TRAIN_TOL,
-              f"train step {step}: card loss {losses[1]} vs CPU {losses[0]}")
+              f"{arch} train step {step}: card loss {losses[1]} vs CPU {losses[0]}")
         rows.append({"step": step, "loss_cpu": losses[0], "loss_card": losses[1], "rel": rel})
     launches = dict(LAUNCHES)
-    n = TRAIN_CONSISTENCY_STEPS * cfg.n_layers
-    check(launches["flash_attention"] == n and launches["flash_attention_bwd"] == n,
-          f"train consistency launches {launches}, expected {n} of each")
+    expect = {k: TRAIN_CONSISTENCY_STEPS * n for k, n in per_step_launches(cfg).items()}
+    check(all(launches[k] == expect.get(k, 0) for k in launches),
+          f"{arch} train consistency launches {launches}, expected {expect}")
     hp, cp = host.masters(), card.masters()
     scale = max(t.abs().max().item() for t in hp.values())
     diff = {name: (cp[name].cpu() - t).abs().max().item() for name, t in hp.items()}
     worst = max(diff, key=diff.get)
     check(diff[worst] <= TRAIN_TOL * scale,
-          f"params after {TRAIN_CONSISTENCY_STEPS} steps: {worst} {diff[worst]} > "
+          f"{arch} params after {TRAIN_CONSISTENCY_STEPS} steps: {worst} {diff[worst]} > "
           f"{TRAIN_TOL} * {scale}")
     emit("train_consistency", arch=cfg.name, dtype=cfg.dtype, steps=rows,
          max_param_diff=diff[worst], worst_param=worst, max_abs_param=scale,
          tol=TRAIN_TOL, launches=launches)
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev, arch: str = ARCH, profile: bool = True) -> dict:
     """``run_training`` at full width and depth on the card (the cell of
     ``TRAIN_SHAPE``): a MATCHALLOCATE through the copied control plane, a
     grow, a shrink and a node failure with replacement, AdamW steps whose
-    attention runs the forward kernel twice a layer (once more under
-    remat) and the backward kernel once. Launch counts are read around
-    exactly this run; then one more step under the profiler."""
+    forward kernels run twice a block (once more under remat) and
+    backward kernels once (``per_step_launches``). Launch counts are read
+    around exactly this run; then, with ``profile``, one more step under
+    the profiler."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.train import run_training
     from repro_torch.models.config import ShapeConfig
 
-    cfg = get_config(ARCH)
-    check((cfg.n_layers, cfg.d_model) == DEPTH[ARCH] and cfg.remat, f"{ARCH}: full-width config")
+    cfg = get_config(arch)
+    check((cfg.n_layers, cfg.d_model) == DEPTH[arch] and cfg.remat, f"{arch}: full-width config")
     seq, batch = TRAIN_SHAPE
     steps = TRAIN["steps"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    res = run_training(ARCH, smoke=False, shape=ShapeConfig("train_h100", seq, batch, "train"),
+    res = run_training(arch, smoke=False, shape=ShapeConfig("train_h100", seq, batch, "train"),
                        device=dev, **TRAIN)
     wall_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    per_step = {k: n for k, n in per_step_launches(cfg).items() if n}
     expect = {name: n * steps for name, n in per_step.items()}
     losses, kinds = res["losses"], [e.kind for e in res["events"]]
     step_ms = [1e3 * s for s in res["step_s"]]
     steady = step_ms[1:]                 # the first step also warms up cuBLAS and the allocator
-    emit("train", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+    emit("train", arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
          n_params=cfg.n_params(), seq_len=seq, batch=batch, steps=steps, remat=cfg.remat,
          losses=losses, events=kinds, step_ms=step_ms,
          step_ms_median=statistics.median(steady),
          tokens_per_s=seq * batch / (statistics.median(steady) / 1e3), wall_s=wall_s,
          peak_mem_gb=peak_gb, launches=launches, expected_launches=expect,
          launches_per_step=per_step)
-    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"{arch}: non-finite losses {losses}")
     check(abs(losses[0] - math.log(cfg.vocab)) <= 1.0,
-          f"first loss {losses[0]} is not within 1.0 of ln {cfg.vocab}")
+          f"{arch}: first loss {losses[0]} is not within 1.0 of ln {cfg.vocab}")
     check(kinds == ["rebind", "grow", "rebind", "shrink", "rebind", "eject", "rebind"],
-          f"events {kinds}")
+          f"{arch}: events {kinds}")
     for name, n in launches.items():
-        check(n == expect.get(name, 0), f"train: {name} launches {n} != {expect.get(name, 0)}")
-    check(peak_gb < 80.0, f"peak memory {peak_gb} GB")
+        check(n == expect.get(name, 0),
+              f"train {arch}: {name} launches {n} != {expect.get(name, 0)}")
+    check(peak_gb < 80.0, f"{arch}: peak memory {peak_gb} GB")
+    if profile:
+        profile_train_step(dev, cfg, res)
+    del res
+    torch.cuda.empty_cache()
+    return launches
 
-    # where the time of one more step goes: its gradients (forward, loss,
-    # backward with the remat recompute), then the optimizer
+
+def profile_train_step(dev, cfg, res) -> None:
+    """Where the time of one more step goes: its gradients (forward, loss,
+    backward with the remat recompute), then the optimizer. The gradients
+    part must show each kernel a block's launches: in bf16 the tensor-core
+    attention kernels (none of the CUDA-core backward pair), and the SSD
+    chunk's (``ssd_scores_kernel`` in both directions)."""
+    import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.optim.adamw import apply_updates
+    seq, batch = TRAIN_SHAPE
     rt = res["runtime"]
     model = rt.model
-    batch_np = SyntheticTokenPipeline(rt.cfg, rt.shape, DataConfig()).batch_at(steps)
+    batch_np = SyntheticTokenPipeline(rt.cfg, rt.shape, DataConfig()).batch_at(TRAIN["steps"])
     tb = {n: torch.from_numpy(a).to(dev, torch.long) for n, a in batch_np.items()}
     held = {}
     parts = [("train_grads", lambda: held.update(vg=model.value_and_grad(tb))),
              ("train_optimizer",
               lambda: apply_updates(model.masters(), held["vg"][1], rt.opt_state, model.opt))]
+    per = per_step_launches(cfg)
+    want = {"flash_fwd_mma_kernel": per["flash_attention"],
+            **{k: per["flash_attention_bwd"] if k in BWD_BF16 else 0 for k in BWD_KERNELS},
+            "ssd_chunk_kernel": per["ssd_chunk"],
+            "ssd_scores_kernel": per["ssd_chunk"] + per["ssd_chunk_bwd"],
+            **{k: per["ssd_chunk_bwd"] for k in SSD_BWD_KERNELS[1:]}}
     total_wall = total_busy = 0.0
     for part, fn in parts:
         wall_ms, rows, _ = profiled(fn)
         busy_ms = sum(r[0] for r in rows)
         total_wall += wall_ms
         total_busy += busy_ms
-        emit("profile", arch=ARCH, part=part, seq_len=seq, batch=batch, wall_ms=wall_ms,
+        emit("profile", arch=cfg.name, part=part, seq_len=seq, batch=batch, wall_ms=wall_ms,
              device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
              by_class=kernel_classes(rows),
              top=[{"op": k, "ms": ms, "calls": n} for ms, n, k in rows[:15]])
         if part == "train_grads":
-            # bf16: 28 launches a step of each tensor-core backward kernel,
-            # none of the CUDA-core ones
-            mma = sum(n for _, n, k in rows if "flash_fwd_mma_kernel" in k)
-            bwd = {k: sum(n for _, n, key in rows if k in key) for k in BWD_KERNELS}
-            want = {k: cfg.n_layers if k in BWD_BF16 else 0 for k in BWD_KERNELS}
-            check(mma == 2 * cfg.n_layers and bwd == want,
-                  f"profiled step: {mma} flash_fwd_mma_kernel, {bwd}")
-    emit("profile", arch=ARCH, part="train_step", wall_ms=total_wall, device_busy_ms=total_busy,
-         idle_share=max(0.0, 1 - total_busy / total_wall))
-    del rt, res, model, held
-    torch.cuda.empty_cache()
-    return launches
+            got = {k: sum(n for _, n, key in rows if k in key) for k in want}
+            check(got == want, f"{cfg.name} profiled step: launches {got}, expected {want}")
+    emit("profile", arch=cfg.name, part="train_step", wall_ms=total_wall,
+         device_busy_ms=total_busy, idle_share=max(0.0, 1 - total_busy / total_wall))
+
+
+# ---------------------------------------------------------------------- #
+# phases 13-15: SSM and hybrid training
+# ---------------------------------------------------------------------- #
+# ssd_chunk_bwd cases: name, (b, s, H, P, G, N, chunk), strided. The mamba2
+# and zamba2 training shapes (TRAIN_SHAPE: batch 2 x 1024), the configs'
+# perf-patch chunk of 128, and SSD_CASES' edges: the reduced shape, two
+# groups, the model's strided views, 4-byte copies of B and C, a chunk of one
+SSD_BWD_TRAIN = (2, 1024, 80, 64, 1, 128, 256)
+SSD_BWD_CASES = [
+    ("mamba2", SSD_BWD_TRAIN, False),
+    ("zamba2", (2, 1024, 80, 64, 1, 64, 256), False),
+    ("chunk128", (2, 1024, 80, 64, 1, 128, 128), False),
+    ("reduced", (2, 32, 8, 16, 1, 16, 8), False),
+    ("groups2", (2, 128, 4, 32, 2, 16, 32), False),
+    ("strided", SSD_BWD_TRAIN, True),
+    ("state10", (1, 64, 4, 8, 1, 10, 16), True),
+    ("chunk1", (1, 16, 4, 16, 1, 8, 1), False),
+]
+SSD_BWD_TIMED = ("mamba2", "zamba2")
+# what one ssd_chunk_bwd call launches
+SSD_BWD_KERNELS = ("ssd_scores_kernel", "ssd_bwd_head_kernel", "ssd_bwd_head_sum_kernel",
+                   "ssd_bwd_group_kernel", "ssd_bwd_gA_kernel")
+SSD_BWD_GRADS = ("gx", "gdt", "gA", "gB", "gC")
+# of each (batch, chunk, head) tile of gx and gdt and (batch, chunk, group)
+# tile of gB and gC, ||g - r|| / ||r|| (``tile_rel_err``; gA, a sum over
+# batch and chunk, as one tile): set between the sound kernel's readings
+# and those of the faults planted by tools/ssd_bwd_faults.py
+SSD_BWD_TILE_TOL = 1e-4
+SSM_TRAIN_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+
+
+def ssd_bwd_bound(b, s, H, P, G, N, Q):
+    """(ms, by, gflop, mbytes) of the least time for ``ssd_chunk_bwd``'s
+    work, in ``ssd_bound``'s conventions (causal half, 3xTF32 at 495
+    TFLOP/s): per head gM = gy u^T and M^T gy over the causal pairs, B
+    gstate and (w o u) gstate^T; per group S = C B^T again, G_S B and
+    G_S^T C. Bytes: x, dt, A, B, C, gy, gstates and gdecay read once, the
+    five gradients written once."""
+    nc = s // Q
+    tri = Q * (Q + 1) / 2
+    flops = b * nc * (H * (4.0 * tri * P + 4.0 * Q * N * P) + G * 6.0 * tri * N)
+    nbytes = 4.0 * (3 * b * s * H * P + 2 * b * s * H + 2 * H + 4 * b * s * G * N
+                    + b * nc * H * (N * P + 1))
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops / 1e9, nbytes / 1e6)
+
+
+def ssd_bwd_inputs(gen, dev, b, s, H, P, G, N, Q, strided):
+    """``ssd_inputs`` (as strided views into one projection, as the model
+    passes them, when ``strided``) and gradients of the three outputs."""
+    import torch
+    x, dt, A, B, C = ssd_inputs(gen, dev, b, s, H, P, G, N)
+    if strided:
+        x, dt, B, C = model_views(x, dt, B, C)
+    nc = s // Q
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    return (x, dt, A, B, C), (randn(b, s, H, P), randn(b, nc, H, N, P), randn(b, nc, H))
+
+
+def ssd_bwd_tiles(grads, refs, Q: int) -> dict:
+    """``tile_rel_err`` of each gradient: gx and gdt per (batch, chunk,
+    head), gB and gC per (batch, chunk, group), gA (summed over batch and
+    chunk; a head's value may be near 0) as one tile."""
+    from repro_torch.kernels.ref import tile_rel_err
+
+    def tiles(t):
+        if t.dim() == 1:                                  # gA: [1, H, 1]
+            return t[None, :, None]
+        t = t if t.dim() == 4 else t[..., None]           # gdt: one column
+        return t.transpose(1, 2)                          # [b, heads or groups, s, cols]
+    return {n: tile_rel_err(tiles(g), tiles(r), rows=Q if g.dim() > 1 else g.numel())
+            for n, g, r in zip(SSD_BWD_GRADS, grads, refs)}
+
+
+def ssd_bwd_ptxas(rows: list) -> list:
+    """The ptxas rows of the backward's own kernels (one instantiation
+    each); fails on a spill."""
+    out = [r for r in rows if any(k in r["kernel"] for k in SSD_BWD_KERNELS[1:])]
+    check(len(out) == len(SSD_BWD_KERNELS) - 1, f"ptxas reports {len(out)} SSD backward kernels")
+    spilled = [r for r in out if r.get("spill_stores") or r.get("spill_loads")]
+    check(not spilled, f"SSD backward kernels spill: {spilled}")
+    return out
+
+
+def phase_ssm_train_kernels(dev, ptxas: list) -> dict:
+    """The SSD chunk kernels on the card at the training grids: the
+    forward's y, states and decay against ``ref_ssd_chunk`` (and, at the
+    timed shapes, the formula in fp64); the backward against
+    ``ref_ssd_chunk_bwd``: every gradient finite, within ``SSD_TOL`` of its
+    largest |value| of the plain version and of the formula in fp64, and
+    each tile within ``SSD_BWD_TILE_TOL`` of the plain version's; ``ssd_scan_op``'s autograd
+    path against the sequential recurrence's; then the times at the mamba2
+    and zamba2 training shapes."""
+    import torch
+    from repro_torch.kernels.ref import ref_ssd_chunk, ref_ssd_chunk_bwd
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
+
+    rows = ssd_bwd_ptxas(ptxas)
+    emit("ssm_train_kernels", ptxas=rows)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    timed = {}
+    for name, (b, s, H, P, G, N, Q), strided in SSD_BWD_CASES:
+        inputs, outs = ssd_bwd_inputs(gen, dev, b, s, H, P, G, N, Q, strided)
+        fwd = ssd_chunk(*inputs, Q)
+        torch.cuda.synchronize()
+        fwd_ref = ref_ssd_chunk(*inputs, Q)
+        fwd_exact = {}
+        if name in SSD_BWD_TIMED:
+            fwd_exact = {"exact_tol_share": dict(zip(
+                ("y", "states", "decay"), ssd_exact_shares(fwd, *inputs, Q)))}
+        emit("ssm_train_kernels", kernel="ssd_chunk", case=name, shape=[b, s, H, P, G, N, Q],
+             strided=strided, max_abs_err=dict(zip(("y", "states", "decay"), (
+                 compare(o, r, "float32", SSD_TOL) for o, r in zip(fwd, fwd_ref)))),
+             tol_share=dict(zip(("y", "states", "decay"),
+                                (tol_share(o, r) for o, r in zip(fwd, fwd_ref)))),
+             **fwd_exact, tol=SSD_TOL)
+        del fwd, fwd_ref
+        grads = ssd_chunk_bwd(*inputs, Q, *outs)
+        torch.cuda.synchronize()
+        refs = ref_ssd_chunk_bwd(*inputs, Q, *outs)
+        exact = ref_ssd_chunk_bwd(*inputs, Q, *outs, exact=True)
+        share, exact_share, scales = {}, {}, {}
+        for gname, g, r, e in zip(SSD_BWD_GRADS, grads, refs, exact):
+            check(g.shape == r.shape and bool(torch.isfinite(g).all()),
+                  f"ssd_chunk_bwd {name} {gname}: shape {tuple(g.shape)} or not finite")
+            scales[gname] = r.abs().max().item()
+            share[gname] = (g - r).abs().max().item() / (SSD_TOL * scales[gname])
+            exact_share[gname] = ((g.double() - e).abs().max() / (SSD_TOL * e.abs().max())).item()
+        tiles = ssd_bwd_tiles(grads, refs, Q)
+        emit("ssm_train_kernels", kernel="ssd_chunk_bwd", case=name,
+             shape=[b, s, H, P, G, N, Q], strided=strided, tol_share=share,
+             exact_tol_share=exact_share, max_abs_ref=scales, tile_rel_err=tiles,
+             tol=SSD_TOL, tile_tol=SSD_BWD_TILE_TOL)
+        for gname in SSD_BWD_GRADS:
+            check(share[gname] <= 1.0, f"ssd_chunk_bwd {name} {gname}: {share[gname]} of "
+                  f"{SSD_TOL} of its largest |value| from ref_ssd_chunk_bwd")
+            check(exact_share[gname] <= 1.0, f"ssd_chunk_bwd {name} {gname}: "
+                  f"{exact_share[gname]} of {SSD_TOL} of its largest |value| from fp64")
+            check(tiles[gname] <= SSD_BWD_TILE_TOL,
+                  f"ssd_chunk_bwd {name} {gname}: a tile off by {tiles[gname]}")
+        del grads, refs, exact
+        if name in SSD_BWD_TIMED:
+            timed[name] = dict(max_abs_err=max(share[g] * SSD_TOL * scales[g] for g in share),
+                               **ssd_bwd_timing(inputs, outs, Q))
+        del inputs, outs
+
+    # the autograd path: ssd_scan_op on leaves that want a gradient (a
+    # ragged length, an initial state) runs ssd_chunk then ssd_chunk_bwd,
+    # against autograd through the sequential recurrence
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ops import ssd_scan_op
+    from repro_torch.kernels.ref import ref_ssd
+    b, s, H, P, G, N, Q = SSD_SCAN
+    x, dt, A, B, C = ssd_inputs(gen, dev, b, s, H, P, G, N)
+    h0 = torch.randn((b, H, P, N), generator=gen, device=dev)
+    gy = torch.randn((b, s, H, P), generator=gen, device=dev)
+    gh = torch.randn((b, H, P, N), generator=gen, device=dev)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C, h0)]
+    before = dict(LAUNCHES)
+    y, h = ssd_scan_op(*leaves[:5], Q, initial_state=leaves[5], return_state=True)
+    got = torch.autograd.grad((y, h), leaves, (gy, gh))
+    check(LAUNCHES["ssd_chunk"] == before["ssd_chunk"] + 1
+          and LAUNCHES["ssd_chunk_bwd"] == before["ssd_chunk_bwd"] + 1,
+          "ssd_scan_op under grad: one forward and one backward launch")
+    plain = [t.detach().requires_grad_() for t in (x, dt, A, B, C, h0)]
+    ry, rh = ref_ssd(*plain[:5], initial_state=plain[5], return_state=True)
+    want = torch.autograd.grad((ry, rh), plain, (gy, gh))
+    errs = {}
+    for gname, g, w in zip(("gx", "gdt", "gA", "gB", "gC", "gh0"), got, want):
+        errs[gname] = (g - w).abs().max().item() / w.abs().max().item()
+        check(errs[gname] <= SSD_TOL, f"ssd_scan_op autograd {gname}: {errs[gname]} of its "
+              f"largest |value| from the recurrence's")
+    emit("ssm_train_kernels", kernel="ssd_scan_op", case="autograd_vs_recurrence",
+         shape=[b, s, H, P, G, N, Q], err_of_largest=errs, tol_of_largest=SSD_TOL)
+    # the table's row is the mamba2 training shape's, with zamba2's beside it
+    return dict(timed["mamba2"], zamba2=timed["zamba2"])
+
+
+def ssd_bwd_timing(inputs, outs, Q) -> dict:
+    """Device ms of one ``ssd_chunk_bwd`` call (its five launches, and each
+    kernel's), its CUDA-event ms and the plain version's device ms beside
+    the bound."""
+    from repro_torch.kernels.ref import ref_ssd_chunk_bwd
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+
+    x, B = inputs[0], inputs[3]
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    _, rows, _ = profiled(lambda: [ssd_chunk_bwd(*inputs, Q, *outs) for _ in range(10)])
+    kernel_ms = {k: sum(ms for ms, _, key in rows if k in key) / 10 for k in SSD_BWD_KERNELS}
+    check(all(kernel_ms.values()), f"ssd_chunk_bwd launched {kernel_ms}")
+    ms = device_ms(lambda: ssd_chunk_bwd(*inputs, Q, *outs), iters=10)
+    bound, by, gflop, mbytes = ssd_bwd_bound(b, s, H, P, G, N, Q)
+    row = dict(ms=ms, kernel_ms=kernel_ms,
+               event_ms=time_ms(lambda: ssd_chunk_bwd(*inputs, Q, *outs), iters=10),
+               plain_ms=device_ms(lambda: ref_ssd_chunk_bwd(*inputs, Q, *outs), iters=3),
+               library_ms=None, bound_ms=bound, bound_by=by)
+    emit("ssm_train_kernels", kernel="ssd_chunk_bwd", shape=[b, s, H, P, G, N, Q], **row,
+         gflop=gflop, mbytes=mbytes, tflops=gflop / ms)
+    return row
 
 
 def kernel_classes(rows) -> dict:
-    """Device ms of profiler rows by kind: the attention kernels, matrix
-    products (cuBLAS and CUTLASS), elementwise and reduction kernels,
-    copies, the rest."""
-    classes = {"attention_fwd": 0.0, "attention_bwd": 0.0, "matmul": 0.0, "elementwise": 0.0,
-               "reduction": 0.0, "copy": 0.0, "other": 0.0}
+    """Device ms of profiler rows by kind: the attention and SSD kernels,
+    matrix products (cuBLAS and CUTLASS), elementwise and reduction
+    kernels, copies, the rest."""
+    classes = {"attention_fwd": 0.0, "attention_bwd": 0.0, "ssd_fwd": 0.0, "ssd_bwd": 0.0,
+               "ssd_scores": 0.0, "matmul": 0.0, "elementwise": 0.0, "reduction": 0.0,
+               "copy": 0.0, "other": 0.0}
     for ms, _, key in rows:
         k = key.lower()
         if "flash_fwd" in k:
             cls = "attention_fwd"
         elif "flash_bwd" in k:
             cls = "attention_bwd"
+        elif "ssd_chunk_kernel" in k:
+            cls = "ssd_fwd"
+        elif "ssd_bwd" in k:
+            cls = "ssd_bwd"
+        elif "ssd_scores_kernel" in k:     # C B^T and seg: in the forward and the backward
+            cls = "ssd_scores"
         elif any(t in k for t in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "matmul"
         elif "elementwise" in k:
@@ -1524,13 +1792,22 @@ def drive(dev, smi: str, ptxas: list) -> None:
     phase_train_consistency(dev)
     paths[f"train {ARCH}"] = phase_train(dev)
 
+    timed["ssd_chunk_bwd"] = phase_ssm_train_kernels(dev, ptxas)
+    torch.cuda.empty_cache()
+    for arch in SSM_TRAIN_ARCHS:
+        phase_train_consistency(dev, arch)
+    for arch in SSM_TRAIN_ARCHS:
+        paths[f"train {arch}"] = phase_train(dev, arch, profile=arch == "mamba2-2.7b")
+
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),
             # no Pallas backward: JAX differentiates its einsum attention with XLA
             "flash_attention_bwd": ("flash_attention.cu", "src/repro/models/layers.py:210"),
             "flash_decode": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:179"),
             "feasibility": ("feasibility.cu", "src/repro/kernels/feasibility.py:93"),
-            "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:71")}
+            "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:71"),
+            # no Pallas backward: JAX differentiates the jnp ssd_chunked with XLA
+            "ssd_chunk_bwd": ("ssd_chunk.cu", "src/repro/models/mamba2.py:192")}
     table = []
     for name, (src, replaces) in rows.items():
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}

@@ -4,11 +4,12 @@ The tensor's device decides: CPU tensors go to the plain PyTorch
 version in ``ref.py``, CUDA tensors to the kernel. There is no fallback:
 a kernel that fails to build or launch raises.
 
-No gradient stops silently at a kernel. Attention carries gradients on
-the card through ``FlashAttention`` (the forward kernel and the backward
-kernel). The decode kernel and the SSD chunk kernel have no backward: on
-CUDA tensors that want a gradient they raise. On the CPU the plain
-versions are differentiated by autograd.
+No gradient stops silently at a kernel. Attention carries gradients
+through ``FlashAttention`` and the SSD scan through ``SsdChunk`` (each a
+forward kernel and a backward kernel on the card, the plain pair on the
+CPU). The decode kernel has no backward: decode only serves, so on CUDA
+tensors that want a gradient it raises. On the CPU the plain decode is
+differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import torch.nn.functional as F
 
 from .feasibility import feasible_mask
 from .flash_attention import FlashAttention, flash_attention, flash_decode
-from .ref import ref_attention, ref_decode, ref_feasible, ref_ssd_chunk, seg_hi_lo
-from .ssd_scan import ssd_chunk
+from .ref import ref_attention, ref_decode, ref_feasible, seg_hi_lo
+from .ssd_scan import SsdChunk
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -37,9 +38,7 @@ def _wants_grad(*ts: torch.Tensor) -> bool:
 
 def _no_backward(kernel: str, why: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{kernel} has no backward kernel ({why}); SSM and hybrid training on the card "
-        "waits for the ssd_chunk backward. Train a dense arch, or run under "
-        "torch.no_grad()")
+        f"{kernel} has no backward kernel ({why}); run it under torch.no_grad()")
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,9 +78,12 @@ def batched_feasible_op(vtype: torch.Tensor, vok: torch.Tensor, vsize: torch.Ten
 def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                 C: torch.Tensor, chunk: int, initial_state: Optional[torch.Tensor] = None,
                 return_state: bool = False):
-    """Full SSD scan: the intra-chunk part by ``ssd_chunk`` (CUDA) or
-    ``ref_ssd_chunk`` (CPU), then the inter-chunk recurrence of
-    ``repro/kernels/ops.py::ssd_scan_op`` in plain PyTorch.
+    """Full SSD scan: the intra-chunk part through ``SsdChunk`` (the
+    ``ssd_chunk`` kernels on CUDA tensors, ``ref_ssd_chunk`` and
+    ``ref_ssd_chunk_bwd`` on CPU tensors; without a gradient only its
+    forward runs), then the inter-chunk recurrence of
+    ``repro/kernels/ops.py::ssd_scan_op`` in plain PyTorch, which autograd
+    differentiates.
 
     x: [b, s, H, P]; dt: [b, s, H] (positive); A: [H] (negative); B, C:
     [b, s, G, N]; ``initial_state`` [b, H, P, N]. A ragged ``s`` is padded
@@ -94,10 +96,8 @@ def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
     if pad:
         x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C))
     sp, nc, rep = s + pad, (s + pad) // chunk, H // G
-    if _on_cuda(x) and _wants_grad(x, dt, A, B, C):
-        raise _no_backward("ssd_chunk", "a gradient would stop at its output")
-    intra = ssd_chunk if _on_cuda(x) else ref_ssd_chunk
-    y_intra, states, decay_log = intra(x, dt, A, B, C, chunk)
+    _on_cuda(x)                                       # rejects other devices
+    y_intra, states, decay_log = SsdChunk.apply(x, dt, A, B, C, chunk)
 
     # the state entering each chunk: a sequential carry of (exp(decay), state)
     chunk_decay = torch.exp(decay_log)                            # [b, nc, H]

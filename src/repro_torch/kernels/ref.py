@@ -161,6 +161,27 @@ def seg_hi_lo(dA: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (seg - hi.double()).float()
 
 
+def _ssd_seg(dA: torch.Tensor, exact: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """seg = cumsum(dA) over the chunk (dim 2) as a pair hi + lo: in fp64
+    with lo = 0 when ``exact``, else as ``seg_hi_lo`` keeps it."""
+    if exact:
+        hi = torch.cumsum(dA, dim=2)
+        return hi, torch.zeros_like(hi)
+    return seg_hi_lo(dA, dim=2)
+
+
+def _decay_matrix(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """L[i, j] = exp(seg_i - seg_j) for j <= i, else 0: [b, nc, q, q, H]
+    from the pair [b, nc, q, H]. Masked before exp: above the diagonal
+    seg_i - seg_j > 0 and exp overflows past 88, where a mask after exp
+    would leave the forward finite and its gradient 0 * inf = NaN."""
+    q = hi.shape[2]
+    rel = ((hi[:, :, :, None, :] - hi[:, :, None, :, :])
+           + (lo[:, :, :, None, :] - lo[:, :, None, :, :]))
+    causal = torch.ones((q, q), dtype=torch.bool, device=hi.device).tril()
+    return torch.exp(rel.masked_fill(~causal[None, None, :, :, None], -math.inf))
+
+
 def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                   C: torch.Tensor, chunk: int, exact: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -179,7 +200,8 @@ def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
     dt * A is rounded and seg kept as ``seg_hi_lo`` keeps it, as the
     kernel does. ``exact`` evaluates every step in fp64 and returns fp64:
     the function itself, which the kernel and this version are held to at
-    the serving chunk of 256."""
+    the serving chunk of 256. Autograd of either is finite at every chunk
+    (``_decay_matrix``)."""
     b, s, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if s % chunk:
@@ -191,24 +213,83 @@ def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
     Bg = B.to(f).reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
     Cg = C.to(f).reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
 
-    dA = dtg * A.to(f)[None, None, None, :]                           # [b,nc,q,H]
-    if exact:
-        hi = torch.cumsum(dA, dim=2)
-        lo = torch.zeros_like(hi)
-    else:
-        hi, lo = seg_hi_lo(dA, dim=2)
+    hi, lo = _ssd_seg(dtg * A.to(f)[None, None, None, :], exact)     # [b,nc,q,H]
     total, total_lo = hi[:, :, -1, :], lo[:, :, -1, :]                # [b,nc,H]
-    rel = ((hi[:, :, :, None, :] - hi[:, :, None, :, :])
-           + (lo[:, :, :, None, :] - lo[:, :, None, :, :]))           # [b,nc,q,q,H]
-    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    # exp overflows above the diagonal (rel > 0): where() drops it, as JAX does
-    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    L = _decay_matrix(hi, lo)                                         # [b,nc,q,q,H]
     scores = torch.einsum("bcqhn,bckhn->bcqkh", Cg, Bg)
     ydt = xg * dtg[..., None]
     y = torch.einsum("bcqkh,bckhp->bcqhp", scores * L, ydt)
     decay_to_end = torch.exp((total[:, :, None, :] - hi) + (total_lo[:, :, None, :] - lo))
     states = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bg, decay_to_end, ydt)
     return y.reshape(b, s, H, P), states, total
+
+
+def ref_ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, chunk: int, gy: torch.Tensor, gstates: torch.Tensor,
+                      gdecay: torch.Tensor, exact: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The ``ssd_chunk_bwd`` contract: the gradients (gx, gdt, gA, gB, gC)
+    of ``ref_ssd_chunk``'s inputs from those of its outputs (gy [b, s, H,
+    P], gstates [b, nc, H, N, P], gdecay [b, nc, H]), by the explicit
+    formulas, the seg pair kept as the forward keeps it (``exact``: every
+    step in fp64). Per (batch, chunk, head), with u = dt x, S = C B^T of
+    the head's group, L[i, j] = exp(seg_i - seg_j) [j <= i], M = S o L and
+    w = exp(total - seg):
+
+    - gM = (gy u^T) o [j <= i];  gu = M^T gy + (B o w) gstate;
+    - the group's G_S = sum over its heads of gM o L; gC = G_S B and
+      gB = G_S^T C + sum over its heads of w o (u gstate^T);
+    - R = gM o M, r_j = w_j sum_n B_jn (u gstate^T)_jn, and
+      g(dA_k) = sum_{j < k <= i} R_ij + sum_{j < k} r_j + gdecay: seg_i -
+      seg_j sums dA over j < k <= i and total - seg_j over k > j, so each
+      pair's term is added where it acts, with no difference of large
+      partial sums;
+    - gx = gu dt, gdt = g(dA) A + sum_p gu o x, gA = sum_{b, c, k}
+      g(dA) dt.
+
+    Returns fp32 (fp64 when ``exact``) tensors shaped as the inputs."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    nc, rep = s // chunk, H // G
+    f = torch.float64 if exact else torch.float32
+    xg = x.to(f).reshape(b, nc, chunk, H, P)
+    dtg = dt.to(f).reshape(b, nc, chunk, H)
+    Af = A.to(f)
+    Bg = B.to(f).reshape(b, nc, chunk, G, N)
+    Cg = C.to(f).reshape(b, nc, chunk, G, N)
+    gyg = gy.to(f).reshape(b, nc, chunk, H, P)
+    gs = gstates.to(f)                                                # [b,nc,H,N,P]
+
+    hi, lo = _ssd_seg(dtg * Af[None, None, None, :], exact)          # [b,nc,q,H]
+    L = _decay_matrix(hi, lo)                                         # [b,nc,i,j,H]
+    w = torch.exp((hi[:, :, -1:, :] - hi) + (lo[:, :, -1:, :] - lo))  # [b,nc,q,H]
+    u = xg * dtg[..., None]                                           # [b,nc,q,H,P]
+    M = torch.einsum("bcign,bcjgn->bcijg", Cg, Bg).repeat_interleave(rep, dim=4) * L
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    gM = torch.einsum("bcihp,bcjhp->bcijh", gyg, u) * causal[None, None, :, :, None]
+    v = torch.einsum("bcjhn,bchnp->bcjhp", Bg.repeat_interleave(rep, dim=3), gs)   # B gstate
+    gu = torch.einsum("bcijh,bcihp->bcjhp", M, gyg) + w[..., None] * v
+    G_S = (gM * L).reshape(b, nc, chunk, chunk, G, rep).sum(-1)       # [b,nc,i,j,G]
+    gC = torch.einsum("bcijg,bcjgn->bcign", G_S, Bg)
+    state_term = torch.einsum("bcjh,bcjhp,bchnp->bcjhn", w, u, gs)
+    gB = (torch.einsum("bcijg,bcign->bcjgn", G_S, Cg)
+          + state_term.reshape(b, nc, chunk, G, rep, N).sum(4))
+
+    # g(dA_k): R's pairs j < k <= i (each row's sum over j < k, then the
+    # rows i >= k), r's keys j < k, and gdecay through total = seg_{q-1}
+    R = gM * M                                                        # [b,nc,i,j,H]
+    before_k = torch.nn.functional.pad(torch.cumsum(R, dim=3)[:, :, :, :-1], (0, 0, 1, 0))
+    gdA = (before_k * causal[None, None, :, :, None]).sum(2)          # [b,nc,k,H]
+    r = w * (u * v).sum(-1)                                           # [b,nc,j,H]
+    gdA = (gdA + torch.nn.functional.pad(torch.cumsum(r, dim=2)[:, :, :-1], (0, 0, 1, 0))
+           + gdecay.to(f)[:, :, None, :])
+    gx = gu * dtg[..., None]
+    gdt = gdA * Af + (gu * xg).sum(-1)
+    gA = (gdA * dtg).sum((0, 1, 2))
+    return (gx.reshape(b, s, H, P), gdt.reshape(b, s, H), gA, gB.reshape(b, s, G, N),
+            gC.reshape(b, s, G, N))
 
 
 def tile_rel_err(out: torch.Tensor, ref: torch.Tensor, rows: int = 64) -> float:

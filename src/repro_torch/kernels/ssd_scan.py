@@ -10,6 +10,14 @@ tensor's device. One call is two launches, ``ssd_scores_kernel`` (C B^T
 once per group, and the cumulative decay) and ``ssd_chunk_kernel`` (the
 per-head products), through a scratch the wrapper allocates; each call
 adds one to ``build.LAUNCHES["ssd_chunk"]``.
+
+``ssd_chunk_bwd`` is the backward kernel (the JAX package has no Pallas
+backward: it differentiates the jnp ``ssd_chunked`` with XLA): the
+gradients of x, dt, A, B and C from those of the three outputs, five
+launches a call (``ssd_scores_kernel`` again, then the per-head, head-sum,
+per-group and gA kernels), one count in ``build.LAUNCHES["ssd_chunk_bwd"]``;
+its plain version is ``ref.py::ref_ssd_chunk_bwd``. ``SsdChunk`` pairs the
+two for autograd.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 
 from . import build
 from .build import LAUNCHES
+from .ref import ref_ssd_chunk, ref_ssd_chunk_bwd
 
 MAX_CHUNK = 256          # kMaxQ: the chunk's dt, seg and weights sit in shared memory
 MAX_STATE = 128          # kMaxN: columns of the B and C tiles in shared memory
@@ -35,6 +44,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_chunk_fwd.restype = I
     lib.ssd_chunk_scratch_floats.argtypes = [I, I, I, I, I]
     lib.ssd_chunk_scratch_floats.restype = ctypes.c_longlong
+    lib.ssd_chunk_bwd.argtypes = [P] * 14 + [I] * 7 + [P, P]
+    lib.ssd_chunk_bwd.restype = I
+    lib.ssd_chunk_bwd_scratch_floats.argtypes = [I] * 6
+    lib.ssd_chunk_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -43,15 +56,9 @@ def _lib() -> ctypes.CDLL:
     return bind(build.load("ssd_chunk"))
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-              C: torch.Tensor, chunk: int
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Intra-chunk SSD. x: [b, s, H, P]; dt: [b, s, H]; A: [H]; B, C:
-    [b, s, G, N]; all fp32 on one CUDA device, ``s % chunk == 0``, head h
-    reading group ``h // (H / G)``. x, dt, B and C may be strided views
-    (the last axis of x, B and C contiguous); A is contiguous. Returns
-    (y_intra [b, s, H, P], states [b, nc, H, N, P], decay_log [b, nc, H]),
-    fp32 and contiguous."""
+def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+           C: torch.Tensor, chunk: int) -> None:
+    """Raise on inputs the kernels do not take."""
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -77,9 +84,29 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tenso
         raise ValueError(f"state {N} > {MAX_STATE}")
     if x.stride(3) != 1 or B.stride(3) != 1 or C.stride(3) != 1 or not A.is_contiguous():
         raise ValueError("the last axis of x, B and C, and A, must be contiguous")
+    if s // chunk > 65535 or b * G > 65535:
+        raise ValueError(f"grid ({H}, {s // chunk}, {b} x {G}) too large")
+
+
+def _strides(x, dt, B, C):
+    return (ctypes.c_longlong * 12)(
+        x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
+        B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2))
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, chunk: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD. x: [b, s, H, P]; dt: [b, s, H]; A: [H]; B, C:
+    [b, s, G, N]; all fp32 on one CUDA device, ``s % chunk == 0``, head h
+    reading group ``h // (H / G)``. x, dt, B and C may be strided views
+    (the last axis of x, B and C contiguous); A is contiguous. Returns
+    (y_intra [b, s, H, P], states [b, nc, H, N, P], decay_log [b, nc, H]),
+    fp32 and contiguous."""
+    _check(x, dt, A, B, C, chunk)
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
     nc = s // chunk
-    if nc > 65535 or b > 65535:
-        raise ValueError(f"grid ({H}, {nc}, {b}) too large")
     y = torch.empty((b, s, H, P), dtype=torch.float32, device=x.device)
     states = torch.empty((b, nc, H, N, P), dtype=torch.float32, device=x.device)
     decay = torch.empty((b, nc, H), dtype=torch.float32, device=x.device)
@@ -89,14 +116,74 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tenso
         lib = _lib()
         scratch = torch.empty(lib.ssd_chunk_scratch_floats(b, s, H, G, chunk),
                               dtype=torch.float32, device=x.device)
-        strides = (ctypes.c_longlong * 12)(
-            x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
-            B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2))
         rc = lib.ssd_chunk_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             y.data_ptr(), states.data_ptr(), decay.data_ptr(), scratch.data_ptr(),
-            b, s, H, P, G, N, chunk, strides, torch.cuda.current_stream().cuda_stream)
+            b, s, H, P, G, N, chunk, _strides(x, dt, B, C),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk: CUDA error {rc} at launch")
     LAUNCHES["ssd_chunk"] += 1
     return y, states, decay
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, chunk: int, gy: torch.Tensor, gstates: torch.Tensor,
+                  gdecay: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The gradients (gx, gdt, gA, gB, gC) of ``ssd_chunk``'s inputs from
+    those of its outputs: gy [b, s, H, P], gstates [b, nc, H, N, P] and
+    gdecay [b, nc, H], fp32 on x's device (made contiguous here). The
+    inputs as ``ssd_chunk`` takes them, views too. Returns fp32 contiguous
+    tensors shaped as x, dt, A, B and C."""
+    _check(x, dt, A, B, C, chunk)
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = s // chunk
+    for name, t, shape in (("gy", gy, (b, s, H, P)), ("gstates", gstates, (b, nc, H, N, P)),
+                           ("gdecay", gdecay, (b, nc, H))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, expected "
+                             f"{shape} torch.float32 on {x.device}")
+    gy, gstates, gdecay = gy.contiguous(), gstates.contiguous(), gdecay.contiguous()
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=x.device) for t in (x, dt, A, B, C)]
+    if x.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    with torch.cuda.device(x.device):
+        lib = _lib()
+        scratch = torch.empty(lib.ssd_chunk_bwd_scratch_floats(b, s, H, G, N, chunk),
+                              dtype=torch.float32, device=x.device)
+        rc = lib.ssd_chunk_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            gy.data_ptr(), gstates.data_ptr(), gdecay.data_ptr(),
+            *(g.data_ptr() for g in grads), scratch.data_ptr(),
+            b, s, H, P, G, N, chunk, _strides(x, dt, B, C),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk_bwd: CUDA error {rc} at launch")
+    LAUNCHES["ssd_chunk_bwd"] += 1
+    return tuple(grads)
+
+
+class SsdChunk(torch.autograd.Function):
+    """``ssd_chunk`` with a gradient: the forward and backward kernels on
+    CUDA tensors, the plain pair (``ref_ssd_chunk``, ``ref_ssd_chunk_bwd``)
+    on CPU tensors. ``ops.ssd_scan_op`` calls it when a gradient is
+    wanted. Saves the inputs (remat drops them with the rest of a block);
+    the backward recomputes S and seg."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        fwd = ssd_chunk if _on_card(x) else ref_ssd_chunk
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return fwd(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstates, gdecay):
+        x, dt, A, B, C = ctx.saved_tensors
+        bwd = ssd_chunk_bwd if _on_card(x) else ref_ssd_chunk_bwd
+        return (*bwd(x, dt, A, B, C, ctx.chunk, gy, gstates, gdecay), None)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"

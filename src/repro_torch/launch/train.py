@@ -4,12 +4,13 @@
 Runs a (reduced or full) architecture under the hierarchical scheduler:
 the job starts with a MATCHALLOCATE, trains with checkpointing, and
 optionally exercises grow/shrink/failure events mid-run — the paper's
-three capabilities driving a real training loop. Attention's forward and
-backward run the CUDA kernels on a card (``kernels/flash_attention.py``).
+three capabilities driving a real training loop. On a card attention's
+forward and backward run the CUDA kernels of ``kernels/flash_attention.py``,
+the SSD scan's those of ``kernels/ssd_scan.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --smoke --steps 20 --grow-at 5 --shrink-at 12 --fail-at 16
-  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
       --full --seq-len 1024 --batch 2 --steps 6 --grow-at 2 --shrink-at 3 --fail-at 4
 """
 from __future__ import annotations
@@ -48,11 +49,11 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     """As JAX's ``run_training``, with two more arguments: ``shape``
     overrides the cell (JAX's ``train_4k``, 256 x 4096, does not fit one
     card at full width), and ``device`` ("cuda" by default; "cpu" only
-    when asked). On a card the SSM and hybrid archs raise at their first
-    step: the ``ssd_chunk`` kernel has no backward yet. Besides JAX's
-    results it returns each step's seconds (batch upload to the loss on
-    the host, the grow, shrink and failure before it excluded) and the
-    runtime, whose model and optimizer state are the trained ones."""
+    when asked). Every family the port models trains on either device:
+    dense, ssm and hybrid. Besides JAX's results it returns each step's
+    seconds (batch upload to the loss on the host, the grow, shrink and
+    failure before it excluded) and the runtime, whose model and
+    optimizer state are the trained ones."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # the LM head is an fp32 product, as in JAX: keep TF32 out of it

@@ -5,10 +5,11 @@ The port of ``repro/models/mamba2.py``. Per head,
     h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T     (state [P, N])
     y_t = h_t C_t
 
-Prefill runs the chunked scan ``kernels/ops.py::ssd_scan_op`` (the
-``ssd_chunk`` CUDA kernel on a card, its plain version on the CPU) where
-the JAX model calls its pure-jnp ``ssd_chunked``; decode is the O(1)
-recurrent step. The JAX layer's sharding constraints are no-ops without
+Prefill and training run the chunked scan ``kernels/ops.py::ssd_scan_op``
+(the ``ssd_chunk`` CUDA kernel on a card, its plain version on the CPU;
+under grad with its backward, ``ssd_chunk_bwd``) where the JAX model
+calls its pure-jnp ``ssd_chunked`` and XLA differentiates it; decode is
+the O(1) recurrent step. The JAX layer's sharding constraints are no-ops without
 a mesh and are dropped.
 
 Layout: x [b, s, H, P] (heads H = d_inner / headdim, P = headdim),

@@ -2,8 +2,9 @@
 JAX's autodiff of ``repro.kernels.ref.ref_attention`` and torch's
 autograd of the port's ``ref_attention``; ``FlashAttention`` on the CPU;
 and the rule that no gradient stops silently at a kernel on the card
-(checked here with the device check patched and the kernels replaced by
-their plain versions)."""
+(checked here with the device checks patched and the kernels replaced by
+their plain versions): attention and the SSD scan carry gradients through
+their backward kernels, decode raises."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 from repro.kernels.ref import ref_attention as jax_ref_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import FlashAttention
-from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
+from repro_torch.kernels.ref import ref_attention, ref_attention_bwd, ref_ssd
 
 TOL = 2e-5        # fp32, as tests/test_kernels.py holds the forward
 
@@ -94,28 +95,31 @@ def test_flash_attention_function_on_cpu_is_the_plain_pair(window):
 # ---------------------------------------------------------------------- #
 @pytest.fixture
 def as_if_on_card(monkeypatch):
-    """The device checks of ``ops`` and ``FlashAttention`` take every tensor
-    for a CUDA tensor, and the kernels are their plain versions, counting
-    their calls: the dispatch of the card, run on the CPU."""
+    """The device checks of ``ops``, ``FlashAttention`` and ``SsdChunk``
+    take every tensor for a CUDA tensor, and the kernels are their plain
+    versions, counting their calls: the dispatch of the card, run on the
+    CPU."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import ref_decode, ref_ssd_chunk
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ref_decode, ref_ssd_chunk, ref_ssd_chunk_bwd
     calls = []
 
-    def fwd(q, k, v, causal=True, window=0, return_lse=False):
-        calls.append("flash_attention")
-        return ref_attention(q, k, v, causal=causal, window=window, return_lse=return_lse)
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return call
 
-    def bwd(*args, **kw):
-        calls.append("flash_attention_bwd")
-        return ref_attention_bwd(*args, **kw)
-
+    fwd = counted("flash_attention", ref_attention)
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
     monkeypatch.setattr(fa, "_on_card", lambda t: True)
+    monkeypatch.setattr(ssd_scan, "_on_card", lambda t: True)
     monkeypatch.setattr(ops, "flash_attention", fwd)
     monkeypatch.setattr(fa, "flash_attention", fwd)
-    monkeypatch.setattr(fa, "flash_attention_bwd", bwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", counted("flash_attention_bwd", ref_attention_bwd))
     monkeypatch.setattr(ops, "flash_decode", ref_decode)
-    monkeypatch.setattr(ops, "ssd_chunk", ref_ssd_chunk)
+    monkeypatch.setattr(ssd_scan, "ssd_chunk", counted("ssd_chunk", ref_ssd_chunk))
+    monkeypatch.setattr(ssd_scan, "ssd_chunk_bwd", counted("ssd_chunk_bwd", ref_ssd_chunk_bwd))
     return calls
 
 
@@ -137,16 +141,31 @@ def test_kernels_without_backward_raise_under_grad(as_if_on_card):
     q = torch.from_numpy(rng.standard_normal((2, 4, 1, 16)).astype(np.float32))
     kv = torch.from_numpy(rng.standard_normal((2, 2, 8, 16)).astype(np.float32))
     lengths = torch.tensor([8, 3], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="flash_decode has no backward"):
+        ops.decode_attention_op(q.requires_grad_(), kv, kv, lengths)
+    # without a gradient it runs, as serving does
+    with torch.no_grad():
+        assert ops.decode_attention_op(q, kv, kv, lengths).shape == (2, 4, 1, 16)
+    assert ops.decode_attention_op(q.detach(), kv, kv, lengths).shape == (2, 4, 1, 16)
+
+
+def test_ssd_scan_op_on_card_carries_gradients(as_if_on_card):
+    """Under grad the scan runs ``SsdChunk``: the forward kernel, then the
+    backward kernel, with the gradients of the plain pair; without a
+    gradient the forward kernel alone."""
+    rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((1, 16, 4, 8)).astype(np.float32))
     dt = torch.full((1, 16, 4), 0.5)
     A = -torch.ones(4)
     B = torch.from_numpy(rng.standard_normal((1, 16, 1, 8)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
-        ops.decode_attention_op(q.requires_grad_(), kv, kv, lengths)
-    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
-        ops.ssd_scan_op(x.requires_grad_(), dt, A, B, B, chunk=8)
-    # without a gradient they run, as serving does
-    with torch.no_grad():
-        assert ops.decode_attention_op(q, kv, kv, lengths).shape == (2, 4, 1, 16)
+    gy = torch.from_numpy(rng.standard_normal((1, 16, 4, 8)).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B)]
+    got = torch.autograd.grad(ops.ssd_scan_op(*leaves, leaves[3], chunk=8), leaves, gy)
+    assert as_if_on_card == ["ssd_chunk", "ssd_chunk_bwd"]
+    plain = [t.clone().requires_grad_() for t in (x, dt, A, B)]
+    want = torch.autograd.grad(ref_ssd(*plain, plain[3]), plain, gy)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4 * w.abs().max().item(), rtol=0)
+    with torch.no_grad():                      # serving: the forward kernel alone
         assert ops.ssd_scan_op(x, dt, A, B, B, chunk=8).shape == x.shape
-    assert ops.decode_attention_op(q.detach(), kv, kv, lengths).shape == (2, 4, 1, 16)
+    assert as_if_on_card[2:] == ["ssd_chunk"]

@@ -164,16 +164,11 @@ def test_attention_op_carries_gradients_through_the_kernels(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad_on_card(cuda):
-    from repro_torch.kernels.ops import decode_attention_op, ssd_scan_op
+    from repro_torch.kernels.ops import decode_attention_op
     q = torch.randn(2, 4, 1, 16, device=cuda, requires_grad=True)
     kv = torch.randn(2, 2, 64, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
+    with pytest.raises(NotImplementedError, match="flash_decode has no backward"):
         decode_attention_op(q, kv, kv, torch.full((2,), 64, dtype=torch.int32, device=cuda))
-    x = torch.randn(1, 16, 4, 8, device=cuda, requires_grad=True)
-    B = torch.randn(1, 16, 1, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
-        ssd_scan_op(x, torch.full((1, 16, 4), 0.5, device=cuda), -torch.ones(4, device=cuda),
-                    B, B, chunk=8)
 
 
 @pytest.mark.cuda
@@ -473,6 +468,19 @@ def _ssd_inputs(rng, b, s, H, P, G, N, device):
     return [torch.from_numpy(a).to(device) for a in (x, dt, A, B, C)]
 
 
+def _model_views(x, dt, B, C):
+    """x, B and C as views into one [b, s, H*P + 2*G*N] projection and dt as
+    a view of a wider one, as the model passes them."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
+    views = (wide[..., :H * P].reshape(b, s, H, P), torch.cat([dt, dt], -1)[..., :H],
+             wide[..., H * P:H * P + G * N].reshape(b, s, G, N),
+             wide[..., H * P + G * N:].reshape(b, s, G, N))
+    assert not any(t.is_contiguous() for t in views[:3])
+    return views
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,H,P,G,N,chunk", [
     (2, 512, 16, 64, 1, 128, 256),   # mamba2's head and state widths, fewer heads
@@ -494,12 +502,7 @@ def test_ssd_chunk_kernel_vs_plain(b, s, H, P, G, N, chunk, strided, cuda):
     projection and dt as a view of a wider one, as the model does."""
     x, dt, A, B, C = _ssd_inputs(np.random.default_rng(10), b, s, H, P, G, N, cuda)
     if strided:
-        wide = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1), C.reshape(b, s, -1)], -1)
-        x = wide[..., :H * P].reshape(b, s, H, P)
-        B = wide[..., H * P:H * P + G * N].reshape(b, s, G, N)
-        C = wide[..., H * P + G * N:].reshape(b, s, G, N)
-        dt = torch.cat([dt, dt], -1)[..., :H]
-        assert not (x.is_contiguous() or B.is_contiguous() or dt.is_contiguous())
+        x, dt, B, C = _model_views(x, dt, B, C)
     n = LAUNCHES["ssd_chunk"]
     got = ssd_chunk(x, dt, A, B, C, chunk)
     torch.cuda.synchronize()
@@ -547,6 +550,72 @@ def test_ssd_chunk_wrapper_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="groups"):
         ssd_chunk(*_ssd_inputs(np.random.default_rng(12), 1, 16, 3, 16, 2, 8, cuda), 8)
     assert LAUNCHES["ssd_chunk"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,H,P,G,N,chunk", [
+    (2, 512, 16, 64, 1, 128, 256),   # mamba2's head and state widths, fewer heads
+    (2, 512, 16, 64, 1, 64, 256),    # zamba2's state
+    (1, 384, 8, 64, 1, 128, 128),    # chunk 128, three chunks
+    (2, 32, 8, 16, 1, 16, 8),        # the reduced configs
+    (1, 64, 4, 32, 2, 16, 16),       # two groups
+    (1, 200, 4, 16, 1, 8, 200),      # a chunk that is not a tile multiple
+    (2, 96, 4, 12, 2, 12, 32),       # P 12, N 12: ragged 8-column tiles
+    (1, 64, 4, 8, 1, 10, 16),        # N 10: 4-byte copies of B and C rows
+    (1, 16, 4, 16, 1, 8, 1),         # a chunk of one position
+])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_chunk_bwd_kernel_vs_plain(b, s, H, P, G, N, chunk, strided, cuda):
+    """All five gradients finite and within 1e-4 of each one's largest
+    |value| of ``ref_ssd_chunk_bwd``, and each (batch, chunk, head or
+    group) tile within 1e-4 of its own norm (chip_smoke.py's
+    ``SSD_BWD_TILE_TOL``); two calls agree bit for bit (fixed-order sums,
+    no atomics)."""
+    from repro_torch.kernels.ref import ref_ssd_chunk_bwd
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+    rng = np.random.default_rng(15)
+    x, dt, A, B, C = _ssd_inputs(rng, b, s, H, P, G, N, cuda)
+    if strided:
+        x, dt, B, C = _model_views(x, dt, B, C)
+    nc = s // chunk
+    outs = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+            for shape in ((b, s, H, P), (b, nc, H, N, P), (b, nc, H))]
+    n = LAUNCHES["ssd_chunk_bwd"]
+    got = ssd_chunk_bwd(x, dt, A, B, C, chunk, *outs)
+    again = ssd_chunk_bwd(x, dt, A, B, C, chunk, *outs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_chunk_bwd"] == n + 2
+    for g, r, a in zip(got, ref_ssd_chunk_bwd(x, dt, A, B, C, chunk, *outs), again):
+        assert g.shape == r.shape and g.dtype == torch.float32 and g.is_contiguous()
+        assert torch.isfinite(g).all() and torch.equal(g, a)
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+        if g.dim() > 1:        # gA, a sum over batch and chunk, is held by the max check
+            t = (lambda v: (v if v.dim() == 4 else v[..., None]).transpose(1, 2))
+            assert tile_rel_err(t(g), t(r), rows=chunk) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ssd_scan_op_carries_gradients_through_the_kernels(cuda):
+    """``ssd_scan_op`` under grad launches the forward kernel, then the
+    backward kernel, and its gradients (an initial state, a ragged length)
+    equal autograd through the sequential recurrence."""
+    from repro_torch.kernels.ops import ssd_scan_op
+    from repro_torch.kernels.ref import ref_ssd
+    rng = np.random.default_rng(16)
+    b, s, H, P, G, N, chunk = 2, 100, 8, 32, 2, 16, 32
+    ins = _ssd_inputs(rng, b, s, H, P, G, N, cuda)
+    h0 = torch.from_numpy(rng.standard_normal((b, H, P, N), np.float32)).to(cuda)
+    gy = torch.from_numpy(rng.standard_normal((b, s, H, P), np.float32)).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (*ins, h0)]
+    before = dict(LAUNCHES)
+    y, h = ssd_scan_op(*leaves[:5], chunk, initial_state=leaves[5], return_state=True)
+    got = torch.autograd.grad((y, h), leaves, (gy, torch.ones_like(h)))
+    assert LAUNCHES["ssd_chunk"] == before["ssd_chunk"] + 1
+    assert LAUNCHES["ssd_chunk_bwd"] == before["ssd_chunk_bwd"] + 1
+    plain = [t.clone().requires_grad_() for t in (*ins, h0)]
+    ry, rh = ref_ssd(*plain[:5], initial_state=plain[5], return_state=True)
+    for g, w in zip(got, torch.autograd.grad((ry, rh), plain, (gy, torch.ones_like(rh)))):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -34,9 +34,7 @@ passes the tile check in every case.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 from unittest import mock
@@ -46,7 +44,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import build as kbuild  # noqa: E402
+from _variants import build_variants  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.ref import tile_rel_err  # noqa: E402
 
@@ -81,33 +79,6 @@ VARIANTS = {
 }
 
 
-def variant_source(text: str, subs) -> str:
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise SystemExit(f"attention_bwd_faults: substitution does not match: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def build_variants() -> dict:
-    OUT.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
-    procs = {}
-    for name, subs in VARIANTS.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(variant_source(text, subs))
-        procs[name] = subprocess.Popen(
-            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"attention_bwd_faults: nvcc failed for {name}:\n{log}")
-        libs[name] = fa.bind(ctypes.CDLL(str(OUT / f"lib{name}.so")))
-    return libs
-
-
 def readings(grads, refs, dtype: str) -> dict:
     out = {"max_rel": {}, "norm_rel": {}, "tile_rel": {}}
     for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
@@ -130,7 +101,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    libs = build_variants()
+    libs, _ = build_variants("attention_bwd_faults", SOURCE, OUT, VARIANTS, fa.bind)
     gen = torch.Generator(device=dev).manual_seed(5)       # chip_smoke's draws
     tops = {name: [] for name in libs}          # each case's largest tile reading
     caught = {name: {"max": 0, "tile": 0} for name in libs}
@@ -154,8 +125,7 @@ def main() -> int:
                       "tile_rel_most": max(tops[name])} for name in libs}
     print(json.dumps({"summary": summary, "tile_tol": cs.BWD_TILE_TOL, "tol": cs.BWD_TOL}),
           flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(cs.nvidia_smi(), flush=True)
     base = summary["base"]
     escaped = [n for n, s in summary.items() if n != "base" and not s["caught_by_tile"]]
     if base["caught_by_max"] or base["caught_by_tile"] or escaped:

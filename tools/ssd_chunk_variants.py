@@ -35,7 +35,6 @@ power limit as ``nvidia-smi`` prints them.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import re
 import subprocess
@@ -46,6 +45,7 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+from _variants import build_variants  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ssd_chunk.cu"
@@ -53,21 +53,21 @@ OUT = ROOT / "build" / "ssd_variants"
 SHAPES = {"mamba2": (8, 512, 80, 64, 1, 128, 256), "zamba2": (8, 512, 80, 64, 1, 64, 256)}
 ITERS = 30
 TOL = 1e-4
-THREE = ("  for (int n = 0; n < 8; ++n) mma_tf32_zero(d[n], al, bh[n][0], bh[n][1]);\n"
+THREE = ("  for (int n = 0; n < NF; ++n) mma_tf32_zero(d[n], al, bh[n][0], bh[n][1]);\n"
          "#pragma unroll\n"
-         "  for (int n = 0; n < 8; ++n) mma_tf32(d[n], ah, bl[n][0], bl[n][1]);\n"
+         "  for (int n = 0; n < NF; ++n) mma_tf32(d[n], ah, bl[n][0], bl[n][1]);\n"
          "#pragma unroll\n"
-         "  for (int n = 0; n < 8; ++n) mma_tf32(d[n], ah, bh[n][0], bh[n][1]);\n")
+         "  for (int n = 0; n < NF; ++n) mma_tf32(d[n], ah, bh[n][0], bh[n][1]);\n")
 ADD = ("#pragma unroll\n"
-       "  for (int n = 0; n < 8; ++n)\n"
+       "  for (int n = 0; n < NF; ++n)\n"
        "#pragma unroll\n"
        "    for (int r = 0; r < 4; ++r) acc[n][r] += d[n][r];\n")
 VARIANTS = {
     "base": [],
     "unroll2": [("#pragma unroll 1\n    for (int kk = 0;", "#pragma unroll 2\n    for (int kk = 0;")],
-    "chain": [("  float d[8][4];\n", ""),
+    "chain": [("  float d[NF][4];\n", ""),
               (THREE + ADD, THREE.replace("d[n]", "acc[n]").replace("mma_tf32_zero", "mma_tf32"))],
-    "one_pass": [(THREE, "  for (int n = 0; n < 8; ++n) mma_tf32_zero(d[n], ah, bh[n][0], bh[n][1]);\n")],
+    "one_pass": [(THREE, "  for (int n = 0; n < NF; ++n) mma_tf32_zero(d[n], ah, bh[n][0], bh[n][1]);\n")],
     "no_state": [("const bool has_s = warp < rn;", "const bool has_s = false;")],
     "no_sload": [("next[q] = __ldcg(sf + (static_cast<long long>(ry[q]) * k8 + ks + 1) * 32);",
                   "next[q] = make_float4(sv.y, sv.z, sv.w, sv.x);")],
@@ -79,10 +79,12 @@ VARIANTS = {
          "        hi = __double2float_rn(acc);\n",
          "        hi = __fadd_rn(hi, __fmul_rn(dp[i * st.ds], a));\n"),
         ("        seg_lo[o + static_cast<long long>(i) * H] = __double2float_rn(acc - hi);\n", ""),
-        ("sSegLo[i] = i < Q ? seg_lo[so + static_cast<long long>(i) * H] : 0.f;",
-         "sSegLo[i] = 0.f;"),
-        ("sW[i] = i < Q ? expf((total - sSeg[i]) + (total_lo - sSegLo[i])) : 0.f;",
-         "sW[i] = i < Q ? expf(total - sSeg[i]) : 0.f;"),
+        # the forward's loads (the backward's own copies are followed by others)
+        ("sSegLo[i] = i < Q ? seg_lo[so + static_cast<long long>(i) * H] : 0.f;\n"
+         "    sDt[i] = i < Q ? dp[i * st.ds] : 0.f;\n  }",
+         "sSegLo[i] = 0.f;\n    sDt[i] = i < Q ? dp[i * st.ds] : 0.f;\n  }"),
+        ("sW[i] = i < Q ? expf((total - sSeg[i]) + (total_lo - sSegLo[i])) : 0.f;\n\n",
+         "sW[i] = i < Q ? expf(total - sSeg[i]) : 0.f;\n\n"),
         ("exp_fast((segi[q][0] - sj0) + (segi_lo[q][0] - lj0))", "exp_fast(segi[q][0] - sj0)"),
         ("exp_fast((segi[q][1] - sj0) + (segi_lo[q][1] - lj0))", "exp_fast(segi[q][1] - sj0)"),
         ("exp_fast((segi[q][0] - sj1) + (segi_lo[q][0] - lj1))", "exp_fast(segi[q][0] - sj1)"),
@@ -90,35 +92,12 @@ VARIANTS = {
 }
 
 
-def variant_source(text: str, subs) -> str:
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise SystemExit(f"ssd_chunk_variants: substitution does not match: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def build() -> dict:
-    OUT.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
-    procs = {}
-    for name, subs in VARIANTS.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(variant_source(text, subs))
-        procs[name] = subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             "-o", str(OUT / f"lib{name}.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"ssd_chunk_variants: nvcc failed for {name}:\n{log}")
+    libs, logs = build_variants("ssd_chunk_variants", SOURCE, OUT, VARIANTS, ssd_scan.bind)
+    for name, log in logs.items():
         print(json.dumps({"variant": name, "registers": re.findall(r"Used (\d+) registers", log),
                           "spill_stores": re.findall(r"(\d+) bytes spill stores", log)}),
               flush=True)
-        libs[name] = ssd_scan.bind(ctypes.CDLL(str(OUT / f"lib{name}.so")))
     return libs
 
 
