@@ -13,12 +13,13 @@ Phases, each printing JSON lines:
    the card, at the serving shapes and a few more: prefill in bf16 (the
    tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
    a ragged length, skv > sq, GQA groups 1 to 4, head dims 16 to
-   128) and in fp32 (the CUDA-core kernel); decode at the llama and
-   zamba2 serving shapes in bf16, and at the llama shape in fp32 and in
-   fp32 over the bf16 cache, ragged lengths from 1 to S. At the llama and
-   zamba2 prefill and decode shapes (model layout): the kernel's device
-   time (torch.profiler) and its time by CUDA events around a loop, the
-   plain version's and one library call's time beside the card's bound.
+   128) and in fp32 (the CUDA-core kernel); decode at the llama, zamba2
+   and qwen3-moe serving shapes in bf16, and at the llama shape in fp32
+   and in fp32 over the bf16 cache, ragged lengths from 1 to S. At the
+   llama, zamba2 and qwen3-moe (GQA group 8) prefill and decode shapes
+   (model layout): the kernel's device time (torch.profiler) and its time
+   by CUDA events around a loop, the plain version's and one library
+   call's time beside the card's bound.
 3. serve: ``run_serving("llama3.2-3b", batch=8, prompt_len=512, gen=32,
    smoke=False)`` at full width (28 layers, d_model 3072), with the
    kernels' launch counts read around exactly this run.
@@ -103,6 +104,29 @@ Phases, each printing JSON lines:
    as phase 12: exactly 128 forward and 64 backward SSD chunk launches a
    step for mamba2, 108 and 54 (and 18 and 9 of attention) for zamba2;
    then one mamba2 step under the profiler.
+16. serve_moe: qwen3-moe-30b-a3b at full width (d_model 2048, 32 / 4
+   heads of 128, 128 experts top-8 of d_ff 768, vocab 151936) with its
+   depth cut to 16 of 48 layers (the fp32 masters and the bf16 serving
+   copy of 48 would take 182 GB), through ``launch.serve.serve_model``
+   (the body of ``run_serving``) at batch 8 x 512 + 32: exactly 16
+   prefill and 496 decode attention launches, finite logits, the share
+   of (token, k) pairs the capacity drops in prefill and in decode (read
+   on the warm-up run, the same prompt and weights); then a profile of
+   one prefill and one decode step.
+17. moe_consistency: that model at b 2, s 256: prefill plus one decode
+   step against a forward over s + 1 tokens under the dense oracle
+   (``moe_impl="dense"``: the dispatch's drops differ between s and s + 1
+   tokens) within 2e-2 of the largest logit in bf16, and the dispatch
+   forward at a capacity factor of E / k (nothing drops) against the dense
+   forward at every position within 2e-3 in fp32 (in bf16 the two paths'
+   roundings move near-tied tokens to other experts, as in the JAX
+   reference; that reading is printed unchecked).
+18. moe_card_vs_cpu: the reduced qwen3-moe and llama4-maverick (an
+   interleaved dense and MoE layer a group, a shared expert) in fp32 with
+   the capacity dispatch (pairs drop at these sizes): a forward, a
+   prefill and three decode steps on the card and on the CPU; every MoE
+   call keeps the same pairs, and the logits agree within 2e-3 of the
+   largest.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -141,21 +165,26 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SSD_TOL = 1e-4
 ARCH = "llama3.2-3b"
 # flash_decode cases: name, (b, h, kvh, S, d), q dtype, cache dtype, timed. The
-# serving shapes of llama3.2-3b and zamba2-2.7b at batch 8 (S: 512 + 32 and
-# 512 + 8 cache slots, neither a multiple of the 64-key tile); fp32 over fp32,
+# serving shapes of llama3.2-3b, zamba2-2.7b and qwen3-moe-30b-a3b at batch 8
+# (S: 512 + 32 and 512 + 8 cache slots, neither a multiple of the 64-key
+# tile); fp32 over fp32,
 # and fp32 q over the bf16 cache as the fp32 configs decode
 DECODE_CASES = [
     ("serve", (8, 24, 8, 544, 128), "bfloat16", "bfloat16", True),
     ("serve_fp32", (8, 24, 8, 544, 128), "float32", "float32", False),
     ("serve_fp32_bf16_cache", (8, 24, 8, 544, 128), "float32", "bfloat16", False),
     ("zamba2", (8, 32, 32, 520, 80), "bfloat16", "bfloat16", True),
+    ("qwen3", (8, 32, 4, 544, 128), "bfloat16", "bfloat16", True),     # GQA group 8
 ]
 # the decode kernel's instantiations: 3 dtype pairs x 5 head dims x G 1, 2, 3, 4, 8
 DECODE_INSTANTIATIONS = 75
+# flash_attention cases timed: the llama3.2-3b, zamba2-2.7b and qwen3-moe prefill shapes
+FA_TIMED = ("serve", "zamba2", "qwen3")
 FEASIBILITY_INSTANTIATIONS = 1     # feasible_kernel
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # full-width depths, checked against each config before its run
-DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560)}
+DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560),
+         "qwen3-moe-30b-a3b": (48, 2048)}
 SSM_GEN = {"mamba2-2.7b": 32, "zamba2-2.7b": 8}
 # LLNL Quartz, a production system that Fluxion schedules: 3,018 nodes of
 # two 18-core Xeon E5-2695 v4 sockets
@@ -282,7 +311,7 @@ def phase_kernels(dev) -> dict:
             getattr(torch, dtype))
 
     # ---- flash_attention (prefill): bf16 on the tensor cores, fp32 on the CUDA cores ----
-    cases = [  # name, b, h, kvh, sq, skv, d, window, dtype, layout; timed: serve, zamba2
+    cases = [  # name, b, h, kvh, sq, skv, d, window, dtype, layout; timed: FA_TIMED
         # bshd: permuted [b, s, h, d] views, as models/layers.py::attention passes them
         ("serve", 8, 24, 8, 512, 512, 128, 0, "bfloat16", "bshd"),
         ("serve_bhsd", 8, 24, 8, 512, 512, 128, 0, "bfloat16", "bhsd"),
@@ -301,6 +330,7 @@ def phase_kernels(dev) -> dict:
         ("d16_bf16", 2, 4, 2, 256, 256, 16, 0, "bfloat16", "bhsd"),
         ("d80", 2, 32, 32, 192, 192, 80, 0, "bfloat16", "bhsd"),
         ("d80_ragged_bf16", 2, 32, 32, 200, 200, 80, 0, "bfloat16", "bshd"),
+        ("qwen3", 8, 32, 4, 512, 512, 128, 0, "bfloat16", "bshd"),      # GQA group 8
     ]
     fa = {}
     for name, b, h, kvh, sq, skv, d, window, dtype, layout in cases:
@@ -318,7 +348,7 @@ def phase_kernels(dev) -> dict:
         err = compare(out, ref, dtype)
         emit("kernels", kernel="flash_attention", case=name, shape=[b, h, kvh, sq, skv, d],
              window=window, dtype=dtype, layout=layout, max_abs_err=err, tol=TOL[dtype])
-        if name in ("serve", "zamba2"):
+        if name in FA_TIMED:
             ms = device_ms(lambda: flash_attention(q, k, v), iters=20)
             event_ms = time_ms(lambda: flash_attention(q, k, v))
             plain_ms = device_ms(lambda: ref_attention(q, k, v), iters=5)
@@ -336,6 +366,8 @@ def phase_kernels(dev) -> dict:
                          event_ms=event_ms)
             if name == "serve":
                 fa = timed
+            else:
+                fa[name] = timed
             emit("kernels", kernel="flash_attention", case=name, ms=ms, event_ms=event_ms,
                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=timed["bound_ms"],
                  bound_by=timed["bound_by"], tflops=flops / ms / 1e9)
@@ -396,10 +428,10 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------- #
 def expected_launches(cfg, gen: int) -> dict:
     """Launches of one serving run: prefill attention per attention block
-    (every layer of a dense model, each application of a hybrid's shared
-    block), decode attention per attention block and step, one SSD chunk
+    (every layer of a dense or MoE model, each application of a hybrid's
+    shared block), decode attention per attention block and step, one SSD chunk
     launch per Mamba2 block."""
-    attn = {"dense": cfg.n_layers, "ssm": 0,
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
             "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
     ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn, "flash_decode": attn * (gen - 1), "ssd_chunk": ssd}
@@ -564,9 +596,10 @@ def phase_profile(dev, model, steps: int = 4) -> None:
             scalar = sum(n for _, n, k in rows if "flash_fwd_kernel" in k)
             check(mma == attn and scalar == 0, f"{model.cfg.name} prefill profile: "
                   f"{mma} flash_fwd_mma_kernel, {scalar} flash_fwd_kernel for {attn} blocks")
-        emit("profile", arch=model.cfg.name, part=name, batch=b, prompt_len=s,
-             decode_steps=steps if name == "decode" else 0, wall_ms=wall_ms,
+        emit("profile", arch=model.cfg.name, n_layers=model.cfg.n_layers, part=name, batch=b,
+             prompt_len=s, decode_steps=steps if name == "decode" else 0, wall_ms=wall_ms,
              device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+             by_class=kernel_classes(rows),
              top=[{"op": k, "ms": ms, "calls": n} for ms, n, k in rows[:12]])
 
 
@@ -1661,6 +1694,247 @@ def ssd_bwd_timing(inputs, outs, Q) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------- #
+# phases 16-18: the MoE slice
+# ---------------------------------------------------------------------- #
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# the depth cut of the full-width serving run: a layer holds 623 M
+# parameters, 3.74 GB as fp32 masters and the bf16 serving copy; 48 layers
+# and the fp32 embedding and head (2.49 GB) would take 182 GB, 16 take 62.3
+MOE_DEPTH = 16
+MOE_WIDTH = dict(d_model=2048, n_heads=32, n_kv_heads=4, head_dim=128, n_experts=128,
+                 top_k=8, moe_d_ff=768, vocab=151936)
+MOE_CONSISTENCY = (2, 256)                 # b, s, as phase_consistency
+MOE_REDUCED = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
+MOE_DECODE_STEPS = 3
+MOE_CPU_TOL = 2e-3                         # of the largest logit: fp32, sums in other orders
+
+
+class MoeRecorder:
+    """While active, every MoE layer's call also records its dispatch plan:
+    the tokens it saw and its keep mask [T*k] (as ``moe_dispatch`` computes
+    it from the same input). Patches ``models.transformer.moe``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer
+        from repro_torch.models.layers import rmsnorm
+
+        self._mod, self._orig = transformer, transformer.moe
+
+        def recording(x, p, cfg):
+            T = x.shape[0] * x.shape[1]
+            xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, -1)
+            plan = moe_mod.dispatch_plan(moe_mod._route(xn, p, cfg)[1], cfg)
+            self.calls.append((T, plan.capacity, plan.keep))
+            return self._orig(x, p, cfg)
+        transformer.moe = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe = self._orig
+        return False
+
+    def dropped(self, pred) -> dict:
+        """Pairs and the share dropped over the calls whose T passes ``pred``."""
+        keep = [k for T, _, k in self.calls if pred(T)]
+        pairs = sum(k.numel() for k in keep)
+        dropped = sum(int((~k).sum().item()) for k in keep)
+        return {"calls": len(keep), "pairs": pairs, "dropped": dropped,
+                "share": dropped / max(pairs, 1),
+                "capacity": sorted({C for T, C, _ in self.calls if pred(T)}),
+                "share_by_call": [float((~k).float().mean()) for k in keep[:MOE_DEPTH]]}
+
+
+def moe_serving_model(dev):
+    """qwen3-moe-30b-a3b at full width, depth cut to ``MOE_DEPTH``, weights
+    from seed 0 on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import make_model
+
+    full = get_config(MOE_ARCH)
+    check((full.n_layers, full.d_model) == DEPTH[MOE_ARCH]
+          and all(getattr(full, k) == v for k, v in MOE_WIDTH.items())
+          and full.family == "moe" and full.moe_every == 1 and full.moe_impl == "dispatch",
+          f"{MOE_ARCH}: full-width config")
+    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH)
+    model = make_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    return model
+
+
+def phase_serve_moe(dev, model) -> dict:
+    """``serve_model`` on the cut qwen3-moe model: a warm-up run under the
+    MoE recorder (its drop shares are this prompt's and these weights'),
+    then the run whose launches and times are read."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_model
+
+    cfg = model.cfg
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    expect = expected_launches(cfg, gen)
+    with MoeRecorder() as rec:
+        warm = serve_model(model, b, s, gen, seed=0)
+    torch.cuda.synchronize()
+    drops = {"prefill": rec.dropped(lambda T: T == b * s), "decode": rec.dropped(lambda T: T == b)}
+    del rec
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    r = serve_model(model, b, s, gen, seed=0)
+    launches = dict(LAUNCHES)
+    steps = gen - 1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("serve_moe", arch=MOE_ARCH, batch=b, prompt_len=s, gen=gen, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+         expert_d_ff=cfg.expert_ff, vocab=cfg.vocab, capacity_factor=cfg.capacity_factor,
+         reduced={"n_layers": f"{cfg.n_layers} of {DEPTH[MOE_ARCH][0]}"},
+         n_params=cfg.n_params(), prefill_ms=1e3 * r["prefill_s"],
+         decode_ms_per_step=1e3 * r["decode_s"] / steps,
+         decode_tokens_per_s=b * steps / r["decode_s"], peak_mem_gb=peak_gb,
+         launches=launches, expected_launches=expect, logits_finite=r["logits_finite"],
+         dropped=drops, warmup_prefill_ms=1e3 * warm["prefill_s"],
+         same_tokens_as_warmup=bool((warm["tokens"] == r["tokens"]).all()),
+         sample_tokens=r["tokens"][0, :8].tolist())
+    for name, n in launches.items():
+        check(n == expect.get(name, 0),
+              f"{MOE_ARCH}: {name} launches {n} != {expect.get(name, 0)}")
+    check(r["logits_finite"] and warm["logits_finite"], f"{MOE_ARCH}: non-finite logits")
+    check(r["tokens"].shape == (b, gen), f"{MOE_ARCH}: token shape")
+    check(drops["prefill"]["calls"] == cfg.n_layers
+          and drops["decode"]["calls"] == cfg.n_layers * steps,
+          f"{MOE_ARCH}: recorded MoE calls {drops}")
+    check(peak_gb < 80.0, f"{MOE_ARCH}: peak memory {peak_gb} GB")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_consistency(dev, model) -> None:
+    """On the cut model at b 2, s 256: prefill + one decode step against a
+    forward over s + 1 tokens under the dense oracle, in bf16, within
+    ``consistency_tol`` of the largest logit; then the dispatch forward at
+    capacity factor E / k (C = T: nothing can drop) against the dense
+    forward over every position, in fp32 (the masters themselves, the bf16
+    serving copy released) within the fp32 limit. In bf16 the two MoE paths
+    round differently, and a rounding moves a token whose k-th and
+    (k+1)-th router probabilities are near equal to another expert, which
+    grows with depth: the JAX reference's own two paths differ by 0.13 of
+    the largest logit at 16 layers in bf16 and agree to 1e-6 in fp32
+    (tests/test_torch_model.py::test_moe_bf16_paths_diverge_as_in_the_reference).
+    The bf16 reading is printed beside, unchecked."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    cfg = model.cfg
+    b, s = MOE_CONSISTENCY
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    cap = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    dense_cfg = dataclasses.replace(cfg, moe_impl="dense")
+    rows = {}
+    try:
+        model.cfg = dense_cfg
+        dense = model.forward_logits(toks)
+        _, cache = model.prefill_step(toks[:, :s])
+        cache = {k: F.pad(v, (0, 0, 0, 0, 0, 1)) for k, v in cache.items()}
+        logits, _ = model.serve_step(cache, toks[:, s:], s)
+        del cache
+        scale = dense[:, -1].abs().max().item()
+        diff = (logits[:, 0] - dense[:, -1]).abs().max().item()
+        rows["decode_vs_forward"] = {"dtype": cfg.dtype, "max_abs_diff": diff,
+                                     "max_abs_logit": scale, "rel": diff / scale,
+                                     "tol_rel": consistency_tol(cfg)}
+        for dtype in (cfg.dtype, "float32"):
+            model._compute = None                # the serving copy, in this dtype (none in fp32)
+            model.cfg = dataclasses.replace(dense_cfg, dtype=dtype)
+            dense = model.forward_logits(toks)
+            model.cfg = dataclasses.replace(cap, dtype=dtype)
+            with MoeRecorder() as rec:
+                full_cap = model.forward_logits(toks)
+            drops = rec.dropped(lambda T: True)
+            scale_all = dense.abs().max().item()
+            diff_all = (full_cap - dense).abs().max().item()
+            rows[f"dispatch_vs_dense_{dtype}"] = {
+                "capacity_factor": cap.capacity_factor, "capacity": drops["capacity"],
+                "dropped": drops["dropped"], "max_abs_diff": diff_all,
+                "max_abs_logit": scale_all, "rel": diff_all / scale_all,
+                "tol_rel": consistency_tol(model.cfg) if dtype == "float32" else None}
+            del dense, full_cap
+            check(drops["dropped"] == 0, f"{MOE_ARCH}: pairs dropped at capacity E/k: {drops}")
+    finally:
+        model.cfg = cfg
+        model._compute = None
+    emit("moe_consistency", arch=MOE_ARCH, n_layers=cfg.n_layers, batch=b, seq=s, **rows)
+    tol = consistency_tol(cfg)
+    check(math.isfinite(diff) and diff <= tol * scale,
+          f"{MOE_ARCH}: prefill+decode vs forward (dense): {diff} > {tol} * {scale}")
+    r = rows["dispatch_vs_dense_float32"]
+    check(math.isfinite(r["rel"]) and r["rel"] <= r["tol_rel"],
+          f"{MOE_ARCH}: fp32 dispatch at E/k vs dense: {r}")
+
+
+def phase_moe_card_vs_cpu(dev) -> None:
+    """The reduced MoE configs in fp32 with the capacity dispatch: a forward,
+    a prefill and ``MOE_DECODE_STEPS`` decode steps on the card and on the
+    CPU from the same weights and tokens. Every MoE call keeps the same
+    (token, k) pairs on both; some drop; the logits agree within
+    ``MOE_CPU_TOL`` of the largest."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import splice_cache
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import make_model
+
+    for arch in MOE_REDUCED:
+        cfg = get_config(arch).reduced()
+        check(cfg.dtype == "float32" and cfg.moe_impl == "dispatch", f"{arch}: reduced config")
+        host = make_model(cfg, device="cpu")
+        host.init_params(torch.Generator().manual_seed(7))
+        card = make_model(cfg, device=dev)
+        card.load_params(host.state_dict())
+        b, s = 2, 16
+        toks = torch.randint(0, cfg.vocab, (b, s + MOE_DECODE_STEPS),
+                             generator=torch.Generator().manual_seed(8))
+        outs, recs = [], []
+        for model in (host, card):
+            t = toks.to(model.device)
+            with MoeRecorder() as rec:
+                logits = [model.forward_logits(t[:, :s])]
+                last, pc = model.prefill_step(t[:, :s])
+                logits.append(last)
+                cache = model.init_cache(ShapeConfig("serve", s + MOE_DECODE_STEPS, b, "decode"))
+                splice_cache(cache, pc)
+                for i in range(MOE_DECODE_STEPS):
+                    logits.append(model.serve_step(cache, t[:, s + i:s + i + 1], s + i)[0])
+            outs.append([x.cpu() for x in logits])
+            recs.append(rec)
+        same = len(recs[0].calls) == len(recs[1].calls) and all(
+            (T0, C0) == (T1, C1) and torch.equal(k0, k1.cpu())
+            for (T0, C0, k0), (T1, C1, k1) in zip(recs[0].calls, recs[1].calls))
+        dropped = recs[0].dropped(lambda T: True)
+        scale = max(x.abs().max().item() for x in outs[0])
+        diff = max((a - c).abs().max().item() for a, c in zip(*outs))
+        emit("moe_card_vs_cpu", arch=cfg.name, moe_every=cfg.moe_every,
+             moe_shared=cfg.moe_shared, n_experts=cfg.n_experts, top_k=cfg.top_k,
+             batch=b, seq=s, decode_steps=MOE_DECODE_STEPS, moe_calls=len(recs[1].calls),
+             pairs=dropped["pairs"], dropped=dropped["dropped"],
+             capacity=dropped["capacity"], same_keep_masks=same, max_abs_diff=diff,
+             max_abs_logit=scale, tol_rel=MOE_CPU_TOL)
+        check(same, f"{arch}: the card and the CPU keep different pairs")
+        check(dropped["dropped"] > 0, f"{arch}: no pair dropped: {dropped}")
+        check(math.isfinite(diff) and diff <= MOE_CPU_TOL * scale,
+              f"{arch}: card vs CPU logits {diff} > {MOE_CPU_TOL} * {scale}")
+
+
 def kernel_classes(rows) -> dict:
     """Device ms of profiler rows by kind: the attention and SSD kernels,
     matrix products (cuBLAS and CUTLASS), elementwise and reduction
@@ -1798,6 +2072,15 @@ def drive(dev, smi: str, ptxas: list) -> None:
         phase_train_consistency(dev, arch)
     for arch in SSM_TRAIN_ARCHS:
         paths[f"train {arch}"] = phase_train(dev, arch, profile=arch == "mamba2-2.7b")
+    torch.cuda.empty_cache()
+
+    model = moe_serving_model(dev)
+    paths[f"serve {MOE_ARCH}"] = phase_serve_moe(dev, model)
+    phase_profile(dev, model, steps=1)
+    phase_moe_consistency(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_moe_card_vs_cpu(dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

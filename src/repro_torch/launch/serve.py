@@ -11,6 +11,9 @@ update those buffers in place.
       --no-smoke --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --no-smoke --batch 8 --prompt-len 512 --gen 32
+
+MoE models route each token's top-k experts through the capacity
+dispatch of ``models/moe.py`` in prefill and decode alike.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from ..configs.registry import ARCH_IDS, get_config
 from ..device import resolve_device
 from ..models.config import ShapeConfig
-from ..models.model import make_model
+from ..models.model import Model, make_model
 
 
 def _sync(dev: torch.device) -> None:
@@ -52,11 +55,20 @@ def run_serving(arch: str, batch: int = 4, prompt_len: int = 16,
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
-    max_len = prompt_len + gen
-    shape = ShapeConfig("serve", max_len, batch, "decode")
     model = make_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    return serve_model(model, batch, prompt_len, gen, seed)
 
+
+def serve_model(model: Model, batch: int, prompt_len: int, gen: int, seed: int = 0) -> dict:
+    """Prefill a random prompt of ``batch`` x ``prompt_len`` tokens (drawn
+    from ``seed``) into max_len decode buffers, then ``gen - 1`` greedy
+    decode steps; the body of ``run_serving``, on a model built by the
+    caller. Returns the tokens [batch, gen], the prefill and decode times
+    (host clock, synchronized) and whether every logit was finite."""
+    cfg, dev = model.cfg, model.device
+    max_len = prompt_len + gen
+    shape = ShapeConfig("serve", max_len, batch, "decode")
     rng = np.random.default_rng(seed)
     cache = model.init_cache(shape)
     prompt = torch.from_numpy(

@@ -9,11 +9,12 @@ to one.
 
 Parameters are fp32 masters, cast to the compute dtype at each use in
 JAX. For serving, the model keeps a copy of the matrices that JAX casts
-(the attention and MLP ``w*``, Mamba's ``in_proj``, ``conv_w``, ``conv_b``
-and ``out_proj``) already in the compute dtype, made once when the
-weights are set: the same rounding of the same fp32 numbers, so the
-values are bit-identical to a cast at each use, without re-reading 11 GB
-of fp32 masters every step at full width. Norm weights, Mamba's
+(the attention, MLP and expert ``w*``, the MoE shared expert's
+``shared_*``, Mamba's ``in_proj``, ``conv_w``, ``conv_b`` and
+``out_proj``) already in the compute dtype, made once when the weights
+are set: the same rounding of the same fp32 numbers, so the values are
+bit-identical to a cast at each use, without re-reading 11 GB of fp32
+masters every step at full width. Norm weights, the MoE router, Mamba's
 ``A_log``, ``D`` and ``dt_bias``, and the embedding/LM head stay fp32.
 
 Training (``train_step``) builds that cast anew inside the autograd graph
@@ -50,14 +51,16 @@ def _tree(module: nn.Module) -> Dict:
     return {k: _tree(m) for k, m in module.items()}
 
 
-# the Mamba2 parameters that JAX casts to the compute dtype at each use
-# (repro/models/mamba2.py); the attention and MLP ones all start with "w"
-_MAMBA_CAST = ("in_proj", "conv_w", "conv_b", "out_proj")
+# the parameters that JAX casts to the compute dtype at each use besides
+# those that start with "w" (attention, MLP, experts): Mamba2's
+# (repro/models/mamba2.py) and the MoE shared expert's (repro/models/moe.py);
+# the MoE router stays fp32, as JAX reads it
+_CAST = ("in_proj", "conv_w", "conv_b", "out_proj", "shared_up", "shared_gate", "shared_down")
 
 
 def _cast(tree: Dict, dtype: torch.dtype) -> Dict:
     return {k: _cast(v, dtype) if isinstance(v, dict)
-            else v.to(dtype) if k.startswith("w") or k in _MAMBA_CAST else v
+            else v.to(dtype) if k.startswith("w") or k in _CAST else v
             for k, v in tree.items()}
 
 

@@ -1,10 +1,12 @@
 """Decoder-only backbone: init specs, forward, decode step.
 
-The port of the dense, ssm and hybrid branches of
+The port of the dense, moe, ssm and hybrid branches of
 ``repro/models/transformer.py``:
 
 * dense transformers (llama3.2 / phi3 / nemotron / phi4) — attention + MLP
   per layer;
+* MoE — attention + MoE per layer (qwen3-moe), or interleaved (llama4:
+  ``moe_every`` 2) as groups of a dense layer and a MoE layer;
 * SSM (mamba2) — one Mamba2 block per layer;
 * hybrid (zamba2) — groups of ``shared_attn_every`` Mamba2 blocks, each
   group followed by one *shared* attention + MLP block (the same weights
@@ -28,21 +30,29 @@ from .config import ArchConfig
 from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
 from .mamba2 import mamba_layer, mamba_specs, mamba_state_specs
+from .moe import moe, moe_specs
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.is_moe \
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
             or cfg.frontend != "token" or cfg.rope == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense, ssm and hybrid only)")
+            "(dense, moe, ssm and hybrid only)")
+
+
+def _interleaved(cfg: ArchConfig) -> bool:
+    return cfg.is_moe and cfg.moe_every > 1
 
 
 def _group_layout(cfg: ArchConfig) -> Tuple[int, int]:
-    """(n_groups, layers_per_group): a hybrid's shared block follows each group."""
+    """(n_groups, layers_per_group): a hybrid's shared block follows each
+    group; an interleaved MoE model's group is a dense layer and a MoE layer."""
     if cfg.family == "hybrid" and cfg.shared_attn_every:
         per = cfg.shared_attn_every
         return cfg.n_layers // per, per
+    if _interleaved(cfg):
+        return cfg.n_layers // cfg.moe_every, cfg.moe_every
     return cfg.n_layers, 1
 
 
@@ -54,6 +64,14 @@ def init_specs(cfg: ArchConfig) -> Dict[str, Any]:
         specs["blocks"] = stack_specs(mamba_specs(cfg), cfg.n_layers)
         if cfg.family == "hybrid":
             specs["shared"] = {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    elif _interleaved(cfg):
+        specs["blocks"] = stack_specs(
+            {"dense": {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)},
+             "moe": {"attn": attn_specs(cfg), "ffn": moe_specs(cfg)}},
+            _group_layout(cfg)[0])
+    elif cfg.is_moe:
+        specs["blocks"] = stack_specs({"attn": attn_specs(cfg), "ffn": moe_specs(cfg)},
+                                      cfg.n_layers)
     else:
         specs["blocks"] = stack_specs({"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)},
                                       cfg.n_layers)
@@ -82,22 +100,26 @@ def _cast_blocks(blocks: Dict, dtype: torch.dtype) -> Dict:
             for k, v in blocks.items()}
 
 
-def _shared_block(x: torch.Tensor, params: Dict, cfg: ArchConfig,
-                  positions: torch.Tensor, **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """The hybrid's shared attention + MLP block (same weights every time)."""
-    a, kv = attention(x, params["shared"]["attn"], cfg, positions, **attn_kw)
+def _block(x: torch.Tensor, bp: Dict, cfg: ArchConfig,
+           positions: torch.Tensor, **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Attention then the feed-forward: the MoE layer where ``bp`` has one
+    ("ffn"), else the MLP. A dense or MoE layer, or the hybrid's shared
+    block (the same weights at every application)."""
+    a, kv = attention(x, bp["attn"], cfg, positions, **attn_kw)
     x = x + a
-    return x + mlp(x, params["shared"]["mlp"], cfg), kv
+    ffn = moe(x, bp["ffn"], cfg) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
+    return x + ffn, kv
 
 
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             want_cache: bool = False,
             logits_positions: str = "all") -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence forward over tokens [b, s]. Returns (logits, cache or
-    None). The cache is, by family: dense {"k", "v"} [L, b, s, kvh, d] in
-    the compute dtype; ssm {"conv" [L, b, K-1, conv_dim], "ssm"
-    [L, b, H, P, N]} in fp32; hybrid the ssm states plus {"shared_k",
-    "shared_v"} [groups, b, s, kvh, d]."""
+    None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
+    d] in the compute dtype (interleaved moe [groups, 2, b, s, kvh, d]:
+    each group's dense layer, then its MoE layer); ssm {"conv" [L, b, K-1,
+    conv_dim], "ssm" [L, b, H, P, N]} in fp32; hybrid the ssm states plus
+    {"shared_k", "shared_v"} [groups, b, s, kvh, d]."""
     b, s = tokens.shape
     x = embed_tokens(tokens, params["embed"], cfg)
     positions = make_positions(cfg, b, s, device=tokens.device)
@@ -119,34 +141,49 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     blocks = params["blocks"]
     if cfg.cast_params_once:
         blocks = _cast_blocks(blocks, getattr(torch, cfg.dtype))
-    layers = _unstack(blocks, cfg.n_layers)
+
+    def block_body(x, bp):
+        return _block(x, bp, cfg, positions, want_cache=want_cache)
+
     if cfg.family in ("ssm", "hybrid"):
         def ssm_body(x, bp):
             y, st = mamba_layer(x, bp, cfg, want_state=want_cache)
             return x + y, st
 
-        def shared_body(x, shared):
-            return _shared_block(x, {"shared": shared}, cfg, positions, want_cache=want_cache)
-
-        for i in range(cfg.n_layers):
-            x, st = run(ssm_body, x, layers[i])
+        for i, bp in enumerate(_unstack(blocks, cfg.n_layers)):
+            x, st = run(ssm_body, x, bp)
             collect(st)
             if cfg.family == "hybrid" and (i + 1) % per == 0:
-                x, kv = run(shared_body, x, params["shared"])
+                x, kv = run(block_body, x, params["shared"])
                 collect(kv, "shared_")
-    else:
-        def dense_body(x, bp):
-            a, kv = attention(x, bp["attn"], cfg, positions, want_cache=want_cache)
-            x = x + a
-            return x + mlp(x, bp["mlp"], cfg), kv
+    elif _interleaved(cfg):
+        def group_body(x, bp):
+            x, kv_dense = block_body(x, bp["dense"])
+            x, kv_moe = block_body(x, bp["moe"])
+            return x, kv_dense, kv_moe
 
-        for i in range(cfg.n_layers):
-            x, kv = run(dense_body, x, layers[i])
+        for bp in _unstack(blocks, _group_layout(cfg)[0]):
+            x, kv_dense, kv_moe = run(group_body, x, bp)
+            collect(kv_dense, "dense_")
+            collect(kv_moe)
+    else:
+        for bp in _unstack(blocks, cfg.n_layers):
+            x, kv = run(block_body, x, bp)
             collect(kv)
     if logits_positions == "last":
         x = x[:, -1:, :]
     logits = lm_logits(x, params["embed"], cfg)
-    return logits, ({k: torch.stack(v) for k, v in cache.items()} if want_cache else None)
+    return logits, (_pack_cache(cfg, cache) if want_cache else None)
+
+
+def _pack_cache(cfg: ArchConfig, cache: Dict[str, list]) -> Dict[str, torch.Tensor]:
+    """The per-layer caches collected by ``forward``, stacked into the
+    decode layout (an interleaved model's two layers of a group side by
+    side on axis 1)."""
+    if _interleaved(cfg):
+        return {k: torch.stack([torch.stack(cache["dense_" + k]), torch.stack(cache[k])], 1)
+                for k in ("k", "v")}
+    return {k: torch.stack(v) for k, v in cache.items()}
 
 
 def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -159,8 +196,9 @@ def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> to
 def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each decode-cache buffer: k/v [L, b, S, kvh, d]
-    (bf16 whatever the compute dtype, as in JAX); SSM states fp32
-    [L, ...]; the hybrid's shared k/v [groups, b, S, kvh, d]."""
+    (bf16 whatever the compute dtype, as in JAX; an interleaved MoE
+    model's [groups, 2, b, S, kvh, d]); SSM states fp32 [L, ...]; the
+    hybrid's shared k/v [groups, b, S, kvh, d]."""
     _check_ported(cfg)
     groups, _ = _group_layout(cfg)
     kvd = (batch, seq, cfg.n_kv_heads, cfg.hd)
@@ -171,7 +209,8 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
             cache["shared_k"] = ((groups,) + kvd, dtype)
             cache["shared_v"] = ((groups,) + kvd, dtype)
         return cache
-    return {"k": ((cfg.n_layers,) + kvd, dtype), "v": ((cfg.n_layers,) + kvd, dtype)}
+    lead = (groups, 2) if _interleaved(cfg) else (cfg.n_layers,)
+    return {"k": (lead + kvd, dtype), "v": (lead + kvd, dtype)}
 
 
 def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
@@ -182,10 +221,13 @@ def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
     b = tokens.shape[0]
     x = embed_tokens(tokens, params["embed"], cfg)
     positions = make_positions(cfg, b, 1, offset=pos, device=tokens.device)
-    _, per = _group_layout(cfg)
-    layers = _unstack(params["blocks"], cfg.n_layers)
+    groups, per = _group_layout(cfg)
+
+    def block(x, bp, ck, cv):
+        return _block(x, bp, cfg, positions, cache={"k": ck, "v": cv}, cache_index=pos)[0]
 
     if cfg.family in ("ssm", "hybrid"):
+        layers = _unstack(params["blocks"], cfg.n_layers)
         for i in range(cfg.n_layers):
             y, st = mamba_layer(x, layers[i], cfg,
                                 state={"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
@@ -194,16 +236,12 @@ def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
             x = x + y
             if cfg.family == "hybrid" and (i + 1) % per == 0:
                 g = i // per
-                x, _ = _shared_block(x, params, cfg, positions,
-                                     cache={"k": cache["shared_k"][g],
-                                            "v": cache["shared_v"][g]},
-                                     cache_index=pos)
+                x = block(x, params["shared"], cache["shared_k"][g], cache["shared_v"][g])
+    elif _interleaved(cfg):
+        for g, bp in enumerate(_unstack(params["blocks"], groups)):
+            x = block(x, bp["dense"], cache["k"][g, 0], cache["v"][g, 0])
+            x = block(x, bp["moe"], cache["k"][g, 1], cache["v"][g, 1])
     else:
-        for i in range(cfg.n_layers):
-            bp = layers[i]
-            a, _ = attention(x, bp["attn"], cfg, positions,
-                             cache={"k": cache["k"][i], "v": cache["v"][i]},
-                             cache_index=pos)
-            x = x + a
-            x = x + mlp(x, bp["mlp"], cfg)
+        for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            x = block(x, bp, cache["k"][i], cache["v"][i])
     return lm_logits(x, params["embed"], cfg), cache

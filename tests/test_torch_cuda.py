@@ -45,6 +45,7 @@ def _close(out, ref, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kvh,sq,skv,d,window", [
     (8, 24, 8, 512, 512, 128, 0),    # llama3.2-3b prefill
+    (8, 32, 4, 512, 512, 128, 0),    # qwen3-moe-30b-a3b prefill, GQA group 8
     (2, 8, 2, 256, 256, 64, 32),     # window
     (2, 8, 2, 256, 256, 64, 128),
     (1, 4, 2, 200, 200, 16, 0),      # ragged length, reduced head_dim
@@ -233,6 +234,7 @@ def _decode_inputs(rng, b, h, kvh, S, d, dtype, cache_dtype, device):
 @pytest.mark.parametrize("dtype,cache_dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("b,h,kvh,S,d", [
     (8, 24, 8, 544, 128),            # llama3.2-3b decode
+    (8, 32, 4, 544, 128),            # qwen3-moe-30b-a3b decode, GQA group 8
     (8, 32, 32, 520, 80),            # zamba2-2.7b decode (S not a tile multiple)
     (3, 4, 2, 40, 16),               # reduced config, shorter than a tile
     (2, 16, 2, 200, 64),             # GQA group 8
@@ -648,5 +650,78 @@ def test_ssm_models_go_through_kernels(arch, cuda):
     assert LAUNCHES["ssd_chunk"] == before["ssd_chunk"] + cfg.n_layers
     assert LAUNCHES["flash_attention"] == before["flash_attention"] + shared
     assert LAUNCHES["flash_decode"] == before["flash_decode"] + 2 * shared
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# the MoE slice on the card (no kernel of its own: the attention kernels
+# at qwen3's GQA group 8, the capacity dispatch in plain torch)
+# ---------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,k,E,factor", [(8, 8, 128, 1.25),        # qwen3 decode at batch 8: C 1
+                                          (4096, 8, 128, 1.0),      # qwen3 prefill tokens: C 256
+                                          (64, 2, 8, 0.1)])
+def test_moe_dispatch_on_card_matches_cpu(T, k, E, factor, cuda):
+    """The same routing, plan and output on the card as on the CPU, in
+    fp32: identical ids and keep masks, outputs within 1e-4 (cuBLAS and
+    the CPU sum the products in other orders)."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import ArchConfig
+
+    cfg = ArchConfig(name="m", family="moe", n_layers=1, d_model=64, n_heads=2, n_kv_heads=1,
+                     d_ff=64, vocab=64, n_experts=E, top_k=k, moe_d_ff=32,
+                     capacity_factor=factor, dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    params = {}
+    for name, spec in moe.moe_specs(cfg).items():
+        params[name] = torch.empty(spec.shape)
+        spec.materialize_(params[name], gen)
+    # router logits spread to gaps far above the two devices' rounding, so
+    # that the top-k sets and their order are tie-free on both
+    params["router"] *= 100.0
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((1, T, 64), np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        p = {n: t.to(dev) for n, t in params.items()}
+        xd = x.to(dev)
+        _, ids = moe._route(xd.reshape(T, -1), p, cfg)
+        plan = moe.dispatch_plan(ids, cfg)
+        outs.append((ids.cpu(), plan.keep.cpu(), plan.dest.cpu(),
+                     moe.moe_dispatch(xd, p, cfg).cpu()))
+    (ids0, keep0, dest0, y0), (ids1, keep1, dest1, y1) = outs
+    assert torch.equal(ids0, ids1) and torch.equal(keep0, keep1) and torch.equal(dest0, dest1)
+    assert not keep0.all()
+    np.testing.assert_allclose(y1.numpy(), y0.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"])
+def test_moe_models_go_through_kernels(arch, cuda):
+    """A reduced-config prefill and two decode steps on the card launch the
+    attention kernels once per layer and agree with the same model on the
+    CPU (fp32, capacity dispatch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import splice_cache
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import make_model
+
+    cfg = get_config(arch).reduced()
+    cpu = make_model(cfg, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = make_model(cfg, device=cuda)
+    gpu.load_params(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab, (2, 14)))
+    before = dict(LAUNCHES)
+    outs = []
+    for model in (cpu, gpu):
+        logits, pc = model.prefill_step(toks[:, :12].to(model.device))
+        cache = model.init_cache(ShapeConfig("serve", 16, 2, "decode"))
+        splice_cache(cache, pc)
+        steps = [model.serve_step(cache, toks[:, 12 + i:13 + i].to(model.device), 12 + i)[0]
+                 for i in range(2)]
+        outs.append([t.cpu() for t in (logits, *steps)])
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    assert LAUNCHES["flash_decode"] == before["flash_decode"] + 2 * cfg.n_layers
     for a, b in zip(*outs):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)

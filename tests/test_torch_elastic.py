@@ -5,16 +5,24 @@ a subprocess and is marked slow; this one is not), the queue and
 scheduler accounting under grow and shrink, and the device rules of the
 entry point."""
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import EventType, Instance
 from repro_torch.core.graph import build_tpu_fleet
+from repro_torch.core.scheduler import SchedulerInstance
 from repro_torch.launch.train import run_training
+from repro_torch.models.config import ShapeConfig
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.elastic import ElasticRuntime
+from repro_torch.runtime.straggler import StragglerPolicy
 
 
 def test_shrink_keeps_queue_and_scheduler_accounting_in_agreement():
@@ -98,8 +106,54 @@ def test_rebind_keeps_the_model_and_its_state(tmp_path):
     assert [e.kind for e in rt.events][-4:] == ["grow", "rebind", "shrink", "rebind"]
 
 
+def test_straggler_ejection():
+    """The twin of tests/test_elastic.py's ``test_straggler_ejection``, in
+    process (the JAX one needs 8 host devices in a subprocess and is marked
+    slow): a node 5x slower than its peer for three windows is ejected and
+    replaced, and the allocation keeps its 8 chips."""
+    cfg = get_config("llama3.2-3b").reduced()
+    shape = ShapeConfig("s", 32, 8, "train")
+    fleet = build_tpu_fleet(pods=1, racks_per_pod=1, nodes_per_rack=4,
+                            chips_per_node=4, device="cpu")
+    sched = SchedulerInstance("top", fleet)
+    rt = ElasticRuntime(sched, cfg, shape, chip_type="chip", device="cpu")
+    assert rt.allocate(8)
+    rt.bind(torch.Generator().manual_seed(0))
+    pol = StragglerPolicy(rt)
+    # the nodes actually backing the allocation
+    g = sched.graph
+    nodes = sorted({next(a for a in g.ancestors(p) if g.vertex(a).type == "node")
+                    for p in sched.allocations[rt.jobid].paths
+                    if g.vertex(p).type == "chip"})
+    assert len(nodes) >= 2
+    for _ in range(4):
+        pol.record_and_act({nodes[0]: 1.0, nodes[1]: 5.0})
+    assert nodes[1] in pol.ejected, pol.ejected
+    assert rt.chips_allocated() == 8, rt.chips_allocated()
+    assert [e.kind for e in rt.events][-2:] == ["eject", "rebind"]
+
+
 def test_run_training_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_training("llama3.2-3b", steps=1)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("example,args,marker", [
+    ("torch_burst_serve.py", [], "served 4 sequences x 16 tokens"),
+    ("torch_elastic_train.py", ["--ckpt-dir", "ckpt"], "losses:"),
+    ("torch_fault_tolerant_train.py", ["--ckpt-dir", "ckpt"], "restored at step 8"),
+])
+def test_example_twin_runs_on_cpu(example, args, marker, tmp_path):
+    """Each example twin end to end with ``--device cpu`` at its smoke
+    size, in a process of its own (as a user runs it)."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / example), "--device", "cpu", *args],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert marker in out.stdout, out.stdout[-2000:]

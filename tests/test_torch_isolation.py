@@ -1,5 +1,6 @@
-"""The port stands alone: nothing in ``src/repro_torch`` or
-``chip_smoke.py`` imports JAX or the JAX package."""
+"""The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py``
+or the example twins ``examples/torch_*.py`` imports JAX or the JAX
+package."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _top_level_imports(path):

@@ -20,7 +20,11 @@ wrapper (``flash_attention_bwd``, its library swapped for the variant's):
   leak into dK and dV;
 - ``dq_drop_{mid,last}``: the dQ kernel drops the first key tile of the
   middle or the last query tile of every (batch, head);
-- ``dq_diag``: the dQ kernel's straddle test off the same way.
+- ``dq_diag``: the dQ kernel's straddle test off the same way;
+- ``dkdv_window``, ``dq_window``: the kernel's element mask is off by one
+  at the sliding window's lower edge (``kpos < qpos - window``), so each
+  row also attends the key one before its window: read on the window-32
+  cases (the other cases have no window, so nothing changes there).
 
 Every variant runs the bf16 cases of ``chip_smoke.py``'s ``BWD_CASES``
 (``base`` also the fp32 ones, which launch other kernels), on the inputs
@@ -64,6 +68,17 @@ def dq_drop(tile: str):
         "kb0 >= skv ||", f"kb0 >= skv || (qt == {tile} && j == 0) ||"))]
 
 
+WINDOW_MASK = ("(causal && (kpos > qpos || (window > 0 && kpos <= qpos - window))))\n"
+               "              pe = 0.f;\n          }\n")
+
+
+def window_off_by_one(after: str):
+    """The element mask just before ``after`` (each bf16 kernel has its own
+    line there) keeps the key at ``qpos - window``."""
+    return [(WINDOW_MASK + after, WINDOW_MASK.replace("kpos <= qpos - window",
+                                                      "kpos < qpos - window") + after)]
+
+
 VARIANTS = {
     "base": [],
     "dkdv_drop_first": dkdv_drop("0"),
@@ -76,6 +91,8 @@ VARIANTS = {
                  "                        (causal && (kb0 + KH - 1 > wq_lo ||",
                  "  // straddles an edge\n      const bool edge = kb0 + KH > skv ||\n"
                  "                        (causal && (kb0 > wq_lo ||")],
+    "dkdv_window": window_off_by_one("          p[e] = pe;\n"),
+    "dq_window": window_off_by_one("          ds[e] = pe * (dp[nt][e] - dl[e >> 1]);\n"),
 }
 
 
