@@ -69,12 +69,13 @@ Phases, each printing JSON lines:
    64-row tile, at 1e-5 and 1e-2 of the tile's own norm (the training
    shape, the model's permuted views, GQA groups 1, 3 and 8, window 32,
    sq 72 < skv 200, head dims 16 / 64 / 80 / 128, ragged lengths,
-   zamba2's shared block at its training shape), the forward's o and
+   zamba2's shared block and qwen3-moe's attention (GQA group 8) at their
+   training shapes), the forward's o and
    logsumexp against the plain ones, the autograd path of ``attention_op``
    against autograd through the plain forward; the backward's registers
    and spills (none may spill); its device time by kernel, the plain
    version's and the backward half of ``scaled_dot_product_attention``
-   beside the bound at the training shape.
+   beside the bound at the llama and qwen3-moe training shapes.
 11. train_consistency: reduced llama3.2-3b in fp32, three ``train_step``s
    on the card against the same steps on the CPU.
 12. train: ``run_training("llama3.2-3b", smoke=False)`` at full width and
@@ -127,6 +128,23 @@ Phases, each printing JSON lines:
    prefill and three decode steps on the card and on the CPU; every MoE
    call keeps the same pairs, and the logits agree within 2e-3 of the
    largest.
+19. moe_train_consistency: those two configs trained on the card and on
+   the CPU from the same weights and batches, every MoE call of a checked
+   step keeping the same pairs on both: qwen3-moe three AdamW steps, losses
+   and parameters within 1e-4; llama4-maverick one Adafactor step, the
+   loss and every parameter but its top-1 router within 1e-4, the router's
+   gradient rounding noise (below 1e-6 of the largest) on both, two more
+   steps' losses printed unchecked (the noise moves the router).
+20. train_moe: ``run_training("qwen3-moe-30b-a3b", smoke=False,
+   n_layers=5)`` at full width (as phase 16) with its depth cut to 5 of 48
+   layers (the fp32 masters, gradients and AdamW moments of more do not
+   fit the card), remat on, at batch 2 x 1024, through the same events as
+   phase 12: exactly 10 forward and 5 backward attention launches a step,
+   finite losses (the first within 1.0 of ln 151936), peak memory; then,
+   unchecked, ms a step, tokens/s, the share of (token, k) pairs the
+   capacity drops in one step's forward, and whether one step's gradients
+   computed twice are bit-identical (checked: remat's recomputed forward
+   keeps the forward's pairs); then one step under the profiler.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -1138,7 +1156,12 @@ BWD_CASES = [
     ("d16", (2, 4, 2, 100, 100, 16), 0, "bfloat16", "bshd"),
     # zamba2-2.7b's shared attention block as its training run calls it
     ("zamba2_train", (2, 32, 32, 1024, 1024, 80), 0, "bfloat16", "bshd"),
+    # qwen3-moe-30b-a3b's attention (GQA group 8) as its training run calls it
+    ("qwen3_train", (2, 32, 4, 1024, 1024, 128), 0, "bfloat16", "bshd"),
 ]
+# the cases timed beside their bounds (bwd_timing): llama's row goes into the
+# kernel table, qwen3's is printed beside it
+BWD_TIMED = ("train", "qwen3_train")
 # of the largest |grad| of each output: in bf16 dq, dk and dv are rounded to
 # bf16 (as are o and dO, which both sides read); in fp32 only the order of
 # the sums differs (the plain version's einsums against the kernel's tiles)
@@ -1256,7 +1279,7 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
              tile_rel_err=dict(zip(("dq", "dk", "dv"), tiles)), tile_tol=tile_tol,
              norm_rel_err=dict(zip(("dq", "dk", "dv"), norms)), o_max_abs_err=o_err,
              lse_max_abs_err=lse_err)
-        if name in ("train", "train_fp32"):
+        if name in ("train", "train_fp32", "qwen3_train"):
             # the kernels a call launches, profiled over ten calls (the
             # window of one call can come back empty)
             want = BWD_BF16 if dtype == "bfloat16" else BWD_FP32
@@ -1264,12 +1287,15 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
                                            for _ in range(10)])
             got = [kn for kn in BWD_KERNELS if any(kn in key for _, _, key in rows)]
             check(sorted(got) == sorted(want), f"flash_attention_bwd {name} launched {got}")
-        if name == "train":
-            timed = bwd_timing(q, k, v, o, lse, dO, max(e / s for e, s in zip(errs, scales)))
-            timed["max_abs_err"] = max(errs)
+        if name in BWD_TIMED:
+            row = bwd_timing(q, k, v, o, lse, dO, max(e / s for e, s in zip(errs, scales)),
+                             case=name)
+            row["max_abs_err"] = max(errs)
             emit("train_kernels", kernel="flash_attention_bwd", case=name,
                  registers={r["kernel"]: r.get("registers") for r in bwd_rows
                             if f"Li{d}E" in r["kernel"] and "mma" in r["kernel"]})
+            if name == "train":
+                timed = row
         del q, k, v, dO, o, lse, grads, refs
 
     # the autograd path: attention_op on leaves that want a gradient runs
@@ -1296,7 +1322,7 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
     return timed
 
 
-def bwd_timing(q, k, v, o, lse, dO, err_share: float) -> dict:
+def bwd_timing(q, k, v, o, lse, dO, err_share: float, case: str = "train") -> dict:
     """Device ms of one ``flash_attention_bwd`` call (its three launches),
     of the plain version, and of the backward half of
     ``scaled_dot_product_attention`` through autograd (the library's
@@ -1323,7 +1349,8 @@ def bwd_timing(q, k, v, o, lse, dO, err_share: float) -> dict:
     bound_ms, by, gflop, mbytes = bwd_bound(b, h, kvh, sq, skv, d, q.element_size())
     row = dict(ms=ms, event_ms=event_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
-    emit("train_kernels", kernel="flash_attention_bwd", case="train", **row, gflop=gflop,
+    emit("train_kernels", kernel="flash_attention_bwd", case=case,
+         shape=[b, h, kvh, sq, skv, d], **row, gflop=gflop,
          mbytes=mbytes, tflops=gflop / ms, max_err_share_of_largest=err_share)
     return row
 
@@ -1393,22 +1420,26 @@ def phase_train_consistency(dev, arch: str = ARCH) -> None:
          tol=TRAIN_TOL, launches=launches)
 
 
-def phase_train(dev, arch: str = ARCH, profile: bool = True) -> dict:
+def phase_train(dev, arch: str = ARCH, profile: bool = True, n_layers: int = None,
+                readings=None, phase: str = "train") -> dict:
     """``run_training`` at full width and depth on the card (the cell of
-    ``TRAIN_SHAPE``): a MATCHALLOCATE through the copied control plane, a
-    grow, a shrink and a node failure with replacement, AdamW steps whose
-    forward kernels run twice a block (once more under remat) and
-    backward kernels once (``per_step_launches``). Launch counts are read
-    around exactly this run; then, with ``profile``, one more step under
-    the profiler."""
+    ``TRAIN_SHAPE``; with ``n_layers``, the depth cut to that many layers):
+    a MATCHALLOCATE through the copied control plane, a grow, a shrink and
+    a node failure with replacement, AdamW steps whose forward kernels run
+    twice a block (once more under remat) and backward kernels once
+    (``per_step_launches``). Launch counts are read around exactly this
+    run; then ``readings(dev, cfg, res)``, if given, and with ``profile``
+    one more step under the profiler."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.train import run_training
+    from repro_torch.launch.train import cut_depth, run_training
     from repro_torch.models.config import ShapeConfig
 
     cfg = get_config(arch)
     check((cfg.n_layers, cfg.d_model) == DEPTH[arch] and cfg.remat, f"{arch}: full-width config")
+    if n_layers is not None:
+        cfg = cut_depth(cfg, n_layers)
     seq, batch = TRAIN_SHAPE
     steps = TRAIN["steps"]
     torch.cuda.empty_cache()
@@ -1416,7 +1447,7 @@ def phase_train(dev, arch: str = ARCH, profile: bool = True) -> dict:
     reset_launches()
     t0 = time.perf_counter()
     res = run_training(arch, smoke=False, shape=ShapeConfig("train_h100", seq, batch, "train"),
-                       device=dev, **TRAIN)
+                       n_layers=n_layers, device=dev, **TRAIN)
     wall_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1425,7 +1456,8 @@ def phase_train(dev, arch: str = ARCH, profile: bool = True) -> dict:
     losses, kinds = res["losses"], [e.kind for e in res["events"]]
     step_ms = [1e3 * s for s in res["step_s"]]
     steady = step_ms[1:]                 # the first step also warms up cuBLAS and the allocator
-    emit("train", arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+    emit(phase, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         reduced=res["reduced"],
          n_params=cfg.n_params(), seq_len=seq, batch=batch, steps=steps, remat=cfg.remat,
          losses=losses, events=kinds, step_ms=step_ms,
          step_ms_median=statistics.median(steady),
@@ -1441,6 +1473,8 @@ def phase_train(dev, arch: str = ARCH, profile: bool = True) -> dict:
         check(n == expect.get(name, 0),
               f"train {arch}: {name} launches {n} != {expect.get(name, 0)}")
     check(peak_gb < 80.0, f"{arch}: peak memory {peak_gb} GB")
+    if readings is not None:
+        readings(dev, cfg, res)
     if profile:
         profile_train_step(dev, cfg, res)
     del res
@@ -1917,9 +1951,7 @@ def phase_moe_card_vs_cpu(dev) -> None:
                     logits.append(model.serve_step(cache, t[:, s + i:s + i + 1], s + i)[0])
             outs.append([x.cpu() for x in logits])
             recs.append(rec)
-        same = len(recs[0].calls) == len(recs[1].calls) and all(
-            (T0, C0) == (T1, C1) and torch.equal(k0, k1.cpu())
-            for (T0, C0, k0), (T1, C1, k1) in zip(recs[0].calls, recs[1].calls))
+        same = same_pairs(*recs)
         dropped = recs[0].dropped(lambda T: True)
         scale = max(x.abs().max().item() for x in outs[0])
         diff = max((a - c).abs().max().item() for a, c in zip(*outs))
@@ -1935,13 +1967,208 @@ def phase_moe_card_vs_cpu(dev) -> None:
               f"{arch}: card vs CPU logits {diff} > {MOE_CPU_TOL} * {scale}")
 
 
+# ---------------------------------------------------------------------- #
+# phases 19-20: MoE training
+# ---------------------------------------------------------------------- #
+# the depth cut of the full-width training run: a layer holds 623 M
+# parameters and every parameter takes 16 bytes on the card (fp32 master,
+# gradient and both AdamW moments); 5 layers and the embedding and head
+# hold 3.738 G (llama3.2-3b's 3.607 G peak at 63.77 GB), 6 would hold 4.361 G
+MOE_TRAIN_DEPTH = 5
+# steps held card against CPU: qwen3-moe's three AdamW steps; llama4's one
+# Adafactor step, then two more whose losses are printed unchecked
+MOE_TRAIN_CHECKED = {"qwen3-moe-30b-a3b": 3, "llama4-maverick-400b-a17b": 1}
+MOE_TRAIN_UNCHECKED = {"qwen3-moe-30b-a3b": 0, "llama4-maverick-400b-a17b": 2}
+TOP1_ROUTER = "blocks.moe.ffn.router"      # llama4's router: top_k 1
+ROUTER_NOISE = 1e-6                        # of the largest |grad| of the model
+# name parts of the kernels PyTorch launches for indexing, sorting, top-k,
+# gathers and scatters (index_add, index and its accumulating backward,
+# argsort, searchsorted, topk, scatter_add, embedding)
+MOE_DISPATCH_KERNELS = ("index", "sort", "gather", "scatter", "topk", "searchsorted",
+                        "embedding", "cub::", "radix")
+
+
+def same_pairs(rec_a, rec_b) -> bool:
+    """Whether two recorders saw the same MoE calls keep the same pairs."""
+    import torch
+    return len(rec_a.calls) == len(rec_b.calls) and all(
+        (T0, C0) == (T1, C1) and torch.equal(k0.cpu(), k1.cpu())
+        for (T0, C0, k0), (T1, C1, k1) in zip(rec_a.calls, rec_b.calls))
+
+
+def phase_moe_train_consistency(dev) -> None:
+    """The reduced MoE configs in fp32 with the capacity dispatch, card
+    against CPU from the same weights and batches, each step as
+    ``train_step`` runs it (``value_and_grad``, then ``apply_updates``)
+    under ``MoeRecorder``: every MoE call of the checked steps keeps the
+    same (token, k) pairs on both devices, and each step launches each
+    attention kernel once a layer (remat is off in the reduced configs).
+
+    qwen3-moe (AdamW): three steps held as ``phase_train_consistency``
+    holds llama. llama4-maverick (Adafactor, a dense and a MoE layer a
+    group, a shared expert, top-1): one step held at ``TRAIN_TOL`` on the
+    loss and every parameter but the router. At top-1 the gate
+    renormalised over the top-k is g / g = 1, so the router's gradient is
+    zero in exact arithmetic and each device returns its own rounding
+    noise, below ``ROUTER_NOISE`` of the largest gradient on both;
+    Adafactor divides that noise by the root of its factored second
+    moment and moves the router by a step of lr's order in a direction
+    the noise picks (the JAX reference does the same: ROADMAP.md, Known
+    differences). The two devices' routers part there, and with them the
+    losses of the next steps, which are printed unchecked beside."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import make_model
+    from repro_torch.optim.adamw import OptConfig, apply_updates
+
+    for arch in MOE_REDUCED:
+        cfg = get_config(arch).reduced()
+        check(cfg.dtype == "float32" and cfg.moe_impl == "dispatch" and not cfg.remat,
+              f"{arch}: reduced config")
+        router = TOP1_ROUTER if cfg.top_k == 1 else None
+        opt = OptConfig(kind=cfg.optimizer, warmup=5, total_steps=10)
+        host = make_model(cfg, device="cpu", opt=opt)
+        host.init_params(torch.Generator().manual_seed(6))
+        card = make_model(cfg, device=dev, opt=opt)
+        card.load_params(host.state_dict())
+        pipe = SyntheticTokenPipeline(cfg, ShapeConfig("smoke_train", 32, 8, "train"),
+                                      DataConfig())
+        states = [host.init_opt(), card.init_opt()]
+        checked = MOE_TRAIN_CHECKED[arch]
+        steps = checked + MOE_TRAIN_UNCHECKED[arch]
+        reset_launches()
+        rows, unchecked = [], []
+        for step in range(steps):
+            batch = pipe.batch_at(step)
+            losses, recs, noise = [], [], []
+            for i, model in enumerate((host, card)):
+                tb = {n: torch.from_numpy(a).to(model.device, torch.long)
+                      for n, a in batch.items()}
+                with MoeRecorder() as rec:
+                    loss, grads = model.value_and_grad(tb)
+                if router:
+                    largest = max(g.abs().max().item() for g in grads.values())
+                    noise.append(grads[router].abs().max().item() / largest)
+                states[i] = apply_updates(model.masters(), grads, states[i], model.opt)
+                losses.append(loss.item())
+                recs.append(rec)
+            rel = abs(losses[1] - losses[0]) / abs(losses[0])
+            dropped = recs[0].dropped(lambda T: True)
+            row = {"step": step, "loss_cpu": losses[0], "loss_card": losses[1], "rel": rel,
+                   "same_keep_masks": same_pairs(*recs), "moe_calls": len(recs[1].calls),
+                   "dropped": dropped["dropped"], "pairs": dropped["pairs"]}
+            if router:
+                row["router_grad_share_cpu"], row["router_grad_share_card"] = noise
+            if step >= checked:
+                unchecked.append(row)
+                continue
+            rows.append(row)
+            check(math.isfinite(losses[1]) and rel <= TRAIN_TOL,
+                  f"{arch} train step {step}: card loss {losses[1]} vs CPU {losses[0]}")
+            check(row["same_keep_masks"] and row["moe_calls"] == cfg.n_layers // cfg.moe_every,
+                  f"{arch} train step {step}: the card and the CPU keep different pairs")
+            check(not router or max(noise) < ROUTER_NOISE,
+                  f"{arch} train step {step}: router gradient shares {noise}")
+            if step == checked - 1:
+                hp, cp = host.masters(), card.masters()
+                scale = max(t.abs().max().item() for t in hp.values())
+                diff = {name: (cp[name].cpu() - t).abs().max().item()
+                        for name, t in hp.items()}
+                held = {name: d for name, d in diff.items() if name != router}
+                worst = max(held, key=held.get)
+                check(held[worst] <= TRAIN_TOL * scale,
+                      f"{arch} params after {checked} steps: {worst} {held[worst]} > "
+                      f"{TRAIN_TOL} * {scale}")
+                param_row = {"max_param_diff": held[worst], "worst_param": worst,
+                             "max_abs_param": scale,
+                             "router_param_diff": diff[router] if router else None}
+        launches = dict(LAUNCHES)
+        expect = {k: steps * n for k, n in per_step_launches(cfg).items()}
+        check(all(launches[k] == expect.get(k, 0) for k in launches),
+              f"{arch} MoE train consistency launches {launches}, expected {expect}")
+        emit("moe_train_consistency", arch=cfg.name, dtype=cfg.dtype, optimizer=cfg.optimizer,
+             top_k=cfg.top_k, moe_every=cfg.moe_every, moe_shared=cfg.moe_shared,
+             steps=rows, unchecked_steps=unchecked, **param_row, tol=TRAIN_TOL,
+             router_noise_tol=ROUTER_NOISE if router else None, launches=launches)
+
+
+def moe_train_readings(dev, cfg, res) -> None:
+    """Unchecked readings of the full-width MoE training run, on one more
+    step's batch from the trained state: the gradients computed twice,
+    whether the two are bit-identical (the backward of ``xn[tok]`` and of
+    the gather back add up rows of repeated indices) and their largest
+    difference; under ``MoeRecorder`` on the first of the two, the
+    share of (token, k) pairs the capacity drops in the forward, and
+    whether remat's recomputed forward chose the same pairs as the forward
+    (checked: the backward is taken through the recompute)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+    rt = res["runtime"]
+    model = rt.model
+    batch_np = SyntheticTokenPipeline(rt.cfg, rt.shape, DataConfig()).batch_at(TRAIN["steps"])
+    tb = {n: torch.from_numpy(a).to(dev, torch.long) for n, a in batch_np.items()}
+    with MoeRecorder() as rec:
+        _, grads = model.value_and_grad(tb)
+    first = {n: g.cpu() for n, g in grads.items()}
+    del grads
+    _, grads = model.value_and_grad(tb)
+    torch.cuda.synchronize()
+    diff, equal = {}, True
+    for n, g in grads.items():
+        ref = first.pop(n).to(dev)
+        equal = equal and torch.equal(g, ref)
+        diff[n] = (g - ref).abs().max().item()
+        del ref
+    del grads
+    L = cfg.n_layers
+    # the backward recomputes the layers last to first
+    fwd, again = rec.calls[:L], rec.calls[L:][::-1]
+    remat_same = len(again) == L and all(
+        C0 == C1 and torch.equal(k0, k1) for (_, C0, k0), (_, C1, k1) in zip(fwd, again))
+    T = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    drops = rec.dropped(lambda n: n == T)
+    kept = sum(int(k.sum().item()) for _, _, k in fwd)
+    worst = max(diff, key=diff.get)
+    emit("train_moe", arch=cfg.name, reading="one step's forward and gradients",
+         moe_calls=len(rec.calls), forward_calls=len(fwd),
+         dropped_share=(L * T * cfg.top_k - kept) / (L * T * cfg.top_k),
+         capacity=drops["capacity"], share_by_layer=drops["share_by_call"][:L],
+         remat_same_pairs=remat_same, grads_bit_identical=equal,
+         max_grad_diff=diff[worst], worst_grad=worst)
+    check(len(rec.calls) == 2 * L, f"{cfg.name}: {len(rec.calls)} MoE calls under remat")
+    check(remat_same, f"{cfg.name}: remat's recomputed forward kept other pairs")
+
+
+def phase_train_moe(dev) -> dict:
+    """``run_training`` of qwen3-moe-30b-a3b at full width (checked against
+    ``MOE_WIDTH`` first) with its depth cut to ``MOE_TRAIN_DEPTH`` of 48
+    layers, as ``phase_train`` runs llama: the launch counts, the losses,
+    the events and the peak; then ``moe_train_readings`` and a profiled
+    step."""
+    from repro_torch.configs import get_config
+
+    full = get_config(MOE_ARCH)
+    check(all(getattr(full, k) == v for k, v in MOE_WIDTH.items())
+          and full.family == "moe" and full.moe_every == 1 and full.moe_impl == "dispatch",
+          f"{MOE_ARCH}: full-width config")
+    return phase_train(dev, MOE_ARCH, n_layers=MOE_TRAIN_DEPTH, readings=moe_train_readings,
+                       phase="train_moe")
+
+
 def kernel_classes(rows) -> dict:
     """Device ms of profiler rows by kind: the attention and SSD kernels,
-    matrix products (cuBLAS and CUTLASS), elementwise and reduction
-    kernels, copies, the rest."""
+    matrix products (cuBLAS and CUTLASS), the index, sort, gather and
+    scatter kernels (``moe_dispatch``: the MoE dispatch's routing, ranks,
+    scatter into the buffer, gathers and their backward; in any model also
+    the embedding's lookup and the loss's gather, which are small),
+    elementwise and reduction kernels, copies, the rest."""
     classes = {"attention_fwd": 0.0, "attention_bwd": 0.0, "ssd_fwd": 0.0, "ssd_bwd": 0.0,
-               "ssd_scores": 0.0, "matmul": 0.0, "elementwise": 0.0, "reduction": 0.0,
-               "copy": 0.0, "other": 0.0}
+               "ssd_scores": 0.0, "matmul": 0.0, "moe_dispatch": 0.0, "elementwise": 0.0,
+               "reduction": 0.0, "copy": 0.0, "other": 0.0}
     for ms, _, key in rows:
         k = key.lower()
         if "flash_fwd" in k:
@@ -1956,6 +2183,8 @@ def kernel_classes(rows) -> dict:
             cls = "ssd_scores"
         elif any(t in k for t in ("gemm", "nvjet", "xmma", "cutlass")):
             cls = "matmul"
+        elif any(t in k for t in MOE_DISPATCH_KERNELS):
+            cls = "moe_dispatch"
         elif "elementwise" in k:
             cls = "elementwise"
         elif "reduce" in k:
@@ -2081,6 +2310,9 @@ def drive(dev, smi: str, ptxas: list) -> None:
     del model
     torch.cuda.empty_cache()
     phase_moe_card_vs_cpu(dev)
+    phase_moe_train_consistency(dev)
+    paths[f"train {MOE_ARCH}"] = phase_train_moe(dev)
+    torch.cuda.empty_cache()
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

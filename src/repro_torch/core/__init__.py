@@ -4,9 +4,10 @@
 training runtime drives: the MATCHGROW engine (``engine.py``), scheduler
 instances and hierarchies (``scheduler.py``), the job queue and its
 policies (``queue.py``, ``policy.py``), typed events (``events.py``), the
-transport (``rpc.py``), external providers (``external.py``) and the
-``Instance`` facade (``api.py``). Copies of ``repro/core``'s modules of
-the same names; actors, tenancy and metrics are not ported."""
+transport (``rpc.py``), external providers (``external.py``), the
+``Instance`` facade (``api.py``) and multi-tenant trees (``tenancy.py``).
+Copies of ``repro/core``'s modules of the same names; actors and metrics
+are not ported."""
 from .graph import CONTAINMENT, ResourceGraph, Vertex, build_cluster, build_tpu_fleet
 from .jobspec import Jobspec, ResourceReq
 from .match import Matcher
@@ -24,6 +25,8 @@ from .policy import (POLICIES, ConservativeBackfill, EasyBackfill, FCFS,
 from .events import EventLog, EventType, JobEvent
 from .api import (Instance, JobHandle, RemoteInstance, RemoteJobHandle,
                   RemoteSubscription)
+from .tenancy import (FairShareArbiter, Lease, LeaseLedger, MultiTenantTree,
+                      TenantSpec)
 from .external import (AWS_ZONES, TABLE3_CATALOG, ExternalProvider,
                        InstanceType, ProvisionResult, SimulatedEC2Provider,
                        TPUSliceProvider, fleet_catalog)
@@ -45,6 +48,7 @@ __all__ = [
     "EventLog", "EventType", "JobEvent",
     "Instance", "JobHandle", "RemoteInstance", "RemoteJobHandle",
     "RemoteSubscription",
+    "FairShareArbiter", "Lease", "LeaseLedger", "MultiTenantTree", "TenantSpec",
     "POLICIES", "ConservativeBackfill", "EasyBackfill", "FCFS",
     "FirstFit", "PreemptivePriority", "PriorityFCFS", "SchedulingPolicy",
     "make_policy",

@@ -6,12 +6,15 @@ the job starts with a MATCHALLOCATE, trains with checkpointing, and
 optionally exercises grow/shrink/failure events mid-run — the paper's
 three capabilities driving a real training loop. On a card attention's
 forward and backward run the CUDA kernels of ``kernels/flash_attention.py``,
-the SSD scan's those of ``kernels/ssd_scan.py``.
+the SSD scan's those of ``kernels/ssd_scan.py``; a MoE layer's dispatch and
+experts are plain PyTorch (the JAX layer has no kernel of its own).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --smoke --steps 20 --grow-at 5 --shrink-at 12 --fail-at 16
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
       --full --seq-len 1024 --batch 2 --steps 6 --grow-at 2 --shrink-at 3 --fail-at 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
+      --full --n-layers 5 --seq-len 1024 --batch 2 --steps 6 --grow-at 2 --shrink-at 3
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from ..core.graph import build_tpu_fleet
 from ..core.scheduler import SchedulerInstance
 from ..data.pipeline import DataConfig, SyntheticTokenPipeline
 from ..device import resolve_device
-from ..models.config import SHAPES, ShapeConfig
+from ..models.config import SHAPES, ArchConfig, ShapeConfig
 from ..optim.adamw import OptConfig
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.elastic import ElasticRuntime
@@ -45,15 +48,19 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
                  log_every: int = 5,
                  perf: bool = False,
                  shape: Optional[ShapeConfig] = None,
+                 n_layers: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda") -> dict:
-    """As JAX's ``run_training``, with two more arguments: ``shape``
+    """As JAX's ``run_training``, with three more arguments: ``shape``
     overrides the cell (JAX's ``train_4k``, 256 x 4096, does not fit one
-    card at full width), and ``device`` ("cuda" by default; "cpu" only
-    when asked). Every family the port models trains on either device:
-    dense, ssm and hybrid. Besides JAX's results it returns each step's
+    card at full width), ``n_layers`` cuts the depth (``cut_depth``: a
+    full-width MoE model's masters, gradients and optimizer state do not
+    fit one card), and ``device`` ("cuda" by default; "cpu" only when
+    asked). Every family the port models trains on either device: dense,
+    moe, ssm and hybrid. Besides JAX's results it returns each step's
     seconds (batch upload to the loss on the host, the grow, shrink and
-    failure before it excluded) and the runtime, whose model and
-    optimizer state are the trained ones."""
+    failure before it excluded), the depth cut (``reduced``: None, or
+    {"n_layers": "5 of 48"}) and the runtime, whose model and optimizer
+    state are the trained ones."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # the LM head is an fp32 product, as in JAX: keep TF32 out of it
@@ -69,6 +76,10 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     else:
         default_shape = SHAPES["train_4k"]
     shape = shape or default_shape
+    reduced = None
+    if n_layers is not None:
+        reduced = {"n_layers": f"{n_layers} of {cfg.n_layers}"}
+        cfg = cut_depth(cfg, n_layers)
 
     # control plane: a small TPU fleet + cloud-slice provider
     fleet = build_tpu_fleet(pods=1, racks_per_pod=1, nodes_per_rack=4,
@@ -124,11 +135,23 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     if ckpt:
         ckpt.save(steps, {"params": rt.params, "opt_state": rt.opt_state})
     wall = time.time() - t0
+    cut = f"; layers {reduced['n_layers']}" if reduced else ""
     print(f"done: {steps} steps in {wall:.1f}s; "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"events={[e.kind for e in rt.events]}", flush=True)
+          f"events={[e.kind for e in rt.events]}{cut}", flush=True)
     return {"losses": losses, "events": rt.events, "wall_s": wall, "step_s": step_s,
-            "runtime": rt}
+            "reduced": reduced, "runtime": rt}
+
+
+def cut_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:
+    """``cfg`` with its first ``n_layers`` layers: a whole number of its
+    groups (an interleaved MoE model's ``moe_every``, a hybrid's
+    ``shared_attn_every``), at most as many as it has."""
+    group = cfg.moe_every if cfg.is_moe else cfg.shared_attn_every or 1
+    if not 1 <= n_layers <= cfg.n_layers or n_layers % group:
+        raise ValueError(f"{cfg.name}: cannot cut {cfg.n_layers} layers to {n_layers} "
+                         f"(a multiple of {group}, at most {cfg.n_layers})")
+    return dataclasses.replace(cfg, n_layers=n_layers)
 
 
 def main() -> None:
@@ -146,6 +169,8 @@ def main() -> None:
     ap.add_argument("--seq-len", type=int, default=None,
                     help="with --batch: the training cell, in place of the default")
     ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers (a whole number of groups)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     shape = None
@@ -156,7 +181,7 @@ def main() -> None:
     run_training(args.arch, steps=args.steps, smoke=args.smoke,
                  grow_at=args.grow_at, shrink_at=args.shrink_at,
                  fail_at=args.fail_at, ckpt_dir=args.ckpt_dir,
-                 perf=args.perf, shape=shape, device=args.device)
+                 perf=args.perf, shape=shape, n_layers=args.n_layers, device=args.device)
 
 
 if __name__ == "__main__":

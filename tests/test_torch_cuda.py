@@ -725,3 +725,37 @@ def test_moe_models_go_through_kernels(arch, cuda):
     assert LAUNCHES["flash_decode"] == before["flash_decode"] + 2 * cfg.n_layers
     for a, b in zip(*outs):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_train_step_on_card_matches_cpu(cuda):
+    """One reduced qwen3-moe ``train_step`` (AdamW, capacity dispatch,
+    fp32) on the card against the same step on the CPU: the loss within
+    1e-5, every parameter within 1e-4 of the largest |value| (AdamW moves
+    an element whose gradient is near zero by up to lr whatever its
+    size), and one forward and one backward attention launch per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import make_model
+    from repro_torch.optim.adamw import OptConfig
+
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    opt = OptConfig(kind=cfg.optimizer, warmup=2, total_steps=10)
+    cpu = make_model(cfg, device="cpu", opt=opt)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = make_model(cfg, device=cuda, opt=opt)
+    gpu.load_params(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(15).integers(0, cfg.vocab, (4, 17)))
+    before = dict(LAUNCHES)
+    losses = []
+    for model in (cpu, gpu):
+        batch = {"tokens": toks[:, :-1].to(model.device), "labels": toks[:, 1:].to(model.device)}
+        _, m = model.train_step(model.init_opt(), batch)
+        losses.append(m["loss"].item())
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + cfg.n_layers
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    want, got = cpu.masters(), gpu.masters()
+    scale = max(t.abs().max().item() for t in want.values())
+    for name, t in want.items():
+        np.testing.assert_allclose(got[name].cpu().numpy(), t.numpy(), rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
