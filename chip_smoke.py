@@ -12,12 +12,13 @@ Phases, each printing JSON lines:
 2. kernels: each attention kernel against its plain PyTorch version on
    the card, at the serving shapes and a few more: prefill in bf16 (the
    tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
-   a ragged length, skv > sq, GQA groups 1 to 4, head dims 16 to
-   128) and in fp32 (the CUDA-core kernel); decode at the llama, zamba2
-   and qwen3-moe serving shapes in bf16, and at the llama shape in fp32
-   and in fp32 over the bf16 cache, ragged lengths from 1 to S. At the
-   llama, zamba2 and qwen3-moe (GQA group 8) prefill and decode shapes
-   (model layout): the kernel's device time (torch.profiler) and its time
+   a ragged length, skv > sq, GQA groups 1 to 8, head dims 16 to
+   128) and in fp32 (the CUDA-core kernel); decode at the llama, zamba2,
+   qwen3-moe, qwen2-vl-72b and musicgen-medium serving shapes in bf16,
+   and at the llama shape in fp32 and in fp32 over the bf16 cache, ragged
+   lengths from 1 to S. At the llama, zamba2, qwen3-moe (GQA group 8),
+   qwen2-vl (64 heads, group 8) and musicgen (24 heads of 64, group 1)
+   prefill and decode shapes (model layout): the kernel's device time (torch.profiler) and its time
    by CUDA events around a loop, the plain version's and one library
    call's time beside the card's bound.
 3. serve: ``run_serving("llama3.2-3b", batch=8, prompt_len=512, gen=32,
@@ -145,6 +146,25 @@ Phases, each printing JSON lines:
    capacity drops in one step's forward, and whether one step's gradients
    computed twice are bit-identical (checked: remat's recomputed forward
    keeps the forward's pairs); then one step under the profiler.
+21. mrope: ``apply_rope`` under M-RoPE with three distinct position
+   streams (temporal, height, width; qwen2-vl-72b's sections 32 / 16 / 16
+   of d 128 and theta 1e6), card against CPU, fp32 at 1e-5 and bf16 at
+   2e-2 at the model's q shape; text positions must move the result.
+22. serve_vlm: qwen2-vl-72b at full width (d_model 8192, 64 / 8 heads of
+   128, d_ff 29568, vocab 152064, M-RoPE) with its depth cut to 10 of 80
+   layers (a layer is 0.878 G parameters, 5.27 GB as fp32 masters and the
+   bf16 serving copy; about 66 GB at 10, 72 at 11), through
+   ``launch.serve.serve_model`` at batch 8 x 512 + 32, fed random patch
+   embeddings from the seed as JAX's ``run_serving`` feeds its vision
+   stub: a run after ``empty_cache``, then the measured run: exactly 10
+   prefill and 310 decode attention launches, finite logits, peak < 80 GB;
+   a profile of one prefill and four decode steps; prefill plus one decode
+   step against a forward over one more embedding (b 2, s 256, bf16)
+   within 2e-2 of the largest logit.
+23. serve_audio: musicgen-medium at full width and depth (48 layers,
+   d_model 1536, 24 heads of 64, gelu, vocab 2048, an absolute sinusoid on
+   its inputs and RoPE on q and k) as phase 22, fed random frame
+   embeddings: exactly 48 and 1,488 launches.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -193,16 +213,20 @@ DECODE_CASES = [
     ("serve_fp32_bf16_cache", (8, 24, 8, 544, 128), "float32", "bfloat16", False),
     ("zamba2", (8, 32, 32, 520, 80), "bfloat16", "bfloat16", True),
     ("qwen3", (8, 32, 4, 544, 128), "bfloat16", "bfloat16", True),     # GQA group 8
+    ("vlm", (8, 64, 8, 544, 128), "bfloat16", "bfloat16", True),       # qwen2-vl-72b: group 8
+    ("audio", (8, 24, 24, 544, 64), "bfloat16", "bfloat16", True),     # musicgen-medium: group 1
 ]
 # the decode kernel's instantiations: 3 dtype pairs x 5 head dims x G 1, 2, 3, 4, 8
 DECODE_INSTANTIATIONS = 75
-# flash_attention cases timed: the llama3.2-3b, zamba2-2.7b and qwen3-moe prefill shapes
-FA_TIMED = ("serve", "zamba2", "qwen3")
+# flash_attention cases timed: the llama3.2-3b, zamba2-2.7b, qwen3-moe, qwen2-vl-72b and
+# musicgen-medium prefill shapes
+FA_TIMED = ("serve", "zamba2", "qwen3", "vlm", "audio")
 FEASIBILITY_INSTANTIATIONS = 1     # feasible_kernel
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # full-width depths, checked against each config before its run
 DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560),
-         "qwen3-moe-30b-a3b": (48, 2048)}
+         "qwen3-moe-30b-a3b": (48, 2048), "qwen2-vl-72b": (80, 8192),
+         "musicgen-medium": (48, 1536)}
 SSM_GEN = {"mamba2-2.7b": 32, "zamba2-2.7b": 8}
 # LLNL Quartz, a production system that Fluxion schedules: 3,018 nodes of
 # two 18-core Xeon E5-2695 v4 sockets
@@ -349,6 +373,8 @@ def phase_kernels(dev) -> dict:
         ("d80", 2, 32, 32, 192, 192, 80, 0, "bfloat16", "bhsd"),
         ("d80_ragged_bf16", 2, 32, 32, 200, 200, 80, 0, "bfloat16", "bshd"),
         ("qwen3", 8, 32, 4, 512, 512, 128, 0, "bfloat16", "bshd"),      # GQA group 8
+        ("vlm", 8, 64, 8, 512, 512, 128, 0, "bfloat16", "bshd"),        # qwen2-vl-72b: group 8
+        ("audio", 8, 24, 24, 512, 512, 64, 0, "bfloat16", "bshd"),      # musicgen-medium: MHA
     ]
     fa = {}
     for name, b, h, kvh, sq, skv, d, window, dtype, layout in cases:
@@ -449,7 +475,8 @@ def expected_launches(cfg, gen: int) -> dict:
     (every layer of a dense or MoE model, each application of a hybrid's
     shared block), decode attention per attention block and step, one SSD chunk
     launch per Mamba2 block."""
-    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+            "audio": cfg.n_layers, "ssm": 0,
             "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
     ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn, "flash_decode": attn * (gen - 1), "ssd_chunk": ssd}
@@ -516,7 +543,6 @@ def phase_consistency(dev, arch: str, dtype: str = "bfloat16"):
     import dataclasses
 
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.models.model import make_model
 
@@ -524,23 +550,39 @@ def phase_consistency(dev, arch: str, dtype: str = "bfloat16"):
     check((cfg.n_layers, cfg.d_model) == DEPTH[arch], f"{arch}: full-width config")
     model = make_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(1))
-    b, s = 2, 256
-    toks = torch.randint(0, cfg.vocab, (b, s + 1), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(2))
-    full = model.forward_logits(toks)[:, -1].float()
-    _, cache = model.prefill_step(toks[:, :s])
+    check_consistency(dev, model)
+    return model
+
+
+def check_consistency(dev, model, b: int = 2, s: int = 256) -> None:
+    """Prefill of s inputs plus one decode step on input s against a full
+    forward over s + 1 inputs, at the last position, within
+    ``consistency_tol`` of the largest logit. The inputs are tokens, or
+    for a stub frontend (audio, vision) embeddings [b, s + 1, d_model]."""
+    import torch
+    import torch.nn.functional as F
+
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if cfg.frontend == "token":
+        key, x = "tokens", torch.randint(0, cfg.vocab, (b, s + 1), device=dev, generator=gen)
+    else:
+        key, x = "embeds", torch.randn((b, s + 1, cfg.d_model), device=dev, generator=gen)
+    full = model.forward_logits(**{key: x})[:, -1].float()
+    _, cache = model.prefill_step(**{key: x[:, :s]})
     # one more slot on the KV caches' sequence axis; SSM states keep their shapes
     cache = {k: F.pad(v, (0, 0, 0, 0, 0, 1)) if k in ("k", "v", "shared_k", "shared_v")
              else v for k, v in cache.items()}
-    logits, _ = model.serve_step(cache, toks[:, s:], s)
+    step = {key: x[:, s:]}
+    logits, _ = model.serve_step(cache, step.get("tokens"), s, embeds=step.get("embeds"))
     diff = (logits[:, 0].float() - full).abs().max().item()
     scale = full.abs().max().item()
     tol = consistency_tol(cfg)
-    emit("consistency", arch=arch, dtype=dtype, batch=b, seq=s, max_abs_diff=diff,
-         max_abs_logit=scale, rel=diff / scale, tol_rel=tol)
+    emit("consistency", arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
+         frontend=cfg.frontend, batch=b, seq=s, max_abs_diff=diff, max_abs_logit=scale,
+         rel=diff / scale, tol_rel=tol)
     check(math.isfinite(diff) and diff <= tol * scale,
-          f"{arch} {dtype}: prefill+decode vs forward: {diff} > {tol} * {scale}")
-    return model
+          f"{cfg.name} {cfg.dtype}: prefill+decode vs forward: {diff} > {tol} * {scale}")
 
 
 # ---------------------------------------------------------------------- #
@@ -582,18 +624,24 @@ def phase_profile(dev, model, steps: int = 4) -> None:
     from repro_torch.models.config import ShapeConfig
 
     b, s = SERVE["batch"], SERVE["prompt_len"]
-    toks = torch.randint(0, model.cfg.vocab, (b, s), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(3))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # a stub frontend (audio, vision) is fed embeddings, prompt and steps
+    stub = model.cfg.frontend != "token"
+    if stub:
+        emb = torch.randn((b, s + steps, model.cfg.d_model), device=dev, generator=gen)
+    else:
+        toks = torch.randint(0, model.cfg.vocab, (b, s), device=dev, generator=gen)
     cache = model.init_cache(ShapeConfig("serve", s + steps, b, "decode"))
 
     def prefill():
-        logits, pc = model.prefill_step(toks)
+        logits, pc = model.prefill_step(embeds=emb[:, :s]) if stub else model.prefill_step(toks)
         splice_cache(cache, pc)
         return logits[:, -1].argmax(-1, keepdim=True)
 
     def decode(tok):
         for i in range(steps):
-            logits, _ = model.serve_step(cache, tok, s + i)
+            logits, _ = model.serve_step(cache, None if stub else tok, s + i,
+                                         embeds=emb[:, s + i:s + i + 1] if stub else None)
             tok = logits[:, -1].argmax(-1, keepdim=True)
         return tok
 
@@ -2159,6 +2207,126 @@ def phase_train_moe(dev) -> dict:
                        phase="train_moe")
 
 
+# ---------------------------------------------------------------------- #
+# phases 21-23: the vlm and audio families through their stub frontends
+# ---------------------------------------------------------------------- #
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-72b", "musicgen-medium"
+# qwen2-vl-72b's depth cut: a layer is 0.878 G parameters, 5.27 GB as fp32
+# masters and the bf16 serving copy; the fp32 embedding and untied head
+# (2.49 G parameters) take 9.97 GB and the fp32 prefill logits 2.49 GB: about
+# 66 GB at 10 of 80 layers, about 72 GB at 11
+VLM_DEPTH = 10
+STUB_WIDTH = {
+    VLM_ARCH: dict(family="vlm", d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+                   d_ff=29568, vocab=152064, rope="mrope", frontend="vision_stub"),
+    AUDIO_ARCH: dict(family="audio", d_model=1536, n_heads=24, n_kv_heads=24, head_dim=64,
+                     d_ff=6144, vocab=2048, rope="abs_sin", frontend="audio_stub"),
+}
+# apply_rope under M-RoPE, card against CPU: fp32 differs in sin / cos and
+# the order of nothing else (the layer test's 1e-5); bf16 also rounds the
+# output (the bf16 kernel tolerance)
+MROPE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MROPE_SHAPES = {"float32": (2, 512, 8), "bfloat16": (8, 512, 64)}     # b, s, heads at d 128
+
+
+def stub_serving_model(dev, arch: str, n_layers: int = None):
+    """``arch`` at full width (depth cut to ``n_layers`` if given), weights
+    from seed 0 on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import make_model
+
+    full = get_config(arch)
+    check((full.n_layers, full.d_model) == DEPTH[arch]
+          and all(getattr(full, k) == v for k, v in STUB_WIDTH[arch].items()),
+          f"{arch}: full-width config")
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    model = make_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    return model
+
+
+def phase_mrope(dev) -> None:
+    """``apply_rope`` under M-RoPE with three distinct position streams
+    (temporal, height, width) at qwen2-vl-72b's head dim and theta, card
+    against CPU on the same inputs; text positions (all three equal) must
+    move the result by over 100 times the fp32 tolerance, or the streams
+    were not read."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import apply_rope, mrope_sections_for
+
+    cfg = get_config(VLM_ARCH)
+    d, secs = cfg.hd, mrope_sections_for(cfg.hd)
+    rows = {}
+    for dtype, (b, s, h) in MROPE_SHAPES.items():
+        gen = torch.Generator().manual_seed(4)
+        x = torch.randn((b, s, h, d), generator=gen).to(getattr(torch, dtype))
+        pos = torch.stack([torch.arange(s).expand(b, s),
+                           torch.randint(0, 64, (b, s), generator=gen),
+                           torch.randint(0, 1024, (b, s), generator=gen)]).int()
+        cpu = apply_rope(x, pos, cfg.rope_theta, secs)
+        card = apply_rope(x.to(dev), pos.to(dev), cfg.rope_theta, secs)
+        text = apply_rope(x.to(dev), pos[[0, 0, 0]].to(dev), cfg.rope_theta, secs)
+        err = compare(card.cpu(), cpu, dtype, tol=MROPE_TOL[dtype])
+        moved = (text - card).abs().max().item()
+        rows[dtype] = {"shape": [b, s, h, d], "max_abs_err": err, "tol": MROPE_TOL[dtype],
+                       "text_positions_move": moved}
+        check(moved > 100 * MROPE_TOL["float32"], f"M-RoPE {dtype}: streams not read ({moved})")
+    emit("mrope", arch=VLM_ARCH, sections=list(secs), theta=cfg.rope_theta, **rows)
+
+
+def phase_serve_stub(dev, model, phase: str) -> dict:
+    """``serve_model`` on a stub-frontend model after a short warm-up
+    (the serving cast, cuBLAS): a first run after ``empty_cache``, as the
+    other serving phases time theirs, then the run whose times, peak memory
+    and launch counts are read, on the caching allocator's blocks as a
+    server that has served a request finds them (on an H100 80GB at 700 W,
+    qwen2-vl's first prefill after ``empty_cache`` took 753 ms and its
+    profiled one 323 ms: the allocator maps the prefill's buffers anew). Exact launches,
+    finite logits, peak < 80 GB."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_model
+
+    cfg = model.cfg
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    expect = expected_launches(cfg, gen)
+    serve_model(model, b, s, 2, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cold = serve_model(model, b, s, gen, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    r = serve_model(model, b, s, gen, seed=0)
+    launches = dict(LAUNCHES)
+    steps = gen - 1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    full_layers = DEPTH[cfg.name][0]
+    emit(phase, arch=cfg.name, batch=b, prompt_len=s, gen=gen, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab, rope=cfg.rope, frontend=cfg.frontend,
+         reduced=None if cfg.n_layers == full_layers
+         else {"n_layers": f"{cfg.n_layers} of {full_layers}"},
+         n_params=cfg.n_params(), prefill_ms=1e3 * r["prefill_s"],
+         decode_ms_per_step=1e3 * r["decode_s"] / steps,
+         decode_tokens_per_s=b * steps / r["decode_s"], peak_mem_gb=peak_gb,
+         after_empty_cache={"prefill_ms": 1e3 * cold["prefill_s"],
+                            "decode_ms_per_step": 1e3 * cold["decode_s"] / steps},
+         launches=launches, expected_launches=expect, logits_finite=r["logits_finite"],
+         same_tokens=bool((cold["tokens"] == r["tokens"]).all()),
+         sample_tokens=r["tokens"][0, :8].tolist())
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"{cfg.name}: {name} launches {n} != {expect.get(name, 0)}")
+    check(r["logits_finite"] and cold["logits_finite"], f"{cfg.name}: non-finite logits")
+    check(r["tokens"].shape == (b, gen), f"{cfg.name}: token shape")
+    check(peak_gb < 80.0, f"{cfg.name}: peak memory {peak_gb} GB")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_classes(rows) -> dict:
     """Device ms of profiler rows by kind: the attention and SSD kernels,
     matrix products (cuBLAS and CUTLASS), the index, sort, gather and
@@ -2313,6 +2481,16 @@ def drive(dev, smi: str, ptxas: list) -> None:
     phase_moe_train_consistency(dev)
     paths[f"train {MOE_ARCH}"] = phase_train_moe(dev)
     torch.cuda.empty_cache()
+
+    phase_mrope(dev)
+    for arch, n_layers, phase in ((VLM_ARCH, VLM_DEPTH, "serve_vlm"),
+                                  (AUDIO_ARCH, None, "serve_audio")):
+        model = stub_serving_model(dev, arch, n_layers)
+        paths[f"serve {arch}"] = phase_serve_stub(dev, model, phase)
+        phase_profile(dev, model)
+        check_consistency(dev, model)
+        del model
+        torch.cuda.empty_cache()
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

@@ -1,6 +1,11 @@
-"""The runtime lock-order witness (``lockwitness``), a copy of
-``repro/analysis/lockwitness.py``: the copied control plane builds its
-locks through it. The static lint stays in the JAX package."""
+"""Concurrency-correctness subsystem: static lint (``lint``) + runtime
+lock-order witness (``lockwitness``), copies of ``repro/analysis``'s
+modules of the same names.
+
+``lockwitness`` is imported by ``repro_torch.core`` (lock construction
+goes through it), so it must stay stdlib-only; ``lint`` is only pulled in
+by the tests.
+"""
 from .lockwitness import (          # noqa: F401
     REGISTRY,
     LockOrderWitness,

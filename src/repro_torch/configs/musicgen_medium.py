@@ -1,7 +1,7 @@
 """musicgen-medium — decoder-only over EnCodec tokens [arXiv:2306.05284].
 
-The EnCodec modality frontend is a STUB: input_specs() provides
-precomputed frame embeddings [b, s, d_model]."""
+The EnCodec modality frontend is a STUB: the model takes precomputed
+frame embeddings [b, s, d_model] (``embeds``)."""
 from ..models.config import ArchConfig
 
 CONFIG = ArchConfig(

@@ -1,7 +1,7 @@
 """qwen2-vl-72b — VLM backbone, M-RoPE [arXiv:2409.12191].
 
-The vision frontend (dynamic-resolution ViT) is a STUB: input_specs()
-provides precomputed patch embeddings [b, s, d_model]."""
+The vision frontend (dynamic-resolution ViT) is a STUB: the model takes
+precomputed patch embeddings [b, s, d_model] (``embeds``)."""
 from ..models.config import ArchConfig
 
 CONFIG = ArchConfig(

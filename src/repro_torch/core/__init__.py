@@ -5,13 +5,14 @@ training runtime drives: the MATCHGROW engine (``engine.py``), scheduler
 instances and hierarchies (``scheduler.py``), the job queue and its
 policies (``queue.py``, ``policy.py``), typed events (``events.py``), the
 transport (``rpc.py``), external providers (``external.py``), the
-``Instance`` facade (``api.py``) and multi-tenant trees (``tenancy.py``).
-Copies of ``repro/core``'s modules of the same names; actors and metrics
-are not ported."""
+``Instance`` facade (``api.py``), multi-tenant trees (``tenancy.py``),
+queue actors (``actor.py``) and the metrics layer (``metrics.py``).
+Copies of ``repro/core``'s modules of the same names."""
 from .graph import CONTAINMENT, ResourceGraph, Vertex, build_cluster, build_tpu_fleet
 from .jobspec import Jobspec, ResourceReq
 from .match import Matcher
 from .flatgraph import FlatGraph, FlatMatcher, aggregate_sweep, flat_enabled
+from .actor import ActorGroup, QueueActor, check_actor_safe
 from .transform import (TransformKind, TransformResult, add_subgraph,
                         remove_subgraph, splice_jgf, update_metadata)
 from .engine import Allocation, GrowEngine, GrowResult, MGTiming
@@ -23,6 +24,8 @@ from .policy import (POLICIES, ConservativeBackfill, EasyBackfill, FCFS,
                      FirstFit, PreemptivePriority, PriorityFCFS,
                      SchedulingPolicy, make_policy)
 from .events import EventLog, EventType, JobEvent
+from .metrics import (MetricsAggregator, QuantileSketch, SpanCollector,
+                      fragmentation)
 from .api import (Instance, JobHandle, RemoteInstance, RemoteJobHandle,
                   RemoteSubscription)
 from .tenancy import (FairShareArbiter, Lease, LeaseLedger, MultiTenantTree,
@@ -37,6 +40,7 @@ __all__ = [
     "CONTAINMENT", "ResourceGraph", "Vertex", "build_cluster",
     "build_tpu_fleet", "Jobspec", "ResourceReq", "Matcher",
     "FlatGraph", "FlatMatcher", "aggregate_sweep", "flat_enabled",
+    "ActorGroup", "QueueActor", "check_actor_safe",
     "TransformKind", "TransformResult", "add_subgraph", "remove_subgraph",
     "splice_jgf", "update_metadata",
     "Allocation", "GrowEngine", "GrowResult", "Hierarchy", "MGTiming",
@@ -46,6 +50,7 @@ __all__ = [
     "ClientReactor", "ProtocolError", "RPCError", "RPCServer",
     "SocketTransport",
     "EventLog", "EventType", "JobEvent",
+    "MetricsAggregator", "QuantileSketch", "SpanCollector", "fragmentation",
     "Instance", "JobHandle", "RemoteInstance", "RemoteJobHandle",
     "RemoteSubscription",
     "FairShareArbiter", "Lease", "LeaseLedger", "MultiTenantTree", "TenantSpec",

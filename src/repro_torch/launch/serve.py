@@ -13,7 +13,12 @@ update those buffers in place.
       --no-smoke --batch 8 --prompt-len 512 --gen 32
 
 MoE models route each token's top-k experts through the capacity
-dispatch of ``models/moe.py`` in prefill and decode alike.
+dispatch of ``models/moe.py`` in prefill and decode alike. The stub
+frontends (musicgen-medium's audio, qwen2-vl-72b's vision) are fed random
+embeddings from the seed, as JAX's ``run_serving`` feeds them:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \\
+      --no-smoke --batch 8 --prompt-len 512 --gen 32
 """
 from __future__ import annotations
 
@@ -64,20 +69,33 @@ def serve_model(model: Model, batch: int, prompt_len: int, gen: int, seed: int =
     """Prefill a random prompt of ``batch`` x ``prompt_len`` tokens (drawn
     from ``seed``) into max_len decode buffers, then ``gen - 1`` greedy
     decode steps; the body of ``run_serving``, on a model built by the
-    caller. Returns the tokens [batch, gen], the prefill and decode times
-    (host clock, synchronized) and whether every logit was finite."""
+    caller. A stub frontend's model takes embeddings in place of tokens:
+    a ``standard_normal`` prompt [batch, prompt_len, d_model], then one
+    [batch, 1, d_model] draw per decode step, from the same generator in
+    JAX's order (drawn before the clock starts), and the argmax tokens are
+    recorded but not fed back. Returns the tokens [batch, gen], the
+    prefill and decode times (host clock, synchronized) and whether every
+    logit was finite."""
     cfg, dev = model.cfg, model.device
     max_len = prompt_len + gen
     shape = ShapeConfig("serve", max_len, batch, "decode")
     rng = np.random.default_rng(seed)
+    stub = cfg.frontend != "token"
     cache = model.init_cache(shape)
-    prompt = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)).to(dev)
+    if stub:
+        prompt = {"embeds": torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32)).to(dev)}
+        steps = torch.from_numpy(np.stack([
+            rng.standard_normal((batch, 1, cfg.d_model)).astype(np.float32)
+            for _ in range(gen - 1)])).to(dev) if gen > 1 else None
+    else:
+        prompt = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)).to(dev)}
 
     # ---- prefill into the max_len cache ----
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pcache = model.prefill_step(prompt)
+    logits, pcache = model.prefill_step(**prompt)
     splice_cache(cache, pcache)
     del pcache
     _sync(dev)
@@ -89,7 +107,8 @@ def serve_model(model: Model, batch: int, prompt_len: int, gen: int, seed: int =
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = model.serve_step(cache, tok, prompt_len + i)
+        logits, cache = model.serve_step(cache, None if stub else tok, prompt_len + i,
+                                         embeds=steps[i] if stub else None)
         finite &= torch.isfinite(logits).all()
         tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
         out_tokens.append(tok)

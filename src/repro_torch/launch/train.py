@@ -55,12 +55,13 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     card at full width), ``n_layers`` cuts the depth (``cut_depth``: a
     full-width MoE model's masters, gradients and optimizer state do not
     fit one card), and ``device`` ("cuda" by default; "cpu" only when
-    asked). Every family the port models trains on either device: dense,
-    moe, ssm and hybrid. Besides JAX's results it returns each step's
-    seconds (batch upload to the loss on the host, the grow, shrink and
-    failure before it excluded), the depth cut (``reduced``: None, or
-    {"n_layers": "5 of 48"}) and the runtime, whose model and optimizer
-    state are the trained ones."""
+    asked). Every family the port models trains on the CPU; dense, moe,
+    ssm and hybrid also on the card (vlm and audio, whose stub frontends
+    train on embeddings, have not been run there). Besides JAX's results
+    it returns each step's seconds (batch upload to the loss on the host,
+    the grow, shrink and failure before it excluded), the depth cut
+    (``reduced``: None, or {"n_layers": "5 of 48"}) and the runtime, whose
+    model and optimizer state are the trained ones."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # the LM head is an fp32 product, as in JAX: keep TF32 out of it

@@ -23,7 +23,7 @@ class ArchConfig:
     vocab: int
     head_dim: int = 0                # 0 -> d_model // n_heads
     mlp_act: str = "swiglu"          # swiglu | relu2 | gelu
-    rope: str = "rope"               # rope | mrope | none
+    rope: str = "rope"               # rope | mrope | abs_sin | none
     rope_theta: float = 10_000.0
     # MoE
     n_experts: int = 0

@@ -66,22 +66,44 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------- #
-# rotary embeddings (RoPE; the M-RoPE branch comes with the vlm family)
+# rotary embeddings (RoPE and M-RoPE)
 # ---------------------------------------------------------------------- #
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [b, s, h, d]; positions: [b, s]. Half-split rotation."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """x: [b, s, h, d]; positions: [b, s] (RoPE) or [3, b, s] (M-RoPE).
+    Half-split rotation.
+
+    M-RoPE (Qwen2-VL): the d/2 frequency slots are split into (temporal,
+    height, width) sections, each rotated by its own position stream. With
+    text positions (all three equal) it is plain RoPE."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                   # [d/2]
-    angles = positions.float()[..., None] * freqs            # [b, s, d/2]
+    if mrope_sections is not None:
+        pos3 = positions.float()                             # [3, b, s]
+        secs, off = [], 0
+        for i, n in enumerate(mrope_sections):
+            secs.append(pos3[i][..., None] * freqs[off:off + n])
+            off += n
+        angles = torch.cat(secs, dim=-1)                     # [b, s, d/2]
+    else:
+        angles = positions.float()[..., None] * freqs        # [b, s, d/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mrope_sections_for(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL style (t, h, w) split of the d/2 frequency slots."""
+    half = head_dim // 2
+    t = half // 2
+    h = (half - t) // 2
+    return (t, h, half - t - h)
 
 
 # ---------------------------------------------------------------------- #
@@ -110,7 +132,8 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     fresh k/v [b, s, kvh, d] come back as the cache.
     Decode: ``x`` is [b, 1, e]; ``cache`` holds this layer's k/v
     [b, S, kvh, d] (bf16), which the new k/v are written into IN PLACE
-    at ``cache_index``. Row i attends cache positions <= positions[i, 0].
+    at ``cache_index``. Row i attends cache positions <= positions[i, 0]
+    (under M-RoPE, the temporal stream's: positions[0, i, 0]).
     """
     b, s, e = x.shape
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -121,11 +144,12 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     q = (xn @ p["wq"].to(cdt)).view(b, s, h, d)
     k = (xn @ p["wk"].to(cdt)).view(b, s, kvh, d)
     v = (xn @ p["wv"].to(cdt)).view(b, s, kvh, d)
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE lands with the vlm family")
+    # as in JAX, every rope but "none" rotates: abs_sin (musicgen) takes
+    # RoPE on top of its sinusoid
+    msecs = mrope_sections_for(d) if cfg.rope == "mrope" else None
     if cfg.rope != "none":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, msecs)
+        k = apply_rope(k, positions, cfg.rope_theta, msecs)
 
     new_cache = None
     if cache is not None:
@@ -138,7 +162,8 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
         ck[:, cache_index:cache_index + 1] = k.to(ck.dtype)
         cv[:, cache_index:cache_index + 1] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
-        lengths = (positions[:, 0] + 1).to(torch.int32)
+        ppos = positions if positions.dim() == 2 else positions[0]    # mrope: t
+        lengths = (ppos[:, 0] + 1).to(torch.int32)
         # the kernel reads the [b, S, kvh, d] cache in place through a
         # [b, kvh, S, d] view, and attends it in fp32
         o = decode_attention_op(q.permute(0, 2, 1, 3), ck.permute(0, 2, 1, 3),

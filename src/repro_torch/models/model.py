@@ -159,8 +159,11 @@ class Model(nn.Module):
         tree = _unflatten(leaves)
         params = {name: _cast(tree[name], cdt) for name in self.parts}
         loss = loss_fn(params, self.cfg, batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        # a stub frontend's model never reads its embedding table: its
+        # gradient is zeros, as JAX's
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.detach(), {name: torch.zeros_like(leaf) if g is None else g
+                               for (name, leaf), g in zip(leaves.items(), grads)}
 
     def value_and_grad(self, batch: Dict[str, torch.Tensor]):
         """(loss, {name: grad}) of a step's batch. With ``cfg.grad_accum``
@@ -187,7 +190,8 @@ class Model(nn.Module):
 
     def train_step(self, opt_state: OptState, batch: Dict[str, torch.Tensor]):
         """One optimizer step on ``batch`` ({"tokens", "labels"} [b, s] on
-        the model's device): updates the masters and the moments in place
+        the model's device; a stub frontend's {"embeds" [b, s, e],
+        "labels"}): updates the masters and the moments in place
         and returns (opt_state, {"loss": loss})."""
         self._compute = None                 # the serving cast is stale after the step
         loss, grads = self.value_and_grad(batch)
@@ -202,24 +206,30 @@ class Model(nn.Module):
     # -------------------------------------------------------------- #
     # serving steps
     # -------------------------------------------------------------- #
+    # the stub frontends (audio, vision) take ``embeds`` [b, s, e] in place
+    # of ``tokens`` [b, s], as JAX's batch dicts carry them
     @torch.no_grad()
-    def prefill_step(self, tokens: torch.Tensor):
+    def prefill_step(self, tokens: Optional[torch.Tensor] = None, *,
+                     embeds: Optional[torch.Tensor] = None):
         """Full-context forward returning (last-token logits [b, 1, v],
         the prefill cache of ``transformer.forward``)."""
         mode = "last" if self.cfg.prefill_last_logits else "all"
         logits, cache = forward(self.compute_params(), self.cfg, tokens,
-                                want_cache=True, logits_positions=mode)
+                                want_cache=True, logits_positions=mode, embeds=embeds)
         return logits[:, -1:, :], cache
 
     @torch.no_grad()
-    def serve_step(self, cache: Dict, tokens: torch.Tensor, pos: int):
+    def serve_step(self, cache: Dict, tokens: Optional[torch.Tensor], pos: int, *,
+                   embeds: Optional[torch.Tensor] = None):
         """One decode step: (logits [b, 1, v], cache updated in place)."""
-        return decode_step(self.compute_params(), cache, self.cfg, tokens, pos)
+        return decode_step(self.compute_params(), cache, self.cfg, tokens, pos,
+                           embeds=embeds)
 
     @torch.no_grad()
-    def forward_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward_logits(self, tokens: Optional[torch.Tensor] = None, *,
+                       embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits [b, s, v] of a full forward, no cache."""
-        return forward(self.compute_params(), self.cfg, tokens)[0]
+        return forward(self.compute_params(), self.cfg, tokens, embeds=embeds)[0]
 
     # -------------------------------------------------------------- #
     # cache

@@ -1,10 +1,9 @@
 """Decoder-only backbone: init specs, forward, decode step.
 
-The port of the dense, moe, ssm and hybrid branches of
-``repro/models/transformer.py``:
+The port of ``repro/models/transformer.py``, all its families:
 
-* dense transformers (llama3.2 / phi3 / nemotron / phi4) — attention + MLP
-  per layer;
+* dense transformers (llama3.2 / phi3 / nemotron / phi4, and the musicgen
+  and qwen2-vl backbones) — attention + MLP per layer;
 * MoE — attention + MoE per layer (qwen3-moe), or interleaved (llama4:
   ``moe_every`` 2) as groups of a dense layer and a MoE layer;
 * SSM (mamba2) — one Mamba2 block per layer;
@@ -18,11 +17,18 @@ loop over the stack's slices (one ``unbind`` per leaf, so a training
 step's gradient of each stacked leaf is one stack of its layers' parts).
 ``cfg.remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+
+The audio and vision frontends are stubs, as in JAX: those models take
+precomputed frame or patch embeddings [b, s, e] (``embeds``) in place of
+tokens. qwen2-vl rotates by M-RoPE over [3, b, s] position streams;
+musicgen adds an absolute sinusoid to its inputs and, as JAX does for
+every rope but "none", also rotates q and k by RoPE.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -31,14 +37,6 @@ from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_to
                      lm_logits, mlp, mlp_specs, stack_specs)
 from .mamba2 import mamba_layer, mamba_specs, mamba_state_specs
 from .moe import moe, moe_specs
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-            or cfg.frontend != "token" or cfg.rope == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense, moe, ssm and hybrid only)")
 
 
 def _interleaved(cfg: ArchConfig) -> bool:
@@ -58,7 +56,6 @@ def _group_layout(cfg: ArchConfig) -> Tuple[int, int]:
 
 def init_specs(cfg: ArchConfig) -> Dict[str, Any]:
     """The full parameter-spec tree of an architecture."""
-    _check_ported(cfg)
     specs: Dict[str, Any] = {"embed": embed_specs(cfg)}
     if cfg.family in ("ssm", "hybrid"):
         specs["blocks"] = stack_specs(mamba_specs(cfg), cfg.n_layers)
@@ -80,10 +77,40 @@ def init_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
 def make_positions(cfg: ArchConfig, batch: int, seq: int, offset: int = 0,
                    device=None) -> torch.Tensor:
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE lands with the vlm family")
+    """[b, s] positions from ``offset``; under M-RoPE [3, b, s], the
+    temporal, height and width streams all equal (text positions)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
-    return pos.expand(batch, seq)
+    pos = pos.expand(batch, seq)
+    if cfg.rope == "mrope":
+        return pos[None].expand(3, batch, seq)
+    return pos
+
+
+def _sinusoid(positions: torch.Tensor, e: int, dtype: torch.dtype) -> torch.Tensor:
+    """Absolute sinusoidal embedding (MusicGen-style), [b, s, e]: [sin, cos]
+    halves, not interleaved. The frequencies are computed in float64 and
+    rounded to fp32 against fp32 positions, as JAX's numpy ones are."""
+    half = e // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / half).astype(np.float32)
+    ang = positions.float()[..., None] * torch.from_numpy(freqs).to(positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _inputs(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor],
+            embeds: Optional[torch.Tensor], offset: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first layer's input and the positions: embeds [b, s, e] cast to
+    the compute dtype, or tokens [b, s] looked up in the embedding; then,
+    for ``abs_sin``, the sinusoid added in that dtype."""
+    if embeds is not None:
+        x = embeds.to(getattr(torch, cfg.dtype))
+    else:
+        x = embed_tokens(tokens, params["embed"], cfg)
+    b, s = x.shape[:2]
+    positions = make_positions(cfg, b, s, offset=offset, device=x.device)
+    if cfg.rope == "abs_sin":
+        x = x + _sinusoid(positions, cfg.d_model, x.dtype)
+    return x, positions
 
 
 def _unstack(blocks: Dict, n: int) -> List[Dict]:
@@ -111,18 +138,17 @@ def _block(x: torch.Tensor, bp: Dict, cfg: ArchConfig,
     return x + ffn, kv
 
 
-def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
             want_cache: bool = False,
-            logits_positions: str = "all") -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Full-sequence forward over tokens [b, s]. Returns (logits, cache or
-    None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
+            logits_positions: str = "all", *,
+            embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full-sequence forward over tokens [b, s], or over ``embeds`` [b, s, e]
+    for the stub frontends. Returns (logits, cache or None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
     d] in the compute dtype (interleaved moe [groups, 2, b, s, kvh, d]:
     each group's dense layer, then its MoE layer); ssm {"conv" [L, b, K-1,
     conv_dim], "ssm" [L, b, H, P, N]} in fp32; hybrid the ssm states plus
     {"shared_k", "shared_v"} [groups, b, s, kvh, d]."""
-    b, s = tokens.shape
-    x = embed_tokens(tokens, params["embed"], cfg)
-    positions = make_positions(cfg, b, s, device=tokens.device)
+    x, positions = _inputs(params, cfg, tokens, embeds)
     _, per = _group_layout(cfg)
     cache: Dict[str, list] = {}
 
@@ -188,8 +214,9 @@ def _pack_cache(cfg: ArchConfig, cache: Dict[str, list]) -> Dict[str, torch.Tens
 
 def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
-    [b, s]), as ``repro/models/transformer.py::loss_fn``."""
-    logits, _ = forward(params, cfg, batch["tokens"])
+    [b, s], or {"embeds" [b, s, e], "labels"} for the stub frontends), as
+    ``repro/models/transformer.py::loss_fn``."""
+    logits, _ = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"))
     return cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
 
 
@@ -199,7 +226,6 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
     (bf16 whatever the compute dtype, as in JAX; an interleaved MoE
     model's [groups, 2, b, S, kvh, d]); SSM states fp32 [L, ...]; the
     hybrid's shared k/v [groups, b, S, kvh, d]."""
-    _check_ported(cfg)
     groups, _ = _group_layout(cfg)
     kvd = (batch, seq, cfg.n_kv_heads, cfg.hd)
     if cfg.family in ("ssm", "hybrid"):
@@ -214,13 +240,13 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
 
 
 def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
-                tokens: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Dict]:
-    """One decode step. tokens [b, 1]; ``pos`` is the write position (the
-    current context length). Updates ``cache`` in place (new k/v at
-    ``pos``, new SSM states) and returns (logits [b, 1, v], cache)."""
-    b = tokens.shape[0]
-    x = embed_tokens(tokens, params["embed"], cfg)
-    positions = make_positions(cfg, b, 1, offset=pos, device=tokens.device)
+                tokens: Optional[torch.Tensor], pos: int, *,
+                embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens [b, 1] (or ``embeds`` [b, 1, e]); ``pos`` is
+    the write position (the current context length). Updates ``cache`` in
+    place (new k/v at ``pos``, new SSM states) and returns (logits
+    [b, 1, v], cache)."""
+    x, positions = _inputs(params, cfg, tokens, embeds, offset=pos)
     groups, per = _group_layout(cfg)
 
     def block(x, bp, ck, cv):

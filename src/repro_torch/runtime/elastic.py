@@ -219,9 +219,13 @@ class ElasticRuntime:
 
     # ---------------------------------------------------------------- #
     def step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """One training step on a numpy batch ({"tokens", "labels"})."""
+        """One training step on a numpy batch ({"tokens", "labels"}, or a
+        stub frontend's {"embeds", "labels"}): integer arrays as int64,
+        embeddings in their own dtype."""
         dev = self.mesh[0]
-        on_dev = {k: torch.from_numpy(np.asarray(v)).to(dev, torch.long)
-                  for k, v in batch.items()}
+        on_dev = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.asarray(v))
+            on_dev[k] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
         self.opt_state, metrics = self._train_step(self.opt_state, on_dev)
         return metrics

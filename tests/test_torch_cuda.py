@@ -728,6 +728,59 @@ def test_moe_models_go_through_kernels(arch, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-medium"])
+def test_stub_frontend_models_go_through_kernels(arch, cuda):
+    """A reduced-config prefill over embeddings and two decode steps on the
+    next embeddings (qwen2-vl: M-RoPE; musicgen: sinusoid plus RoPE) on the
+    card launch the attention kernels once per layer and agree with the
+    same model on the CPU (fp32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import splice_cache
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import make_model
+
+    cfg = get_config(arch).reduced()
+    cpu = make_model(cfg, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = make_model(cfg, device=cuda)
+    gpu.load_params(cpu.state_dict())
+    emb = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (2, 14, cfg.d_model)).astype(np.float32))
+    before = dict(LAUNCHES)
+    outs = []
+    for model in (cpu, gpu):
+        e = emb.to(model.device)
+        logits, pc = model.prefill_step(embeds=e[:, :12])
+        cache = model.init_cache(ShapeConfig("serve", 16, 2, "decode"))
+        splice_cache(cache, pc)
+        steps = [model.serve_step(cache, None, 12 + i, embeds=e[:, 12 + i:13 + i])[0]
+                 for i in range(2)]
+        outs.append([t.cpu() for t in (logits, *steps)])
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    assert LAUNCHES["flash_decode"] == before["flash_decode"] + 2 * cfg.n_layers
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 20, 128])
+def test_mrope_on_card_matches_cpu(d, cuda):
+    """``apply_rope`` under three distinct M-RoPE streams (the reduced, an
+    odd and qwen2-vl's section split), card against CPU in fp32."""
+    from repro_torch.models.layers import apply_rope, mrope_sections_for
+
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 4, d)).astype(np.float32))
+    pos = torch.from_numpy(np.stack([np.arange(64)[None].repeat(2, 0),
+                                     rng.integers(0, 64, (2, 64)),
+                                     rng.integers(0, 1024, (2, 64))]).astype(np.int32))
+    secs = mrope_sections_for(d)
+    want = apply_rope(x, pos, 1e6, secs)
+    got = apply_rope(x.to(cuda), pos.to(cuda), 1e6, secs).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_moe_train_step_on_card_matches_cpu(cuda):
     """One reduced qwen3-moe ``train_step`` (AdamW, capacity dispatch,
     fp32) on the card against the same step on the CPU: the loss within
