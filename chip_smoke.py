@@ -90,7 +90,7 @@ Phases, each printing JSON lines:
 13. ssm_train_kernels: the SSD chunk forward kernel's y, states and
    decay against ``ref_ssd_chunk`` on each case below (and against the
    formula in fp64 at the two training shapes), then the backward kernel
-   (five launches of one ``ssd_chunk_bwd`` call) against
+   (six launches of one ``ssd_chunk_bwd`` call) against
    ``ref_ssd_chunk_bwd`` on all five gradients (the mamba2 and zamba2
    training shapes, chunk 128, the
    reduced shape, two groups, the model's strided views, a state of 10, a
@@ -1591,8 +1591,8 @@ SSD_BWD_CASES = [
 ]
 SSD_BWD_TIMED = ("mamba2", "zamba2")
 # what one ssd_chunk_bwd call launches
-SSD_BWD_KERNELS = ("ssd_scores_kernel", "ssd_bwd_head_kernel", "ssd_bwd_head_sum_kernel",
-                   "ssd_bwd_group_kernel", "ssd_bwd_gA_kernel")
+SSD_BWD_KERNELS = ("ssd_scores_kernel", "ssd_bwd_head_kernel", "ssd_bwd_state_kernel",
+                   "ssd_bwd_pair_kernel", "ssd_bwd_group_kernel", "ssd_bwd_gA_kernel")
 SSD_BWD_GRADS = ("gx", "gdt", "gA", "gB", "gC")
 # of each (batch, chunk, head) tile of gx and gdt and (batch, chunk, group)
 # tile of gB and gC, ||g - r|| / ||r|| (``tile_rel_err``; gA, a sum over
@@ -1753,7 +1753,7 @@ def phase_ssm_train_kernels(dev, ptxas: list) -> dict:
 
 
 def ssd_bwd_timing(inputs, outs, Q) -> dict:
-    """Device ms of one ``ssd_chunk_bwd`` call (its five launches, and each
+    """Device ms of one ``ssd_chunk_bwd`` call (its six launches, and each
     kernel's), its CUDA-event ms and the plain version's device ms beside
     the bound."""
     from repro_torch.kernels.ref import ref_ssd_chunk_bwd

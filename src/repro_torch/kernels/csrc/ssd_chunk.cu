@@ -170,19 +170,17 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-// acc[n] += A B_n for the 8 column fragments n of one k-step, in 3xTF32.
-// The tensor cores add with truncation, so a long chain of mma.sync into
-// one accumulator drifts by up to an ulp of the running sum per step: each
+// acc[n] += A B_n for the NF column fragments n of one k-step, in 3xTF32,
+// from A and B already split into their tf32 high and low parts. The
+// tensor cores add with truncation, so a long chain of mma.sync into one
+// accumulator drifts by up to an ulp of the running sum per step: each
 // k-step's three products are summed from zero on the tensor cores (the
 // two small ones first), and the k-steps are summed by fp32 adds, rounded
 // to nearest, as a CUDA-core loop would.
 template <int NF>
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[NF][4], const float (&a)[4],
-                                           const uint32_t (&bh)[NF][2],
-                                           const uint32_t (&bl)[NF][2]) {
-  uint32_t ah[4], al[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) split_tf32(a[r], ah[r], al[r]);
+__device__ __forceinline__ void mma3(float (&acc)[NF][4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[NF][2],
+                                     const uint32_t (&bl)[NF][2]) {
   float d[NF][4];
 #pragma unroll
   for (int n = 0; n < NF; ++n) mma_tf32_zero(d[n], al, bh[n][0], bh[n][1]);
@@ -196,25 +194,40 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[NF][4], const float (&a)
     for (int r = 0; r < 4; ++r) acc[n][r] += d[n][r];
 }
 
-// acc[NF][4] += A B for one warp over k in [0, K), K a multiple of 8, in
-// 3xTF32: A (16 x K) has element (r, k) = a(r, k), B (K x 8 NF) element
-// (k, n) = b(k, n); both are read from shared memory through the functors,
-// which place the tiles and any transpose. acc is in C-fragment order.
-template <int NF, class FA, class FB>
-__device__ __forceinline__ void warp_mma(float (&acc)[NF][4], int K, FA a, FB b) {
-  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
-#pragma unroll 1
-  for (int k = 0; k < K; k += 8) {
-    const float af[4] = {a(gq, k + tq), a(gq + 8, k + tq), a(gq, k + tq + 4),
-                         a(gq + 8, k + tq + 4)};
-    uint32_t bh[NF][2], bl[NF][2];
+// mma3 with A in fp32, split here
+template <int NF>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[NF][4], const float (&a)[4],
+                                           const uint32_t (&bh)[NF][2],
+                                           const uint32_t (&bl)[NF][2]) {
+  uint32_t ah[4], al[4];
 #pragma unroll
-    for (int n = 0; n < NF; ++n) {
-      split_tf32(b(k + tq, 8 * n + gq), bh[n][0], bl[n][0]);
-      split_tf32(b(k + tq + 4, 8 * n + gq), bh[n][1], bl[n][1]);
-    }
-    mma_3xtf32(acc, af, bh, bl);
-  }
+  for (int r = 0; r < 4; ++r) split_tf32(a[r], ah[r], al[r]);
+  mma3(acc, ah, al, bh, bl);
+}
+
+// acc[n] += A B_n in 3xTF32 as one chain on the tensor cores (the two small
+// products first), for the backward, whose checks are relative to each
+// gradient's largest value: no temporaries, no fp32 adds
+template <int NF>
+__device__ __forceinline__ void mma3_chain(float (&acc)[NF][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[NF][2],
+                                           const uint32_t (&bl)[NF][2]) {
+#pragma unroll
+  for (int n = 0; n < NF; ++n) mma_tf32(acc[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < NF; ++n) mma_tf32(acc[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < NF; ++n) mma_tf32(acc[n], ah, bh[n][0], bh[n][1]);
+}
+
+template <int NF>
+__device__ __forceinline__ void mma3_chain(float (&acc)[NF][4], const float (&a)[4],
+                                           const uint32_t (&bh)[NF][2],
+                                           const uint32_t (&bl)[NF][2]) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) split_tf32(a[r], ah[r], al[r]);
+  mma3_chain(acc, ah, al, bh, bl);
 }
 
 // e^x on the SFU: ex2.approx (2 ulp) of x log2(e); x <= 0 here, where the
@@ -511,374 +524,931 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 // ---------------------------------------------------------------------- //
 // The backward: gradients of x, dt, A, B and C from those of y, the states
-// and decay (kernels/ref.py::ref_ssd_chunk_bwd has the formulas). Four
-// launches after ssd_scores_kernel, which recomputes S and the seg pairs:
+// and decay (kernels/ref.py::ref_ssd_chunk_bwd has the formulas). Per
+// (batch, chunk, head), with u = dt x, S = C B^T of the head's group, L =
+// exp(seg_i - seg_j) [j <= i], M = S o L, w = exp(total - seg), v = B
+// gstate and R = gM o M:
 //
-//  ssd_bwd_head_kernel, one block per (head, chunk, batch), 256 threads:
-//   - for each 64-key tile J (x, B and u = dt x in shared memory), for each
-//     64-row tile I >= J (gy in shared memory, S decoded from the scores
-//     scratch): gM = gy u^T by 3xTF32 mma.sync; L = exp((hi_i - hi_j) +
-//     (lo_i - lo_j)) formed only where j <= i < Q (above the diagonal exp
-//     may overflow, and 0 * inf would be NaN); M = S o L and R = gM o M
-//     staged in shared memory; gM o L, this head's share of G_S, to a
-//     scratch tile; gu[J] += M^T gy[I] in registers;
-//   - g(dA_k) = sum_{j < k <= i} R_ij over the pair ranges: per tile, from
-//     R's column sums (k at or before the tile's rows), row sums (k past its
-//     keys) or, in a diagonal tile, each row's sums over j < k; one thread a
-//     position k, so each sum has a fixed order;
-//   - per key tile, v = B gstate; gu += w o v; gx = gu dt; the row sums
-//     r_j = w_j u_j . v_j and sum_p gu x; gB's state term (w o u) gstate^T
-//     of this head to the scratch;
-//   - then g(dA_k) += sum_{j < k} r_j + gdecay, gdt = g(dA) A + sum_p gu x,
-//     and the block's share of gA, sum_k g(dA_k) dt_k;
-//  ssd_bwd_head_sum_kernel: the heads' shares summed per group, in head
-//   order (no atomics: two runs agree bit for bit);
-//  ssd_bwd_group_kernel, one block per (tile, role, chunk, batch x group):
-//   gC[I] = sum_J G_S[I, J] B[J] and gB[J] = sum_I G_S[I, J]^T C[I] plus
-//   the summed state term, by 3xTF32 mma.sync;
+//   gM = gy u^T o [j <= i]       gu = M^T gy + w o v     gx = gu dt
+//   G_S = sum over the group's heads of gM o L
+//   gC = G_S B                   gB = G_S^T C + sum over the heads of (w o u) gstate^T
+//   g(dA_k) = sum_{j < k <= i} R_ij + sum_{j < k} r_j + gdecay,  r_j = w_j u_j . v_j
+//   gdt = g(dA) A + sum_p gu x   gA = sum over (b, c, k) of g(dA) dt
+//
+// What bounds it on an H100: operations. The causal half of gM and gu, v,
+// the state term and C's and B's products in 3xTF32 are about 10.96 GFLOP
+// at the mamba2 training shape (b 2, s 1024, H 80, P 64, G 1, N 128, Q
+// 256): 0.066 ms at 3 x 495 TFLOP/s, against 152 MB of inputs and outputs
+// (0.045 ms). Six launches, no atomics (every sum has a fixed order, so
+// two calls agree bit for bit), and nothing a head computes for its group
+// in device memory:
+//
+//  ssd_scores_kernel again: S in A-fragment order and the seg pairs;
+//  ssd_bwd_head_kernel, one block per (head, chunk, batch), 256 threads,
+//   114 KB of shared memory and 128 registers, so two blocks (16 warps) an
+//   SM:
+//   - gy's row tiles and gstate's 64-row pieces stream through a cp.async
+//     ring of two stages, the next item loading while the block works on
+//     this one; x of a key tile rides with its first item. Each item is
+//     split once into tf32 high and low parts in shared memory, as is u =
+//     dt x once a key tile, since several warps read each as an operand;
+//   - per (row tile I, key tile J): gM = gy u^T by 3xTF32 mma.sync, its B
+//     operand read with the keys permuted so that each lane's C fragment
+//     holds the keys of S's A fragment, which comes from the scores scratch
+//     straight into registers, one 16-byte load a lane; L is applied there,
+//     exp taken only where j <= i < Q; M goes to shared memory for gu +=
+//     M^T gy, read with k = i permuted to rows 2t and 2t + 1 so that both
+//     operands' reads are free of bank conflicts;
+//   - g(dA) without a serial loop: the pairs j < k <= i are those of the
+//     columns m < k less those of the rows m < k (R is 0 above the
+//     diagonal, and its diagonal cancels), so g(dA_k) = sum_{m < k} (cs_m -
+//     rs_m + r_m) + gdecay, cs and rs R's column and row sums off the
+//     diagonal: warp shuffles over the accumulator fragments, then the
+//     warps' partials added in a fixed order, then one exclusive scan over
+//     the chunk (shuffles within each warp, the warps' totals in order);
+//   - v = B[J] gstate (B's A fragments from device memory), gu += w v, gx,
+//     r and sum_p gu x by shuffles; gdt, and the block's share of gA;
+//   - its products accumulate on the tensor cores as one chain (the
+//     forward's per-k-step sums need 16 more registers, and at two blocks
+//     an SM the kernel then spills; the checks here are relative to each
+//     gradient's largest value, where the chain costs at most about 0.01 of
+//     the tolerance, tests/test_torch_ssd_bwd_numerics.py);
+//  ssd_bwd_state_kernel, one block per (key tile, head slice, chunk, batch
+//   x group), and ssd_bwd_pair_kernel, one per (causal pair (I, J), head
+//   slice, chunk, batch x group): gB's state term sum_h (w o u) gstate^T and
+//   G_S = sum_h gM o L over a slice of the group's heads in order, by wgmma
+//   (Hopper's warpgroup product, m64nNk8 TF32, operands read from shared
+//   memory in its K-major core-matrix layout, each head's products one chain
+//   on the tensor cores, the heads added in fp32), two warpgroups a block:
+//   a head's products run while the block splits the next head's tiles
+//   (low parts double-buffered), and the pair kernel computes the
+//   diagonal tile's L meanwhile; off the diagonal L = e^(seg_i - ref)
+//   e^(ref - seg_j), both factors at most 1, is taken into the operands'
+//   rows as they are split. The heads are cut into ns = min(4, H / G)
+//   slices, a fixed count, so the scratch of parts (9.4 MB at the training
+//   shape) does not grow with H while G = 1 still makes 448 blocks;
+//  ssd_bwd_group_kernel, one block per (tile, role, 64 columns, chunk,
+//   batch x group): the slices summed in order, gC[I] = sum_J G_S[I, J]
+//   B[J] and gB[J] = sum_I G_S[I, J]^T C[I] plus the summed state term;
 //  ssd_bwd_gA_kernel: gA[h], the blocks' shares summed over (batch, chunk)
 //   in order.
 //
-// What bounds it: operations (the causal half of gM, gu, C's and B's
-// products and the state terms at 3xTF32, about 10.9 GFLOP at the mamba2
-// training shape: 0.066 ms), against about 152 MB of inputs and outputs
-// (0.045 ms). This first version is simple before it is fast: the heads'
-// shares of G_S and of gB's state term go through a scratch in device
-// memory (about 190 MB at that shape, written once and read once), and
-// the loads are not overlapped with the products.
-constexpr int kHeadSmem = (6 * kMaxQ + 6 * kTile + 3 * kTile * kXP + 2 * kTile * kSP +
-                           kTile * kBP + kMaxN * kXP) * static_cast<int>(sizeof(float));
-constexpr int kGroupSmem = (kTile * kSP + kTile * kBP) * static_cast<int>(sizeof(float));
+// What was measured (PERF.md): about 0.80 ms at the mamba2 training shape
+// (head 0.38, pair 0.23, state 0.11, group 0.04, scores 0.02), 12x the
+// bound. Each block works through its heads or pairs as a chain of short
+// steps (a tile's load, its split, the products, the decay, a barrier)
+// that 8 to 16 warps an SM do not hide: removing any one step saves about
+// the same time, a single k-step in place of eight saves little, and a
+// deeper ring of loads or more slices changes nothing. The mma.sync
+// operands' high and low fragments take two shared-memory wavefronts a
+// product, and the register file of 16 warps an SM is full.
+constexpr int kGP = kTile + 4;   // pitch of the backward's tiles read by 4-byte loads (4 mod 32)
+constexpr int kFP = kTile + 8;   // pitch of its tiles read as 8-byte pairs (8 mod 32)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kHeadSmem =
+    (6 * kTile * kGP + 8 * kMaxQ + 6 * kTile) * static_cast<int>(sizeof(float));
+constexpr int kGroupSmem = (2 * kTile * kFP + 2 * kTile * kGP) * static_cast<int>(sizeof(float));
 
-// Floats a head leaves in the scratch: its gM o L in the causal 64 x 64
-// tiles (it, jt <= it, tile it (it + 1) / 2 + jt), then gB's state term
-// [n_tiles * 64, N].
-long long part_floats(int N, int Q) {
+// Floats of a (batch, chunk, group, slice) part: G_S's sum over the slice
+// in the causal 64 x 64 tiles (it, jt <= it, tile it (it + 1) / 2 + jt),
+// then the state term's [n_tiles * 64, N].
+__host__ __device__ __forceinline__ int n_pairs_of(int Q) {
   const int n_tiles = (Q + kTile - 1) / kTile;
-  return static_cast<long long>(n_tiles * (n_tiles + 1) / 2) * kTile * kTile +
-         static_cast<long long>(n_tiles) * kTile * N;
+  return n_tiles * (n_tiles + 1) / 2;
 }
 
-// grid (H, nc, b)
-__global__ void __launch_bounds__(kThreads, 1)
+long long part_floats(int N, int Q) {
+  return static_cast<long long>(n_pairs_of(Q)) * kTile * kTile +
+         static_cast<long long>((Q + kTile - 1) / kTile) * kTile * N;
+}
+
+__device__ __forceinline__ uint32_t bits(float a) { return __float_as_uint(a); }
+
+__device__ __forceinline__ void split_f(float a, float& hi, float& lo) {
+  uint32_t h, l;
+  split_tf32(a, h, l);
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(l);
+}
+
+// A 64 x 64 tile at t (row pitch `pitch`, a multiple of 4) into the tf32
+// high parts of its values, in place, and their low parts at lo; row r's
+// values are first taken times scale(r).x, then times scale(r).y, each
+// product rounded (no FMA).
+template <class Scale>
+__device__ __forceinline__ void split_tile(float* t, float* lo, int pitch, int tid, Scale scale) {
+  for (int idx = tid; idx < kTile * kTile / 4; idx += kThreads) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    const float2 f = scale(r);
+    float4* tp = reinterpret_cast<float4*>(t + r * pitch + c);
+    const float4 v = *tp;
+    float4 hi, lw;
+    split_f(__fmul_rn(__fmul_rn(v.x, f.x), f.y), hi.x, lw.x);
+    split_f(__fmul_rn(__fmul_rn(v.y, f.x), f.y), hi.y, lw.y);
+    split_f(__fmul_rn(__fmul_rn(v.z, f.x), f.y), hi.z, lw.z);
+    split_f(__fmul_rn(__fmul_rn(v.w, f.x), f.y), hi.w, lw.w);
+    *tp = hi;
+    *reinterpret_cast<float4*>(lo + r * pitch + c) = lw;
+  }
+}
+
+__device__ __forceinline__ float2 unit_scale(int) { return make_float2(1.f, 1.f); }
+
+// grid (H, nc, b); heads vary fastest, so the blocks that read one chunk's
+// S run together and find it in L2
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ B,
                     const float* __restrict__ gy, const float* __restrict__ gstate,
                     const float* __restrict__ gdecay, const float* __restrict__ scores,
                     const float* __restrict__ seg, const float* __restrict__ seg_lo,
-                    float* __restrict__ gx, float* __restrict__ gdt, float* __restrict__ part,
-                    float* __restrict__ gA_part, int s, int H, int P, int G, int N, int Q,
-                    long long F, Strides st, int vec_x, int vec_b) {
+                    float* __restrict__ gx, float* __restrict__ gdt, float* __restrict__ gA_part,
+                    int s, int H, int P, int G, int N, int Q, Strides st, int vec_x) {
   extern __shared__ __align__(16) float smem[];
-  float* sSeg = smem;                   // [kMaxQ]  seg, high part (0 past Q)
-  float* sSegLo = sSeg + kMaxQ;         // [kMaxQ]  its low part
-  float* sDt = sSegLo + kMaxQ;          // [kMaxQ]  dt
-  float* sW = sDt + kMaxQ;              // [kMaxQ]  w = exp(total - seg)
-  float* sRw = sW + kMaxQ;              // [kMaxQ]  r_j = w_j u_j . v_j
-  float* sGdx = sRw + kMaxQ;            // [kMaxQ]  sum_p gu_jp x_jp
-  float* sCol = sGdx + kMaxQ;           // [kTile]  column sums of an R tile
-  float* sRow = sCol + kTile;           // [kTile]  its row sums
-  float* sHalf = sRow + kTile;          // [4][kTile]  row sums of the two column halves
-  float* sX = sHalf + 4 * kTile;        // [kTile][kXP]  x of the key tile
-  float* sU = sX + kTile * kXP;         // [kTile][kXP]  u = dt x of the key tile
-  float* sGy = sU + kTile * kXP;        // [kTile][kXP]  gy of the row tile
-  float* sS = sGy + kTile * kXP;        // [kTile][kSP]  S of the (row, key) tile, then R
-  float* sM = sS + kTile * kSP;         // [kTile][kSP]  M = S o L
-  float* sB = sM + kTile * kSP;         // [kTile][kBP]  B of the key tile
-  float* sGs = sB + kTile * kBP;        // [kMaxN][kXP]  this head's gstate [N, P]
+  float* sRaw = smem;                    // [2][kTile][kGP]  the ring (gy or gstate rows), then high
+  float* sLo = sRaw + 2 * kTile * kGP;   // [kTile][kGP]  the current item's low part
+  float* sM = sLo + kTile * kGP;         // [kTile][kGP]  M = S o L of the current pair, rows i
+  float* sU = sM + kTile * kGP;          // [kTile][kGP]  x of the key tile, then u's high part
+  float* sULo = sU + kTile * kGP;        // [kTile][kGP]  u's low part
+  float* sSeg = sULo + kTile * kGP;      // [kMaxQ]  seg, high part (0 past Q)
+  float* sSegLo = sSeg + kMaxQ;          // [kMaxQ]  its low part
+  float* sDt = sSegLo + kMaxQ;           // [kMaxQ]  dt
+  float* sW = sDt + kMaxQ;               // [kMaxQ]  w = exp(total - seg)
+  float* sCs = sW + kMaxQ;               // [kMaxQ]  cs_m = sum_{i > m} R_im
+  float* sRs = sCs + kMaxQ;              // [kMaxQ]  rs_m = sum_{j < m} R_mj
+  float* sR = sRs + kMaxQ;               // [kMaxQ]  r_m = w_m u_m . v_m
+  float* sXg = sR + kMaxQ;               // [kMaxQ]  sum_p gu_mp x_mp
+  float* sPart = sXg + kMaxQ;            // [6][kTile]  the warps' partial sums
 
   const int h = blockIdx.x, c = blockIdx.y, bb = blockIdx.z, nc = gridDim.y;
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
-  const int wr = warp & 3, wc = warp >> 2;      // a 16-row strip, a 32-column half of a tile
+  const int w4 = warp & 3, w2 = warp >> 2;
   const long long t0 = static_cast<long long>(c) * Q;
   const long long bc = static_cast<long long>(bb) * nc + c;
   const float* xp = x + bb * st.xb + t0 * st.xs + h * st.xh;
   const float* bp = B + bb * st.bb + t0 * st.bs + g * st.bg;
   const float* gyp = gy + ((bb * static_cast<long long>(s) + t0) * H + h) * P;
   const float* gsp = gstate + (bc * H + h) * N * P;
-  const int n_tiles = (Q + kTile - 1) / kTile, r16 = (Q + 15) / 16, k8 = (Q + 7) / 8;
-  const int Pk = (P + 7) / 8 * 8, Nk = (N + 7) / 8 * 8;
-  float* hp = part + (bc * H + h) * F;
-  const float* sc = scores + (bc * G + g) * r16 * k8 * 128;
+  const int nt = (Q + kTile - 1) / kTile, ngs = (N + kTile - 1) / kTile;
+  const int r16 = (Q + 15) / 16, k8 = (Q + 7) / 8, Pk = (P + 7) / 8 * 8;
+  const float4* sf = reinterpret_cast<const float4*>(scores) + (bc * G + g) * r16 * k8 * 32 + lane;
 
-  load_tile<kThreads>(sGs, kXP, gsp, P, 0, N, P, kMaxP, 1, tid);
-  load_tile<kThreads>(sGs + kTile * kXP, kXP, gsp, P, kTile, N, P, kMaxP, 1, tid);
+  // the ring's items: for each key tile jt, gy's row tiles k = jt .. nt - 1,
+  // then gstate's 64-row pieces k = nt .. nt + ngs - 1; x of key tile jt
+  // comes with its first item
+  auto issue = [&](int jt, int k, int stage) {
+    float* dst = sRaw + stage * kTile * kGP;
+    if (k < nt)
+      load_tile<kThreads>(dst, kGP, gyp, static_cast<long long>(H) * P, k * kTile, Q, P, kTile, 1,
+                          tid);
+    else
+      load_tile<kThreads>(dst, kGP, gsp, P, (k - nt) * kTile, N, P, kTile, 1, tid);
+    if (k == jt) load_tile<kThreads>(sU, kGP, xp, st.xs, jt * kTile, Q, P, kTile, vec_x, tid);
+  };
+  issue(0, 0, 0);
   cp_async_commit();
+
   const long long so = bc * Q * H + h;
   const float* dp = dt + bb * st.db + t0 * st.ds + h * st.dh;
   for (int i = tid; i < kMaxQ; i += kThreads) {
     sSeg[i] = i < Q ? seg[so + static_cast<long long>(i) * H] : 0.f;
     sSegLo[i] = i < Q ? seg_lo[so + static_cast<long long>(i) * H] : 0.f;
     sDt[i] = i < Q ? dp[i * st.ds] : 0.f;
-    sRw[i] = 0.f;
-    sGdx[i] = 0.f;
+    sCs[i] = sRs[i] = sR[i] = sXg[i] = 0.f;
   }
   __syncthreads();
-  const float total = sSeg[Q - 1], total_lo = sSegLo[Q - 1];
-  for (int i = tid; i < kMaxQ; i += kThreads)
-    sW[i] = i < Q ? expf((total - sSeg[i]) + (total_lo - sSegLo[i])) : 0.f;
-  cp_async_wait<0>();
-  __syncthreads();
+  {
+    const float total = sSeg[Q - 1], total_lo = sSegLo[Q - 1];
+    for (int i = tid; i < kMaxQ; i += kThreads)
+      sW[i] = i < Q ? expf((total - sSeg[i]) + (total_lo - sSegLo[i])) : 0.f;
+  }
 
-  float fk = 0.f;   // R's pairs j < k <= i, k = tid
-#pragma unroll 1
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int J0 = jt * kTile;
-    load_tile<kThreads>(sX, kXP, xp, st.xs, J0, Q, P, kMaxP, vec_x, tid);
-    load_tile<kThreads>(sB, kBP, bp, st.bs, J0, Q, N, Nk, vec_b, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
+  // the ring, item after item: stage `cur` holds the current one, the next
+  // loads into the other while the block works
+  int cur = 0;
+  auto next = [&](int jt, int k) {     // issue item (jt, k) if it exists, then wait for the current
+    if (jt < nt) issue(jt, k, cur ^ 1);
+    cp_async_commit();                 // an empty group after the last item
+    cp_async_wait<1>();
     __syncthreads();
-    for (int idx = tid; idx < kTile * kMaxP; idx += kThreads) {
-      const int j = idx / kMaxP, p = idx % kMaxP;
-      sU[j * kXP + p] = __fmul_rn(sX[j * kXP + p], sDt[J0 + j]);
-    }
-    float gu[4][4] = {};   // rows 16 wr.. of the key tile, columns 32 wc..
+  };
 #pragma unroll 1
-    for (int it = jt; it < n_tiles; ++it) {
+  for (int jt = 0; jt < nt; ++jt) {
+    const int J0 = jt * kTile;
+    // gu: rows j 16 w4 + g (+8) of the key tile, columns p 32 w2 + 8n + 2t (+1)
+    float gu[4][4] = {};
+#pragma unroll 1
+    for (int it = jt; it < nt; ++it) {
       const int I0 = it * kTile;
-      __syncthreads();     // sU is written; the last tile's sGy, sS, sM, sCol, sRow are read
-      load_tile<kThreads>(sGy, kXP, gyp, static_cast<long long>(H) * P, I0, Q, P, kMaxP, 1, tid);
-      cp_async_commit();
-      // S of the tile from the scratch: its 4 x 8 fragments (rows 16 rl.., keys
-      // 8 kl..), one 16-byte piece a lane, written to shared memory with 0
-      // where j > i or i >= Q (fragments wholly above the diagonal are not in
-      // the scratch)
-      for (int idx = tid; idx < 32 * 32; idx += kThreads) {
-        const int l = idx % 32, rl = idx / 256, kl = idx / 32 % 8;
-        const int r = it * 4 + rl, ks = jt * 8 + kl;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < r16 && ks < k8 && ks <= 2 * r + 1)
-          v = __ldcg(reinterpret_cast<const float4*>(sc) + (static_cast<long long>(r) * k8 + ks) * 32 + l);
-        const int il = rl * 16 + l / 4, jl = kl * 8 + l % 4, i = I0 + il, j = J0 + jl;
-        float* o = sS + il * kSP + jl;
-        o[0] = i < Q && j <= i ? v.x : 0.f;
-        o[8 * kSP] = i + 8 < Q && j <= i + 8 ? v.y : 0.f;
-        o[4] = i < Q && j + 4 <= i ? v.z : 0.f;
-        o[8 * kSP + 4] = i + 8 < Q && j + 4 <= i + 8 ? v.w : 0.f;
-      }
-      cp_async_wait<0>();
+      next(jt, it + 1);
+      float* raw = sRaw + cur * kTile * kGP;
+      split_tile(raw, sLo, kGP, tid, unit_scale);
+      if (it == jt)
+        split_tile(sU, sULo, kGP, tid, [&](int r) { return make_float2(sDt[J0 + r], 1.f); });
       __syncthreads();
 
-      // gM = gy u^T: rows 16 wr.. of the row tile, keys 32 wc..
+      // gM = gy u^T: rows i 16 w4 .., keys 32 w2 ..; B's column g is key 8n +
+      // sig(g), so that the C fragment's columns 2t and 2t + 1 are keys t and
+      // t + 4, as in S's A fragment
       float gm[4][4] = {};
-      warp_mma<4>(gm, Pk, [&](int r, int k) { return sGy[(16 * wr + r) * kXP + k]; },
-                  [&](int k, int n) { return sU[(32 * wc + n) * kXP + k]; });
-      float m[4][4], rr[4][4];
+      {
+        const int sig = (gq >> 1) + 4 * (gq & 1);
+        const float* ah = raw + (16 * w4 + gq) * kGP + tq;
+        const float* al = sLo + (16 * w4 + gq) * kGP + tq;
+        const float* uh = sU + (32 * w2 + sig) * kGP + tq;
+        const float* ul = sULo + (32 * w2 + sig) * kGP + tq;
+#pragma unroll 2
+        for (int kk = 0; kk < Pk; kk += 8) {
+          const uint32_t a_h[4] = {bits(ah[kk]), bits(ah[kk + 8 * kGP]), bits(ah[kk + 4]),
+                                   bits(ah[kk + 8 * kGP + 4])};
+          const uint32_t a_l[4] = {bits(al[kk]), bits(al[kk + 8 * kGP]), bits(al[kk + 4]),
+                                   bits(al[kk + 8 * kGP + 4])};
+          uint32_t b_h[4][2], b_l[4][2];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = I0 + 16 * wr + gq + e / 2 * 8, j = J0 + 32 * wc + 8 * n + 2 * tq + e % 2;
-          const float L =
-              i < Q && j <= i ? expf((sSeg[i] - sSeg[j]) + (sSegLo[i] - sSegLo[j])) : 0.f;
-          m[n][e] = sS[(i - I0) * kSP + j - J0] * L;
-          rr[n][e] = gm[n][e] * m[n][e];
-          gm[n][e] *= L;
+          for (int n = 0; n < 4; ++n) {
+            b_h[n][0] = bits(uh[n * 8 * kGP + kk]);
+            b_h[n][1] = bits(uh[n * 8 * kGP + kk + 4]);
+            b_l[n][0] = bits(ul[n * 8 * kGP + kk]);
+            b_l[n][1] = bits(ul[n * 8 * kGP + kk + 4]);
+          }
+          mma3_chain(gm, a_h, a_l, b_h, b_l);
         }
-      // this head's gM o L to the scratch
-      float* gp = hp + static_cast<long long>(it * (it + 1) / 2 + jt) * kTile * kTile;
+      }
+      // S of these rows and keys in A-fragment order, from the scores
+      // scratch (fragments wholly above the diagonal are not there), one
+      // fragment at a time; M = S o L, masked before exp, to sM; R = gM o M
+      // off its diagonal (which cancels in cs - rs) summed along its rows
+      // (over t, then the two key halves) and columns (over g, then the four
+      // row strips)
+      float rsum[2] = {0.f, 0.f};
+      const int r = I0 / 16 + w4;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        float* o = gp + (16 * wr + gq) * kTile + 32 * wc + 8 * n + 2 * tq;
-        *reinterpret_cast<float2*>(o) = make_float2(gm[n][0], gm[n][1]);
-        *reinterpret_cast<float2*>(o + 8 * kTile) = make_float2(gm[n][2], gm[n][3]);
-      }
-      __syncthreads();     // every warp has read S
+        const int ks = J0 / 8 + 4 * w2 + n;
+        const float4 sv = r < r16 && ks < k8 && ks <= 2 * r + 1
+                              ? __ldcg(sf + (static_cast<long long>(r) * k8 + ks) * 32)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        float csum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+        for (int hr = 0; hr < 2; ++hr) {
+          const int il = 16 * w4 + gq + 8 * hr, i = I0 + il;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int o = (16 * wr + gq + e / 2 * 8) * kSP + 32 * wc + 8 * n + 2 * tq + e % 2;
-          sM[o] = m[n][e];
-          sS[o] = rr[n][e];
-        }
-      __syncthreads();
-      // gu += M^T gy: rows j of the key tile, summed over the rows i of this tile
-      warp_mma<4>(gu, kTile, [&](int r, int k) { return sM[k * kSP + 16 * wr + r]; },
-                  [&](int k, int n) { return sGy[k * kXP + 32 * wc + n]; });
-      if (tid < kTile) {
-        float a = 0.f;
-        for (int i = 0; i < kTile; ++i) a += sS[i * kSP + tid];
-        sCol[tid] = a;
-      } else if (tid < 2 * kTile) {
-        float a = 0.f;
-        for (int j = 0; j < kTile; ++j) a += sS[(tid - kTile) * kSP + j];
-        sRow[tid - kTile] = a;
-      }
-      __syncthreads();
-      if (it == jt) {                    // a diagonal tile: R's rows to their sums over j < jl
-        if (tid < kTile) {
-          float a = 0.f;
-          for (int jl = 0; jl < kTile; ++jl) {
-            const float v = sS[tid * kSP + jl];
-            sS[tid * kSP + jl] = a;
-            a += v;
+          for (int hc = 0; hc < 2; ++hc) {
+            const int jl = 32 * w2 + 8 * n + tq + 4 * hc, j = J0 + jl;
+            const float sij = hr ? (hc ? sv.w : sv.y) : (hc ? sv.z : sv.x);
+            const float m = j <= i && i < Q
+                                ? sij * exp_fast((sSeg[i] - sSeg[j]) + (sSegLo[i] - sSegLo[j]))
+                                : 0.f;
+            const float rr = j < i ? gm[n][2 * hr + hc] * m : 0.f;
+            sM[il * kGP + jl] = m;
+            rsum[hr] += rr;
+            csum[hc] += rr;
           }
         }
-        __syncthreads();
-      }
-      // this tile's pairs j < k <= i, for k = tid
-      const int k = tid;
-      if (k > J0 && k < I0 + kTile && k < Q) {
-        float a = 0.f;
-        if (k <= I0) {                   // every row of the tile is at or past k
-          for (int jl = 0; jl < min(k - J0, kTile); ++jl) a += sCol[jl];
-        } else if (k >= J0 + kTile) {    // every key of the tile is before k
-          for (int il = k - I0; il < kTile; ++il) a += sRow[il];
-        } else {                         // k inside a diagonal tile: rows i >= k of keys j < k
-          for (int il = k - I0; il < kTile; ++il) a += sS[il * kSP + k - J0];
+#pragma unroll
+        for (int hc = 0; hc < 2; ++hc) {
+          csum[hc] += __shfl_xor_sync(kFull, csum[hc], 4);
+          csum[hc] += __shfl_xor_sync(kFull, csum[hc], 8);
+          csum[hc] += __shfl_xor_sync(kFull, csum[hc], 16);
+          if (gq == 0) sPart[w4 * kTile + 32 * w2 + 8 * n + tq + 4 * hc] = csum[hc];
         }
-        fk += a;
       }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        rsum[hr] += __shfl_xor_sync(kFull, rsum[hr], 1);
+        rsum[hr] += __shfl_xor_sync(kFull, rsum[hr], 2);
+        if (tq == 0) sPart[(4 + w2) * kTile + 16 * w4 + gq + 8 * hr] = rsum[hr];
+      }
+      __syncthreads();
+      if (tid < kTile) {
+        const float* pp = sPart + tid;
+        sCs[J0 + tid] += ((pp[0] + pp[kTile]) + pp[2 * kTile]) + pp[3 * kTile];
+      } else if (tid < 2 * kTile) {
+        const float* pp = sPart + 4 * kTile + tid - kTile;
+        sRs[I0 + tid - kTile] += pp[0] + pp[kTile];
+      }
+      // gu += M^T gy: k = i, lane t taking rows 2t and 2t + 1 of each 8
+      {
+        const float* ma = sM + 2 * tq * kGP + 16 * w4 + gq;
+        const float* bh = raw + 2 * tq * kGP + 32 * w2 + gq;
+        const float* bl = sLo + 2 * tq * kGP + 32 * w2 + gq;
+        const int ke = min(kTile, (Q - I0 + 7) / 8 * 8);
+#pragma unroll 1
+        for (int kk = 0; kk < ke; kk += 8) {
+          const float* m0 = ma + kk * kGP;
+          const float a[4] = {m0[0], m0[8], m0[kGP], m0[kGP + 8]};
+          uint32_t b_h[4][2], b_l[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            b_h[n][0] = bits(bh[kk * kGP + 8 * n]);
+            b_h[n][1] = bits(bh[(kk + 1) * kGP + 8 * n]);
+            b_l[n][0] = bits(bl[kk * kGP + 8 * n]);
+            b_l[n][1] = bits(bl[(kk + 1) * kGP + 8 * n]);
+          }
+          mma3_chain(gu, a, b_h, b_l);
+        }
+      }
+      __syncthreads();     // every warp is done with this item's buffers
+      cur ^= 1;
     }
 
-    // the state's terms of the key tile: v = B gstate, rows j, columns p
+    // v = B[J] gstate over gstate's 64-row pieces n0 ..: k = n, lane t taking
+    // states 2t and 2t + 1 of each 8, B[J]'s A fragments from device memory
     float v[4][4] = {};
-    warp_mma<4>(v, Nk, [&](int r, int k) { return sB[(16 * wr + r) * kBP + k]; },
-                [&](int k, int n) { return sGs[k * kXP + 32 * wc + n]; });
-    float rsum[2] = {0.f, 0.f}, xsum[2] = {0.f, 0.f};
+    const int j0 = J0 + 16 * w4 + gq;
+    const bool ok0 = j0 < Q, ok1 = j0 + 8 < Q;
+#pragma unroll 1
+    for (int hs = 0; hs < ngs; ++hs) {
+      const int n0 = hs * kTile;
+      if (hs + 1 < ngs) next(jt, nt + hs + 1);
+      else next(jt + 1, jt + 1);
+      float* raw = sRaw + cur * kTile * kGP;
+      split_tile(raw, sLo, kGP, tid, unit_scale);
+      __syncthreads();
+      const int ke = min(kTile, (N - n0 + 7) / 8 * 8);
+      const float* b0 = bp + static_cast<long long>(j0) * st.bs + n0 + 2 * tq;
+      const float* b1 = b0 + 8 * st.bs;
+      const float* bh = raw + 2 * tq * kGP + 32 * w2 + gq;
+      const float* bl = sLo + 2 * tq * kGP + 32 * w2 + gq;
+#pragma unroll 2
+      for (int kk = 0; kk < ke; kk += 8) {
+        const int n = n0 + kk + 2 * tq;
+        const bool c0 = n < N, c1 = n + 1 < N;
+        const float a[4] = {ok0 && c0 ? b0[kk] : 0.f, ok1 && c0 ? b1[kk] : 0.f,
+                            ok0 && c1 ? b0[kk + 1] : 0.f, ok1 && c1 ? b1[kk + 1] : 0.f};
+        uint32_t b_h[4][2], b_l[4][2];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jl = 16 * wr + gq + e / 2 * 8, p = 32 * wc + 8 * n + 2 * tq + e % 2;
-        const float gu_j = gu[n][e] + sW[J0 + jl] * v[n][e];
-        rsum[e / 2] += sU[jl * kXP + p] * v[n][e];
-        xsum[e / 2] += gu_j * sX[jl * kXP + p];
-        if (J0 + jl < Q && p < P)
-          gx[((bb * static_cast<long long>(s) + t0 + J0 + jl) * H + h) * P + p] =
-              gu_j * sDt[J0 + jl];
-      }
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      rsum[q] += __shfl_xor_sync(0xffffffffu, rsum[q], 1);
-      rsum[q] += __shfl_xor_sync(0xffffffffu, rsum[q], 2);
-      xsum[q] += __shfl_xor_sync(0xffffffffu, xsum[q], 1);
-      xsum[q] += __shfl_xor_sync(0xffffffffu, xsum[q], 2);
-      if (tq == 0) {
-        sHalf[wc * kTile + 16 * wr + gq + 8 * q] = rsum[q];
-        sHalf[(2 + wc) * kTile + 16 * wr + gq + 8 * q] = xsum[q];
-      }
-    }
-    // this head's share of gB's state term: (w o u) gstate^T, rows j, columns n
-    if (64 * wc < N) {
-      float gbs[8][4] = {};
-      warp_mma<8>(gbs, Pk,
-                  [&](int r, int k) { return sW[J0 + 16 * wr + r] * sU[(16 * wr + r) * kXP + k]; },
-                  [&](int k, int n) { return sGs[(64 * wc + n) * kXP + k]; });
-      float* o = hp + static_cast<long long>(n_tiles * (n_tiles + 1) / 2) * kTile * kTile +
-                 static_cast<long long>(J0) * N;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 64 * wc + 8 * n + 2 * tq + e % 2;
-          if (col < N) o[(16 * wr + gq + e / 2 * 8) * N + col] = gbs[n][e];
+        for (int nf = 0; nf < 4; ++nf) {
+          b_h[nf][0] = bits(bh[kk * kGP + 8 * nf]);
+          b_h[nf][1] = bits(bh[(kk + 1) * kGP + 8 * nf]);
+          b_l[nf][0] = bits(bl[kk * kGP + 8 * nf]);
+          b_l[nf][1] = bits(bl[(kk + 1) * kGP + 8 * nf]);
         }
+        mma3_chain(v, a, b_h, b_l);
+      }
+      __syncthreads();     // every warp is done with this piece's buffers
+      cur ^= 1;
+    }
+
+    // the key tile's end: gu += w v, gx = gu dt, and the row sums r_j = w_j
+    // u_j . v_j and sum_p gu x (shuffles, then the two column halves)
+    float xs[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int jl = 16 * w4 + gq + 8 * hr, j = J0 + jl;
+      const float w = sW[j], d = sDt[j];
+      const float* xr = xp + static_cast<long long>(j) * st.xs;
+      float* gxr = gx + ((bb * static_cast<long long>(s) + t0 + j) * H + h) * P;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int p = 32 * w2 + 8 * n + 2 * tq;
+        const bool ok = j < Q && p < P;              // P % 4 == 0: p + 1 < P too
+        const float x0 = ok ? xr[p] : 0.f, x1 = ok ? xr[p + 1] : 0.f;
+        const float v0 = v[n][2 * hr], v1 = v[n][2 * hr + 1];
+        const float g0 = gu[n][2 * hr] + w * v0, g1 = gu[n][2 * hr + 1] + w * v1;
+        if (ok) *reinterpret_cast<float2*>(gxr + p) = make_float2(g0 * d, g1 * d);
+        xs[hr] += g0 * x0;
+        xs[hr] += g1 * x1;
+        rs[hr] += __fmul_rn(x0, d) * v0;
+        rs[hr] += __fmul_rn(x1, d) * v1;
+      }
+      rs[hr] += __shfl_xor_sync(kFull, rs[hr], 1);
+      rs[hr] += __shfl_xor_sync(kFull, rs[hr], 2);
+      xs[hr] += __shfl_xor_sync(kFull, xs[hr], 1);
+      xs[hr] += __shfl_xor_sync(kFull, xs[hr], 2);
+      if (tq == 0) {
+        sPart[w2 * kTile + jl] = rs[hr];
+        sPart[(2 + w2) * kTile + jl] = xs[hr];
+      }
     }
     __syncthreads();
     if (tid < kTile && J0 + tid < Q) {
-      sRw[J0 + tid] = sW[J0 + tid] * (sHalf[tid] + sHalf[kTile + tid]);
-      sGdx[J0 + tid] = sHalf[2 * kTile + tid] + sHalf[3 * kTile + tid];
+      sR[J0 + tid] = sW[J0 + tid] * (sPart[tid] + sPart[kTile + tid]);
+      sXg[J0 + tid] = sPart[2 * kTile + tid] + sPart[3 * kTile + tid];
     }
-    __syncthreads();       // before the next key tile refills sX, sU and sB
+    __syncthreads();       // sPart is read before the next key tile's first pair
   }
 
-  // g(dA_k) = fk + sum_{j < k} r_j + gdecay; gdt; the block's share of gA
-  const int k = tid;
-  float gdA = 0.f;
-  if (k < Q) {
-    float rw = 0.f;
-    for (int j = 0; j < k; ++j) rw += sRw[j];
-    gdA = fk + rw + gdecay[bc * H + h];
-    gdt[(bb * static_cast<long long>(s) + t0 + k) * H + h] = gdA * A[h] + sGdx[k];
+  // g(dA_k) = sum_{m < k} (cs_m - rs_m + r_m) + gdecay: the pairs j < k <= i
+  // are those of the columns m < k less those of the rows m < k, neither
+  // holding R's diagonal. An
+  // exclusive scan over the chunk, one position a thread: shuffles within
+  // each warp, then the warps' totals in order.
+  const int kq = tid;
+  float inc = kq < Q ? (sCs[kq] - sRs[kq]) + sR[kq] : 0.f;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += y;
   }
-  sS[k] = k < Q ? gdA * sDt[k] : 0.f;
+  float exc = __shfl_up_sync(kFull, inc, 1);
+  if (lane == 0) exc = 0.f;
+  if (lane == 31) sPart[warp] = inc;
+  __syncthreads();
+  float off = 0.f;
+  for (int w = 0; w < warp; ++w) off += sPart[w];
+  const float gdA = (off + exc) + gdecay[bc * H + h];
+  if (kq < Q) gdt[(bb * static_cast<long long>(s) + t0 + kq) * H + h] = gdA * A[h] + sXg[kq];
+  // the block's share of gA: sum_k g(dA_k) dt_k, by shuffles, then the warps in order
+  float ga = kq < Q ? gdA * sDt[kq] : 0.f;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) ga += __shfl_xor_sync(kFull, ga, d);
+  __syncthreads();         // every thread has read the totals
+  if (lane == 0) sPart[warp] = ga;
   __syncthreads();
   if (tid == 0) {
     float a = 0.f;
-    for (int i = 0; i < Q; ++i) a += sS[i];
+    for (int w = 0; w < kThreads / 32; ++w) a += sPart[w];
     gA_part[bc * H + h] = a;
   }
 }
 
-// grid (ceil(F / 4 / kThreads), nc, b G): red[b, c, g] = the sum of part[b, c, h]
-// over the group's heads, in head order (F % 4 == 0)
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_head_sum_kernel(const float* __restrict__ part, float* __restrict__ red, int H, int G,
-                        long long F) {
-  const long long f = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * 4;
-  if (f >= F) return;
-  const int c = blockIdx.y, nc = gridDim.y, bb = blockIdx.z / G, g = blockIdx.z % G;
-  const int hpg = H / G;
-  const long long bc = static_cast<long long>(bb) * nc + c;
-  const float* src = part + (bc * H + static_cast<long long>(g) * hpg) * F + f;
-  float4 a = *reinterpret_cast<const float4*>(src);
-  for (int k = 1; k < hpg; ++k) {
-    const float4 v = *reinterpret_cast<const float4*>(src + k * F);
-    a.x += v.x;
-    a.y += v.y;
-    a.z += v.z;
-    a.w += v.w;
-  }
-  *reinterpret_cast<float4*>(red + (bc * G + g) * F + f) = a;
+// ---- Hopper's warpgroup products (wgmma), for the pair and state kernels -- //
+// An operand tile of 64 rows and 64 fp32 columns (k) sits in shared memory in
+// wgmma's K-major layout without swizzle: 8 x 16 "core matrices" of 8 rows
+// and 16 bytes, element (r, c) at ((r / 8) * 16 + c / 4) * 32 + (r % 8) * 4
+// + c % 4 floats: core matrices 128 bytes apart along k (LBO) and 2048 along
+// the rows (SBO). A k-step of 8 columns starts 256 bytes further on, and
+// rows 8q .. at 2048 q bytes.
+constexpr int kCore = kTile * kTile;   // floats of such a tile
+constexpr int kWG = 128;               // a warpgroup
+
+// the matrix descriptor of a tile at p (16-byte aligned), k-step 0
+__device__ __forceinline__ uint64_t gmma_desc(const float* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t{128 >> 4} << 16) |
+         (uint64_t{2048 >> 4} << 32);
 }
 
-// grid (2 n_tiles, nc, b G): blockIdx.x = role * n_tiles + t; role 0 forms gC
-// of row tile t, role 1 gB of key tile t
-__global__ void __launch_bounds__(kThreads, 1)
+// d (+)= A B^T for one k-step, A 64 x 8 and B n x 8 (both K-major); d in
+// the accumulator layout (warp w of the warpgroup: rows 16 w + g and + 8,
+// columns 8 j + 2t and + 1 in d[4 j ..]); `acc` 0 starts d from zero
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[16]) {
+  asm volatile(""
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               :
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[32]) {
+  asm volatile(""
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                 "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+                 "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+               :
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory stores by threads, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Issues d = A B^T over k-steps 0 .. ks - 1 (ks <= 8) in 3xTF32 from A's and
+// B's high and low tiles, as one chain on the tensor cores (per k-step the
+// two small products first), and returns: the caller works on, then waits
+// with wgmma_wait_all and wgmma_fence_operand(d). Every thread of the
+// warpgroup calls it.
+template <int NR>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[NR], const float* ah, const float* al,
+                                             const float* bh, const float* bl, int ks) {
+  const uint64_t dah = gmma_desc(ah), dal = gmma_desc(al), dbh = gmma_desc(bh),
+                 dbl = gmma_desc(bl);
+  wgmma_fence();
+  wgmma_fence_operand(d);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    if (s < ks) {
+      wgmma_tf32(d, dal + 16 * s, dbh + 16 * s, s > 0);
+      wgmma_tf32(d, dah + 16 * s, dbl + 16 * s, 1);
+      wgmma_tf32(d, dah + 16 * s, dbh + 16 * s, 1);
+    }
+  }
+  wgmma_commit();
+}
+
+// Rows row0 .. row0 + 63 and columns 0 .. 63 of a row-major fp32 matrix (rows
+// rs apart) into a tile in core-matrix order; rows at or past nrows and
+// columns at or past ncols are zero-filled. 16-byte pieces when `vec`
+// (pointer, stride and ncols multiples of 4 floats), else 4-byte ones.
+template <int NT>
+__device__ __forceinline__ void load_core(float* dst, const float* src, long long rs, int row0,
+                                          int nrows, int ncols, bool vec, int tid) {
+  if (vec) {
+    for (int q = tid; q < kCore / 4; q += NT) {
+      const int r = (q >> 7) * 8 + (q & 7), c = ((q >> 3) & 15) * 4;
+      const bool ok = row0 + r < nrows && c < ncols;
+      cp_async_16(smem_u32(dst + q * 4), ok ? src + (row0 + r) * rs + c : src, ok);
+    }
+  } else {
+    for (int f = tid; f < kCore; f += NT) {
+      const int q = f >> 2, r = (q >> 7) * 8 + (q & 7), c = ((q >> 3) & 15) * 4 + (f & 3);
+      const bool ok = row0 + r < nrows && c < ncols;
+      cp_async_4(smem_u32(dst + f), ok ? src + (row0 + r) * rs + c : src, ok);
+    }
+  }
+}
+
+// A tile in core-matrix order into the tf32 high parts of its values, in
+// place, and their low parts at lo; row r's values first taken times
+// scale(r).x, then times scale(r).y, each product rounded
+template <int NT, class Scale>
+__device__ __forceinline__ void split_core(float* t, float* lo, int tid, Scale scale) {
+  for (int q = tid; q < kCore / 4; q += NT) {
+    const float2 f = scale((q >> 7) * 8 + (q & 7));
+    float4* tp = reinterpret_cast<float4*>(t) + q;
+    const float4 v = *tp;
+    float4 hi, lw;
+    split_f(__fmul_rn(__fmul_rn(v.x, f.x), f.y), hi.x, lw.x);
+    split_f(__fmul_rn(__fmul_rn(v.y, f.x), f.y), hi.y, lw.y);
+    split_f(__fmul_rn(__fmul_rn(v.z, f.x), f.y), hi.z, lw.z);
+    split_f(__fmul_rn(__fmul_rn(v.w, f.x), f.y), hi.w, lw.w);
+    *tp = hi;
+    reinterpret_cast<float4*>(lo)[q] = lw;
+  }
+}
+
+constexpr int kPairSmem = (8 * kCore + 10 * kTile) * static_cast<int>(sizeof(float));
+constexpr int kStateSmem = (12 * kCore + 10 * kTile) * static_cast<int>(sizeof(float));
+
+// seg hi and lo of rows r0 .. r0 + 63 (or of position Q - 1 when r0 < 0),
+// seg hi and lo and dt of keys J0 .. J0 + 63, of head h, into vec [5][64]
+// (0 past Q)
+__device__ __forceinline__ void load_vec(float* vec, const float* dt, const float* seg,
+                                         const float* seg_lo, int bb, long long t0,
+                                         long long bc, int h, int H, int Q, int r0, int J0,
+                                         const Strides& st, int tid) {
+  for (int idx = tid; idx < 5 * kTile; idx += 2 * kWG) {
+    const int v = idx / kTile, r = idx % kTile;
+    const int pos = v < 2 ? (r0 < 0 ? Q - 1 : r0 + r) : J0 + r;
+    const bool ok = pos < Q;
+    const float* src = v == 4 ? dt + bb * st.db + (t0 + pos) * st.ds + h * st.dh
+                              : (v & 1 ? seg_lo : seg) + (bc * Q + pos) * H + h;
+    cp_async_4(smem_u32(vec + idx), ok ? src : seg, ok);
+  }
+}
+// grid (ns pairs, nc, b G), blockIdx.x = pair ns + slice: G_S's causal tile
+// (it, jt <= it), pair it (it + 1) / 2 + jt, summed over the slice's heads
+// [sl hpg / ns, (sl + 1) hpg / ns) of group g in order. Two warpgroups, one
+// block an SM: warpgroup wg takes keys 32 wg ..; per head its gM = gy u^T
+// runs on the tensor cores while the block computes that head's L and
+// splits the next head's tiles, then gM o L is added.
+__global__ void __launch_bounds__(2 * kWG, 1)
+ssd_bwd_pair_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ gy, const float* __restrict__ seg,
+                    const float* __restrict__ seg_lo, float* __restrict__ part, int s, int H,
+                    int P, int G, int Q, int ns, long long F, Strides st, int vec_x) {
+  extern __shared__ __align__(128) float smem[];
+  float* sA = smem;                      // [2][kCore]  gy of the row tile, then its high part
+  float* sB = sA + 2 * kCore;            // [2][kCore]  x of the key tile, then u's high part
+  float* sALo = sB + 2 * kCore;          // [2][kCore]  gy's low part
+  float* sBLo = sALo + 2 * kCore;        // [2][kCore]  u's low part
+  float* sVec = sBLo + 2 * kCore;        // [2][5][kTile]  seg of the rows, seg and dt of the keys
+  const int p = blockIdx.x / ns, sl = blockIdx.x % ns;
+  const int c = blockIdx.y, nc = gridDim.y, bb = blockIdx.z / G, g = blockIdx.z % G;
+  const int tid = threadIdx.x, wg = tid / kWG, warp = tid % kWG / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int hpg = H / G, h0 = g * hpg + sl * hpg / ns, h1 = g * hpg + (sl + 1) * hpg / ns;
+  int it = 0;
+  while ((it + 1) * (it + 2) / 2 <= p) ++it;
+  const int jt = p - it * (it + 1) / 2, I0 = it * kTile, J0 = jt * kTile, ks = (P + 7) / 8;
+  const long long t0 = static_cast<long long>(c) * Q;
+  const long long bc = static_cast<long long>(bb) * nc + c;
+
+  auto issue = [&](int h, int stage) {
+    load_core<2 * kWG>(sA + stage * kCore,
+                       gy + ((bb * static_cast<long long>(s) + t0) * H + h) * P,
+                       static_cast<long long>(H) * P, I0, Q, P, true, tid);
+    load_core<2 * kWG>(sB + stage * kCore, x + bb * st.xb + t0 * st.xs + h * st.xh, st.xs, J0, Q,
+                       P, vec_x, tid);
+    load_vec(sVec + stage * 5 * kTile, dt, seg, seg_lo, bb, t0, bc, h, H, Q, I0, J0, st, tid);
+  };
+  // Off the diagonal (it > jt) L[i, j] = a_i b_j with a_i = exp(seg_i - ref)
+  // and b_j = exp(ref - seg_j), ref = seg at key tile jt's last position: both
+  // at most 1, so gy's rows are split times a and u's times b, and gM comes
+  // out times L. A diagonal tile takes L element by element.
+  const bool diag = it == jt;
+  auto split = [&](int stage) {
+    const float* vec = sVec + stage * 5 * kTile;
+    const float ref = vec[3 * kTile - 1], ref_lo = vec[4 * kTile - 1];
+    split_core<2 * kWG>(sA + stage * kCore, sALo + stage * kCore, tid, [&](int r) {
+      return make_float2(diag           ? 1.f
+                         : I0 + r < Q ? exp_fast((vec[r] - ref) + (vec[kTile + r] - ref_lo))
+                                      : 0.f,   // past Q seg is 0 there, and gy too
+                         1.f);
+    });
+    split_core<2 * kWG>(sB + stage * kCore, sBLo + stage * kCore, tid, [&](int r) {
+      return make_float2(vec[4 * kTile + r],
+                         diag ? 1.f
+                              : exp_fast((ref - vec[2 * kTile + r]) +
+                                         (ref_lo - vec[3 * kTile + r])));
+    });
+    fence_async_smem();
+  };
+  issue(h0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split(0);
+  if (h0 + 1 < h1) issue(h0 + 1, 1);
+  cp_async_commit();
+  __syncthreads();
+
+  // G_S's tile: rows i 16 warp + g (+8), keys 32 wg + 8j + 2t (+1)
+  float acc[16] = {};
+#pragma unroll 1
+  for (int h = h0; h < h1; ++h) {
+    const int cur = (h - h0) & 1;
+    float gm[16];
+    wgmma_3xtf32(gm, sA + cur * kCore, sALo + cur * kCore, sB + cur * kCore + 2048 * wg,
+                 sBLo + cur * kCore + 2048 * wg, ks);
+    // a diagonal tile's L, then the next head's split, while the tensor cores
+    // work
+    const float* vec = sVec + cur * 5 * kTile;
+    float L[16];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int il = 16 * warp + gq + 8 * (e >> 1), jl = 32 * wg + 8 * j + 2 * tq + (e & 1);
+        L[4 * j + e] = !diag ? 1.f
+                       : jl <= il && I0 + il < Q
+                           ? exp_fast((vec[il] - vec[2 * kTile + jl]) +
+                                      (vec[kTile + il] - vec[3 * kTile + jl]))
+                           : 0.f;
+      }
+    if (h + 1 < h1) {
+      cp_async_wait<0>();
+      __syncthreads();
+      split(cur ^ 1);
+    }
+    wgmma_wait_all();
+    wgmma_fence_operand(gm);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += gm[e] * L[e];
+    __syncthreads();       // the next head's split is done; this stage is free
+    if (h + 2 < h1) issue(h + 2, cur);
+    cp_async_commit();
+  }
+  float* out = part + (bc * G + g) * ns * F + sl * F + static_cast<long long>(p) * kTile * kTile;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<float2*>(out + (16 * warp + gq + 8 * hr) * kTile + 32 * wg + 8 * j +
+                                 2 * tq) =
+          make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+}
+
+// grid (ns n_tiles, nc, b G), blockIdx.x = jt ns + slice: key tile jt's part
+// of gB's state term, sum over the slice's heads of (w o u) gstate^T. Two
+// warpgroups, one block an SM: warpgroup wg takes the states 64 wg .. 64 wg
+// + 63; per head its product runs on the tensor cores while the block splits
+// the next head's tiles.
+__global__ void __launch_bounds__(2 * kWG, 1)
+ssd_bwd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ gstate, const float* __restrict__ seg,
+                     const float* __restrict__ seg_lo, float* __restrict__ part, int H, int P,
+                     int G, int N, int Q, int ns, long long F, Strides st, int vec_x) {
+  extern __shared__ __align__(128) float smem[];
+  float* sX = smem;                      // [2][kCore]  x of the key tile, then w o u's high part
+  float* sS = sX + 2 * kCore;            // [2][2][kCore]  gstate's states 0 .., 64 .., then high
+  float* sXLo = sS + 4 * kCore;          // [2][kCore]  w o u's low part
+  float* sSLo = sXLo + 2 * kCore;        // [2][2][kCore]  gstate's low part
+  float* sVec = sSLo + 4 * kCore;        // [2][5][kTile]  seg at Q - 1, seg and dt of the keys
+  const int jt = blockIdx.x / ns, sl = blockIdx.x % ns;
+  const int c = blockIdx.y, nc = gridDim.y, bb = blockIdx.z / G, g = blockIdx.z % G;
+  const int tid = threadIdx.x, wg = tid / kWG, warp = tid % kWG / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int hpg = H / G, h0 = g * hpg + sl * hpg / ns, h1 = g * hpg + (sl + 1) * hpg / ns;
+  const int J0 = jt * kTile, nh = (N + kTile - 1) / kTile, ks = (P + 7) / 8;
+  const long long t0 = static_cast<long long>(c) * Q;
+  const long long bc = static_cast<long long>(bb) * nc + c;
+
+  auto issue = [&](int h, int stage) {
+    load_core<2 * kWG>(sX + stage * kCore, x + bb * st.xb + t0 * st.xs + h * st.xh, st.xs, J0, Q,
+                       P, vec_x, tid);
+    for (int k = 0; k < nh; ++k)
+      load_core<2 * kWG>(sS + (2 * stage + k) * kCore, gstate + (bc * H + h) * N * P, P,
+                         k * kTile, N, P, true, tid);
+    load_vec(sVec + stage * 5 * kTile, dt, seg, seg_lo, bb, t0, bc, h, H, Q, -1, J0, st, tid);
+  };
+  auto split = [&](int stage) {
+    const float* vec = sVec + stage * 5 * kTile;
+    split_core<2 * kWG>(sX + stage * kCore, sXLo + stage * kCore, tid, [&](int r) {
+      return make_float2(vec[4 * kTile + r],
+                         expf((vec[0] - vec[2 * kTile + r]) + (vec[kTile] - vec[3 * kTile + r])));
+    });
+    for (int k = 0; k < nh; ++k)
+      split_core<2 * kWG>(sS + (2 * stage + k) * kCore, sSLo + (2 * stage + k) * kCore, tid,
+                          unit_scale);
+    fence_async_smem();
+  };
+  issue(h0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split(0);
+  if (h0 + 1 < h1) issue(h0 + 1, 1);
+  cp_async_commit();
+  __syncthreads();
+
+  // rows j 16 warp + g (+8), states 64 wg + 8j + 2t (+1); each head's
+  // product added in fp32
+  float acc[32] = {};
+  const bool mine = wg < nh;
+#pragma unroll 1
+  for (int h = h0; h < h1; ++h) {
+    const int cur = (h - h0) & 1;
+    float d[32];
+    if (mine)
+      wgmma_3xtf32(d, sX + cur * kCore, sXLo + cur * kCore, sS + (2 * cur + wg) * kCore,
+                   sSLo + (2 * cur + wg) * kCore, ks);
+    if (h + 1 < h1) {
+      cp_async_wait<0>();
+      __syncthreads();
+      split(cur ^ 1);
+    }
+    if (mine) {
+      wgmma_wait_all();
+      wgmma_fence_operand(d);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] += d[e];
+    }
+    __syncthreads();       // the next head's split is done; this stage is free
+    if (h + 2 < h1) issue(h + 2, cur);
+    cp_async_commit();
+  }
+  if (!mine) return;
+  float* out = part + (bc * G + g) * ns * F + sl * F +
+               static_cast<long long>(n_pairs_of(Q)) * kTile * kTile +
+               static_cast<long long>(J0) * N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * warp + gq + 8 * (e >> 1), col = kTile * wg + 8 * j + 2 * tq + (e & 1);
+      if (col < N) out[row * N + col] = acc[4 * j + e];
+    }
+}
+
+// grid (2 n_tiles nh, nc, b G), nh = ceil(N / 64): blockIdx.x = (role
+// n_tiles + t) nh + ch; role 0 forms gC of row tile t, role 1 gB of key
+// tile t, in columns 64 ch .. 64 ch + 63
+__global__ void __launch_bounds__(kThreads)
 ssd_bwd_group_kernel(const float* __restrict__ B, const float* __restrict__ C,
-                     const float* __restrict__ red, float* __restrict__ gB,
-                     float* __restrict__ gC, int s, int G, int N, int Q, long long F,
+                     const float* __restrict__ part, float* __restrict__ gB,
+                     float* __restrict__ gC, int s, int G, int N, int Q, int ns, long long F,
                      Strides st, int vec_b, int vec_c) {
   extern __shared__ __align__(16) float smem[];
-  float* sT = smem;                     // [kTile][kSP]  a tile of G_S
-  float* sV = sT + kTile * kSP;         // [kTile][kBP]  B rows (role 0) or C rows (role 1)
-  const int n_tiles = (Q + kTile - 1) / kTile;
-  const int role = blockIdx.x / n_tiles, t = blockIdx.x % n_tiles;
+  float* sT = smem;                      // [kTile][kFP]  G_S's tile (role 1 transposed), high part
+  float* sTLo = sT + kTile * kFP;        // [kTile][kFP]  its low part
+  float* sV = sTLo + kTile * kFP;        // [kTile][kGP]  B rows (role 0) or C rows (role 1), high
+  float* sVLo = sV + kTile * kGP;        // [kTile][kGP]  their low part
+  const int nt = (Q + kTile - 1) / kTile, nh = (N + kTile - 1) / kTile;
+  const int ch = blockIdx.x % nh, role = blockIdx.x / nh / nt, t = blockIdx.x / nh % nt;
   const int c = blockIdx.y, nc = gridDim.y, bb = blockIdx.z / G, g = blockIdx.z % G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
-  const int wr = warp & 3, wc = warp >> 2;      // a 16-row strip, a 64-column half of N
+  const int w4 = warp & 3, w2 = warp >> 2;
   const long long t0 = static_cast<long long>(c) * Q;
-  const float* rp = red + ((static_cast<long long>(bb) * nc + c) * G + g) * F;
-  const float* vp = role == 0 ? B + bb * st.bb + t0 * st.bs + g * st.bg
-                              : C + bb * st.cb + t0 * st.cs + g * st.cg;
+  const float* rp = part + ((static_cast<long long>(bb) * nc + c) * G + g) * ns * F;
+  const int c0 = ch * kTile;             // the block's first column
+  const float* vp = (role == 0 ? B + bb * st.bb + t0 * st.bs + g * st.bg
+                               : C + bb * st.cb + t0 * st.cs + g * st.cg) + c0;
   const long long vs = role == 0 ? st.bs : st.cs;
   const int vec = role == 0 ? vec_b : vec_c;
-  const int width = (N + kTile - 1) / kTile * kTile;    // the columns the warps read
-  float acc[8][4] = {};
-  const int o0 = role == 0 ? 0 : t, o1 = role == 0 ? t : n_tiles - 1;
+  float acc[4][4] = {};
+  const int o0 = role == 0 ? 0 : t, o1 = role == 0 ? t : nt - 1;
 #pragma unroll 1
   for (int o = o0; o <= o1; ++o) {
     const int it = role == 0 ? t : o, jt = role == 0 ? o : t;
-    __syncthreads();       // the last tile is read
-    load_tile<kThreads>(sT, kSP, rp + static_cast<long long>(it * (it + 1) / 2 + jt) * kTile * kTile,
-                        kTile, 0, kTile, kTile, kTile, 1, tid);
-    load_tile<kThreads>(sV, kBP, vp, vs, o * kTile, Q, N, width, vec, tid);
+    __syncthreads();       // the last tiles are read
+    load_tile<kThreads>(sV, kGP, vp, vs, o * kTile, Q, N - c0, kTile, vec, tid);
     cp_async_commit();
+    // G_S's tile: the slices' parts summed in order, then split
+    const float* tp = rp + static_cast<long long>(it * (it + 1) / 2 + jt) * kTile * kTile;
+    for (int idx = tid; idx < kTile * kTile / 4; idx += kThreads) {
+      const int r = role == 0 ? idx >> 4 : idx & 63, c4 = (role == 0 ? idx & 15 : idx >> 6) * 4;
+      float4 a = __ldcg(reinterpret_cast<const float4*>(tp + r * kTile + c4));
+      for (int q = 1; q < ns; ++q) {
+        const float4 b = __ldcg(reinterpret_cast<const float4*>(tp + q * F + r * kTile + c4));
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+      }
+      float hi[4], lo[4];
+      split_f(a.x, hi[0], lo[0]);
+      split_f(a.y, hi[1], lo[1]);
+      split_f(a.z, hi[2], lo[2]);
+      split_f(a.w, hi[3], lo[3]);
+      if (role == 0) {
+        *reinterpret_cast<float4*>(sT + r * kFP + c4) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<float4*>(sTLo + r * kFP + c4) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sT[(c4 + q) * kFP + r] = hi[q];
+          sTLo[(c4 + q) * kFP + r] = lo[q];
+        }
+      }
+    }
     cp_async_wait<0>();
     __syncthreads();
-    if (64 * wc >= N) continue;
-    if (role == 0)         // gC[i] += sum_j G_S[i, j] B[j]
-      warp_mma<8>(acc, kTile, [&](int r, int k) { return sT[(16 * wr + r) * kSP + k]; },
-                  [&](int k, int n) { return sV[k * kBP + 64 * wc + n]; });
-    else                   // gB[j] += sum_i G_S[i, j] C[i]
-      warp_mma<8>(acc, kTile, [&](int r, int k) { return sT[k * kSP + 16 * wr + r]; },
-                  [&](int k, int n) { return sV[k * kBP + 64 * wc + n]; });
-  }
-  if (64 * wc >= N) return;
-  float* out = role == 0 ? gC : gB;
-  const float* state = rp + static_cast<long long>(n_tiles * (n_tiles + 1) / 2) * kTile * kTile;
+    split_tile(sV, sVLo, kGP, tid, unit_scale);
+    __syncthreads();
+    if (c0 + 32 * w2 >= N) continue;
+    // role 0: gC[i] += sum_j G_S[i, j] B[j]; role 1: gB[j] += sum_i G_S[i, j]
+    // C[i]; k = the tile's keys or rows, lane t taking 2t and 2t + 1 of each 8
+    const float* ah = sT + (16 * w4 + gq) * kFP + 2 * tq;
+    const float* al = sTLo + (16 * w4 + gq) * kFP + 2 * tq;
+    const float* bh = sV + 2 * tq * kGP + 32 * w2 + gq;
+    const float* bl = sVLo + 2 * tq * kGP + 32 * w2 + gq;
+#pragma unroll 2
+    for (int kk = 0; kk < kTile; kk += 8) {
+      const float2 a0 = *reinterpret_cast<const float2*>(ah + kk);
+      const float2 a1 = *reinterpret_cast<const float2*>(ah + 8 * kFP + kk);
+      const float2 l0 = *reinterpret_cast<const float2*>(al + kk);
+      const float2 l1 = *reinterpret_cast<const float2*>(al + 8 * kFP + kk);
+      const uint32_t a_h[4] = {bits(a0.x), bits(a1.x), bits(a0.y), bits(a1.y)};
+      const uint32_t a_l[4] = {bits(l0.x), bits(l1.x), bits(l0.y), bits(l1.y)};
+      uint32_t b_h[4][2], b_l[4][2];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 4; ++n) {
+        b_h[n][0] = bits(bh[kk * kGP + 8 * n]);
+        b_h[n][1] = bits(bh[(kk + 1) * kGP + 8 * n]);
+        b_l[n][0] = bits(bl[kk * kGP + 8 * n]);
+        b_l[n][1] = bits(bl[(kk + 1) * kGP + 8 * n]);
+      }
+      mma3(acc, a_h, a_l, b_h, b_l);
+    }
+  }
+  if (c0 + 32 * w2 >= N) return;
+  float* out = role == 0 ? gC : gB;
+  const float* state = rp + static_cast<long long>(nt * (nt + 1) / 2) * kTile * kTile;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = t * kTile + 16 * wr + gq + e / 2 * 8, col = 64 * wc + 8 * n + 2 * tq + e % 2;
+      const int row = t * kTile + 16 * w4 + gq + 8 * (e >> 1);
+      const int col = c0 + 32 * w2 + 8 * n + 2 * tq + (e & 1);
       if (row >= Q || col >= N) continue;
       float v = acc[n][e];
-      if (role == 1) v += state[static_cast<long long>(row) * N + col];   // gB's state term
+      if (role == 1) {     // gB's state term, the slices summed in order
+        const float* sp = state + static_cast<long long>(row) * N + col;
+        float a = sp[0];
+        for (int q = 1; q < ns; ++q) a += sp[q * F];
+        v += a;
+      }
       out[((bb * static_cast<long long>(s) + t0 + row) * G + g) * N + col] = v;
     }
 }
@@ -921,8 +1491,18 @@ cudaError_t opt_in_smem() {
     err = cudaFuncSetAttribute(ssd_bwd_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kHeadSmem);
   if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kPairSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kStateSmem);
+  if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kGroupSmem);
+  // two blocks of the head kernel an SM: all of the SM's shared memory
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_head_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
@@ -976,31 +1556,34 @@ int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const void* B, c
 }
 
 // Floats of the backward's scratch: the forward's scores and seg pairs,
-// decay [b, nc, H], the blocks' shares of gA [b, nc, H], the heads' parts
-// [b, nc, H, F] and their group sums [b, nc, G, F] (F = part_floats), each
-// piece on a 16-byte boundary.
-long long ssd_chunk_bwd_scratch_floats(int b, int s, int H, int G, int N, int Q) {
+// decay [b, nc, H], the blocks' shares of gA [b, nc, H], and the head
+// slices' parts [b, nc, G, ns, F] (F = part_floats), each piece on a
+// 16-byte boundary. ns, the slices a group's heads are cut into, is at
+// most H / G.
+long long ssd_chunk_bwd_scratch_floats(int b, int s, int H, int G, int N, int Q, int ns) {
   const long long nc = s / Q;
   return scores_floats(b, nc, G, Q) + 2 * round4(b * nc * Q * H) + 2 * round4(b * nc * H) +
-         b * nc * (H + G) * part_floats(N, Q);
+         b * nc * G * ns * part_floats(N, Q);
 }
 
 // Gradients of ssd_chunk_fwd's inputs. gy [b, s, H, P], gstate [b, s/Q, H,
 // N, P] and gdecay [b, s/Q, H] contiguous; gx [b, s, H, P], gdt [b, s, H],
 // gA [H], gB and gC [b, s, G, N] contiguous outputs; scratch holds
-// ssd_chunk_bwd_scratch_floats() floats, 16-byte aligned; the inputs and
-// their strides as ssd_chunk_fwd takes them.
+// ssd_chunk_bwd_scratch_floats() floats, 16-byte aligned; ns head slices a
+// group (1 <= ns <= H / G); the inputs and their strides as ssd_chunk_fwd
+// takes them.
 int ssd_chunk_bwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
                   const void* gy, const void* gstate, const void* gdecay, void* gx, void* gdt,
                   void* gA, void* gB, void* gC, void* scratch, int b, int s, int H, int P, int G,
-                  int N, int Q, const long long* strides, void* stream) {
+                  int N, int Q, int ns, const long long* strides, void* stream) {
+  if (ns < 1 || ns > H / G) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides st = {strides[0], strides[1], strides[2],  strides[3],
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
   const int nc = s / Q;
-  const int n_tiles = (Q + kTile - 1) / kTile;
+  const int n_tiles = (Q + kTile - 1) / kTile, pairs = n_tiles * (n_tiles + 1) / 2;
   const long long F = part_floats(N, Q);
   float* scores = static_cast<float*>(scratch);
   float* seg = scores + scores_floats(b, nc, G, Q);
@@ -1008,7 +1591,6 @@ int ssd_chunk_bwd(const void* x, const void* dt, const void* A, const void* B, c
   float* decay = seg_lo + round4(static_cast<long long>(b) * nc * Q * H);
   float* gA_part = decay + round4(static_cast<long long>(b) * nc * H);
   float* part = gA_part + round4(static_cast<long long>(b) * nc * H);
-  float* red = part + static_cast<long long>(b) * nc * H * F;
   const int vec_x = aligned16(x, st.xb, st.xs, st.xh);
   const int vec_b = N % 4 == 0 && aligned16(B, st.bb, st.bs, st.bg);
   const int vec_c = N % 4 == 0 && aligned16(C, st.cb, st.cs, st.cg);
@@ -1018,24 +1600,29 @@ int ssd_chunk_bwd(const void* x, const void* dt, const void* A, const void* B, c
   const float* fA = static_cast<const float*>(A);
   const float* fB = static_cast<const float*>(B);
   const float* fC = static_cast<const float*>(C);
-  ssd_scores_kernel<<<dim3(G * (n_tiles * (n_tiles + 1) / 2 + 1), nc, b), kScoreThreads,
-                      kScoreSmem, strm>>>(fdt, fA, fB, fC, scores, seg, seg_lo, decay, H, G, N,
-                                          Q, st, vec_b, vec_c);
+  const float* fgy = static_cast<const float*>(gy);
+  const float* fgs = static_cast<const float*>(gstate);
+  ssd_scores_kernel<<<dim3(G * (pairs + 1), nc, b), kScoreThreads, kScoreSmem, strm>>>(
+      fdt, fA, fB, fC, scores, seg, seg_lo, decay, H, G, N, Q, st, vec_b, vec_c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_bwd_head_kernel<<<dim3(H, nc, b), kThreads, kHeadSmem, strm>>>(
-      fx, fdt, fA, fB, static_cast<const float*>(gy), static_cast<const float*>(gstate),
-      static_cast<const float*>(gdecay), scores, seg, seg_lo, static_cast<float*>(gx),
-      static_cast<float*>(gdt), part, gA_part, s, H, P, G, N, Q, F, st, vec_x, vec_b);
+      fx, fdt, fA, fB, fgy, fgs, static_cast<const float*>(gdecay), scores, seg, seg_lo,
+      static_cast<float*>(gx), static_cast<float*>(gdt), gA_part, s, H, P, G, N, Q, st, vec_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_head_sum_kernel<<<dim3(static_cast<unsigned>((F / 4 + kThreads - 1) / kThreads), nc,
-                                 b * G), kThreads, 0, strm>>>(part, red, H, G, F);
+  ssd_bwd_state_kernel<<<dim3(ns * n_tiles, nc, b * G), 2 * kWG, kStateSmem, strm>>>(
+      fx, fdt, fgs, seg, seg_lo, part, H, P, G, N, Q, ns, F, st, vec_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_group_kernel<<<dim3(2 * n_tiles, nc, b * G), kThreads, kGroupSmem, strm>>>(
-      fB, fC, red, static_cast<float*>(gB), static_cast<float*>(gC), s, G, N, Q, F, st, vec_b,
-      vec_c);
+  ssd_bwd_pair_kernel<<<dim3(ns * pairs, nc, b * G), 2 * kWG, kPairSmem, strm>>>(
+      fx, fdt, fgy, seg, seg_lo, part, s, H, P, G, Q, ns, F, st, vec_x);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_group_kernel<<<dim3(2 * n_tiles * ((N + kTile - 1) / kTile), nc, b * G), kThreads,
+                         kGroupSmem, strm>>>(fB, fC, part, static_cast<float*>(gB),
+                                             static_cast<float*>(gC), s, G, N, Q, ns, F, st,
+                                             vec_b, vec_c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_bwd_gA_kernel<<<dim3((H + kThreads - 1) / kThreads), kThreads, 0, strm>>>(

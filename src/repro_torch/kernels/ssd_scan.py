@@ -13,11 +13,12 @@ adds one to ``build.LAUNCHES["ssd_chunk"]``.
 
 ``ssd_chunk_bwd`` is the backward kernel (the JAX package has no Pallas
 backward: it differentiates the jnp ``ssd_chunked`` with XLA): the
-gradients of x, dt, A, B and C from those of the three outputs, five
-launches a call (``ssd_scores_kernel`` again, then the per-head, head-sum,
-per-group and gA kernels), one count in ``build.LAUNCHES["ssd_chunk_bwd"]``;
-its plain version is ``ref.py::ref_ssd_chunk_bwd``. ``SsdChunk`` pairs the
-two for autograd.
+gradients of x, dt, A, B and C from those of the three outputs, six
+launches a call (``ssd_scores_kernel`` again; the per-head kernel; the state
+and pair kernels, which sum gB's state term and G_S over each group's heads
+in ``bwd_slices`` ordered slices; the per-group kernel and the gA kernel),
+one count in ``build.LAUNCHES["ssd_chunk_bwd"]``; its plain version is
+``ref.py::ref_ssd_chunk_bwd``. ``SsdChunk`` pairs the two for autograd.
 """
 from __future__ import annotations
 
@@ -34,6 +35,15 @@ from .ref import ref_ssd_chunk, ref_ssd_chunk_bwd
 MAX_CHUNK = 256          # kMaxQ: the chunk's dt, seg and weights sit in shared memory
 MAX_STATE = 128          # kMaxN: columns of the B and C tiles in shared memory
 MAX_HEAD_DIM = 64        # kMaxP: columns of the dt*x tile in shared memory
+BWD_SLICES = 4           # the backward's head slices a group, at most: its scratch holds one
+                         # part of G_S and of gB's state term a slice, whatever the head count
+
+
+def bwd_slices(H: int, G: int) -> int:
+    """The slices ``ssd_chunk_bwd`` cuts each group's ``H / G`` heads into:
+    slice ``k`` of ``n`` sums heads ``[k (H/G) // n, (k + 1) (H/G) // n)``
+    of the group in order, and the slices are summed in order after."""
+    return min(BWD_SLICES, H // G)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -44,9 +54,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_chunk_fwd.restype = I
     lib.ssd_chunk_scratch_floats.argtypes = [I, I, I, I, I]
     lib.ssd_chunk_scratch_floats.restype = ctypes.c_longlong
-    lib.ssd_chunk_bwd.argtypes = [P] * 14 + [I] * 7 + [P, P]
+    lib.ssd_chunk_bwd.argtypes = [P] * 14 + [I] * 8 + [P, P]
     lib.ssd_chunk_bwd.restype = I
-    lib.ssd_chunk_bwd_scratch_floats.argtypes = [I] * 6
+    lib.ssd_chunk_bwd_scratch_floats.argtypes = [I] * 7
     lib.ssd_chunk_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
@@ -148,15 +158,16 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
     grads = [torch.empty(t.shape, dtype=torch.float32, device=x.device) for t in (x, dt, A, B, C)]
     if x.numel() == 0:
         return tuple(g.zero_() for g in grads)
+    ns = bwd_slices(H, G)
     with torch.cuda.device(x.device):
         lib = _lib()
-        scratch = torch.empty(lib.ssd_chunk_bwd_scratch_floats(b, s, H, G, N, chunk),
+        scratch = torch.empty(lib.ssd_chunk_bwd_scratch_floats(b, s, H, G, N, chunk, ns),
                               dtype=torch.float32, device=x.device)
         rc = lib.ssd_chunk_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             gy.data_ptr(), gstates.data_ptr(), gdecay.data_ptr(),
             *(g.data_ptr() for g in grads), scratch.data_ptr(),
-            b, s, H, P, G, N, chunk, _strides(x, dt, B, C),
+            b, s, H, P, G, N, chunk, ns, _strides(x, dt, B, C),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk_bwd: CUDA error {rc} at launch")

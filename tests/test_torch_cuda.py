@@ -565,6 +565,7 @@ def test_ssd_chunk_wrapper_refuses_bad_inputs(cuda):
     (2, 96, 4, 12, 2, 12, 32),       # P 12, N 12: ragged 8-column tiles
     (1, 64, 4, 8, 1, 10, 16),        # N 10: 4-byte copies of B and C rows
     (1, 16, 4, 16, 1, 8, 1),         # a chunk of one position
+    (1, 512, 80, 64, 1, 128, 256),   # mamba2's 80 heads in one group: the full head sum
 ])
 @pytest.mark.parametrize("strided", [False, True])
 def test_ssd_chunk_bwd_kernel_vs_plain(b, s, H, P, G, N, chunk, strided, cuda):

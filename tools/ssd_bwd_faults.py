@@ -12,13 +12,16 @@ no longer matches. All are built with ``nvcc`` for ``sm_90a`` into
 own wrapper (``ssd_chunk_bwd``, its library swapped for the variant's):
 
 - ``base``: the kernels as they are: the sound readings;
-- ``head_dropped``: the head sum leaves out the last head of every group,
+- ``head_dropped``: each group's fixed-order head sum leaves out its last
+  head (the last slice of the pair and state kernels stops one head short),
   so gB and gC miss one head's share of G_S and of the state term;
 - ``no_state_term``: gB without its state term sum_h w o (u gstate^T);
-- ``gdA_off_by_one``: in a diagonal tile the pairs of g(dA_k) take rows
-  i > k in place of i >= k (row k's terms of keys j < k are left out);
-- ``gM_tile_skipped``: gM of key tile 0 for row tile 1 is taken as 0 (in
-  G_S and in R), where the chunk holds two tiles or more.
+- ``gdA_off_by_one``: the head kernel's row sums of R take keys j <= i in
+  place of j < i, while its column sums keep j < i; only a diagonal tile
+  holds j = i, and g(dA_k) then takes R_ii of every row i < k;
+- ``gM_tile_skipped``: gM of key tile 0 for row tile 1 is taken as 0 (in R
+  in the head kernel, in G_S in the pair kernel), where the chunk holds two
+  tiles or more.
 
 Every variant runs ``chip_smoke.py``'s ``SSD_BWD_CASES`` on the inputs
 that script draws, against ``ref_ssd_chunk_bwd``. Per gradient it reports
@@ -46,17 +49,20 @@ from repro_torch.kernels import ssd_scan  # noqa: E402
 
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ssd_chunk.cu"
 OUT = ROOT / "build" / "ssd_bwd_faults"
-GM_DONE = "      float m[4][4], rr[4][4];\n"
+H1 = "h1 = g * hpg + (sl + 1) * hpg / ns;"
+H1_LESS = "h1 = g * hpg + (sl + 1) * hpg / ns - (sl + 1 == ns);"
+GM_DONE = "      // S of these rows and keys in A-fragment order, from the scores\n"
 VARIANTS = {
     "base": [],
-    "head_dropped": [("for (int k = 1; k < hpg; ++k) {", "for (int k = 1; k < hpg - 1; ++k) {")],
-    "no_state_term": [("      if (role == 1) v += state[static_cast<long long>(row) * N + col];",
-                       "")],
-    "gdA_off_by_one": [("for (int il = k - I0; il < kTile; ++il) a += sS[il * kSP + k - J0];",
-                        "for (int il = k - I0 + 1; il < kTile; ++il) a += sS[il * kSP + k - J0];")],
+    "head_dropped": [(H1 + "\n  int it = 0;", H1_LESS + "\n  int it = 0;"),
+                     (H1 + "\n  const int J0", H1_LESS + "\n  const int J0")],
+    "no_state_term": [("        v += a;\n", "")],
+    "gdA_off_by_one": [("            rsum[hr] += rr;\n",
+                        "            rsum[hr] += j == i ? gm[n][2 * hr + hc] * m : rr;\n")],
     "gM_tile_skipped": [(GM_DONE, "      if (it == 1 && jt == 0)\n"
                                   "        for (auto& f : gm) for (float& e : f) e = 0.f;\n"
-                         + GM_DONE)],
+                         + GM_DONE),
+                        ("acc[e] += gm[e] * L[e];", "acc[e] += (p == 1 ? 0.f : gm[e]) * L[e];")],
 }
 
 
