@@ -13,12 +13,16 @@ Phases, each printing JSON lines:
    the card, at the serving shapes and a few more: prefill in bf16 (the
    tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
    a ragged length, skv > sq, GQA groups 1 to 8, head dims 16 to
-   128) and in fp32 (the CUDA-core kernel); decode at the llama, zamba2,
-   qwen3-moe, qwen2-vl-72b and musicgen-medium serving shapes in bf16,
-   and at the llama shape in fp32 and in fp32 over the bf16 cache, ragged
-   lengths from 1 to S. At the llama, zamba2, qwen3-moe (GQA group 8),
-   qwen2-vl (64 heads, group 8) and musicgen (24 heads of 64, group 1)
-   prefill and decode shapes (model layout): the kernel's device time (torch.profiler) and its time
+   128, nemotron-4-15b's group 6 and phi3-medium's 10 kv heads) and in
+   fp32 (the CUDA-core kernel); decode at the llama, zamba2, qwen3-moe,
+   qwen2-vl-72b, musicgen-medium, nemotron-4-15b (group 6: the G = 8
+   instantiation with two rows of each kv head idle) and phi3-medium
+   serving shapes in bf16, at groups 5 and 7 and at group 6 in fp32 over
+   a bf16 cache, and at the llama shape in fp32 and in fp32 over the bf16
+   cache, ragged lengths from 1 to S. At the llama, zamba2, qwen3-moe
+   (GQA group 8), qwen2-vl (64 heads, group 8), musicgen (24 heads of 64,
+   group 1) and nemotron (48 heads, group 6) prefill and decode shapes
+   (model layout): the kernel's device time (torch.profiler) and its time
    by CUDA events around a loop, the plain version's and one library
    call's time beside the card's bound.
 3. serve: ``run_serving("llama3.2-3b", batch=8, prompt_len=512, gen=32,
@@ -70,8 +74,9 @@ Phases, each printing JSON lines:
    64-row tile, at 1e-5 and 1e-2 of the tile's own norm (the training
    shape, the model's permuted views, GQA groups 1, 3 and 8, window 32,
    sq 72 < skv 200, head dims 16 / 64 / 80 / 128, ragged lengths,
-   zamba2's shared block and qwen3-moe's attention (GQA group 8) at their
-   training shapes), the forward's o and
+   zamba2's shared block, qwen3-moe's attention (GQA group 8), qwen2-vl's
+   (64 heads, group 8) and musicgen's (MHA, d 64) at their training
+   shapes), the forward's o and
    logsumexp against the plain ones, the autograd path of ``attention_op``
    against autograd through the plain forward; the backward's registers
    and spills (none may spill); its device time by kernel, the plain
@@ -165,6 +170,40 @@ Phases, each printing JSON lines:
    d_model 1536, 24 heads of 64, gelu, vocab 2048, an absolute sinusoid on
    its inputs and RoPE on q and k) as phase 22, fed random frame
    embeddings: exactly 48 and 1,488 launches.
+24. moe_a2a: the reduced qwen3-moe and llama4-maverick under their §Perf
+   bundles (``moe_impl="a2a"``: qwen3 at capacity factor 1.0, llama4 with
+   ``moe_ep2d``), in fp32, card against CPU from the same weights and
+   batches, as phases 18 and 19 hold the dispatch: a forward, a prefill
+   and three decode steps (logits within 2e-3 of the largest), then one
+   training step (AdamW for qwen3, Adafactor for llama4; the loss and
+   parameters within 1e-4, llama4's top-1 router excepted); every MoE
+   call keeps the same pairs at both of the path's stages on both
+   devices, and some drop.
+25. train_moe_perf: ``run_training("qwen3-moe-30b-a3b", smoke=False,
+   n_layers=5, perf=True)`` at 2 x 1024 as phase 20, through the
+   all-to-all path at capacity factor 1.0: exactly 10 forward and 5
+   backward attention launches a step, finite losses (the first within
+   1.0 of ln 151936), peak memory, ms a step.
+26. train_vlm and train_audio: before each, the reduced config's three
+   ``train_step``s card against CPU (phase 11); then ``run_training`` of
+   qwen2-vl-72b at full width, 2 of 80 layers (16 bytes a parameter: 68.0
+   GB of state), and of musicgen-medium at full width and depth, at
+   2 x 1024 on embeddings, as phase 12: the events, exactly 4 / 2 and 96
+   / 48 attention launches a step, finite losses (the first within 1.0 of
+   ln vocab), peak < 80 GB, ms a step, tokens/s; then one step of each
+   under the profiler.
+27. serve_dense: phi4-mini-3.8b whole (32 layers), phi3-medium-14b at 32
+   of 40 layers and nemotron-4-15b at 20 of 32 (relu2, a 256,000-row head)
+   through ``serve_model`` at batch 8 x 512 + 32, as phase 22: exactly
+   layers prefill and layers x 31 decode launches, finite logits, peak <
+   80 GB, prefill and decode ms; a profile; prefill plus one decode step
+   against a forward over one more token within 2e-2 in bf16.
+28. serve_dense, card_vs_cpu: each of the three narrowed to keep its GQA
+   group at head dim 16 (12 / 2 heads for nemotron, 8 / 2 for phi3, 6 / 2
+   for phi4), its MLP and head, in fp32: a forward, a prefill and three
+   decode steps over the bf16 cache on the card and on the CPU within 2e-3
+   of the largest logit, with exact launch counts (nemotron's group 6
+   decodes through the G = 8 instantiation).
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -185,6 +224,7 @@ import sys
 import time
 from collections import deque
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -215,18 +255,43 @@ DECODE_CASES = [
     ("qwen3", (8, 32, 4, 544, 128), "bfloat16", "bfloat16", True),     # GQA group 8
     ("vlm", (8, 64, 8, 544, 128), "bfloat16", "bfloat16", True),       # qwen2-vl-72b: group 8
     ("audio", (8, 24, 24, 544, 64), "bfloat16", "bfloat16", True),     # musicgen-medium: group 1
+    # nemotron-4-15b: group 6, run by the G = 8 instantiation with two rows
+    # of each kv head idle; timed beside vlm's group 8 over as many kv heads
+    ("nemotron", (8, 48, 8, 544, 128), "bfloat16", "bfloat16", True),
+    ("phi3", (8, 40, 10, 544, 128), "bfloat16", "bfloat16", False),    # phi3-medium: 10 kv heads
+    ("gqa5", (2, 10, 2, 130, 80), "bfloat16", "bfloat16", False),      # G = 8, three rows idle
+    ("gqa7", (2, 14, 2, 200, 128), "bfloat16", "bfloat16", False),     # G = 8, one row idle
+    ("gqa6_fp32_bf16_cache", (2, 12, 2, 200, 128), "float32", "bfloat16", False),
 ]
 # the decode kernel's instantiations: 3 dtype pairs x 5 head dims x G 1, 2, 3, 4, 8
 DECODE_INSTANTIATIONS = 75
-# flash_attention cases timed: the llama3.2-3b, zamba2-2.7b, qwen3-moe, qwen2-vl-72b and
-# musicgen-medium prefill shapes
-FA_TIMED = ("serve", "zamba2", "qwen3", "vlm", "audio")
+# flash_attention cases timed: the llama3.2-3b, zamba2-2.7b, qwen3-moe, qwen2-vl-72b,
+# musicgen-medium and nemotron-4-15b prefill shapes
+FA_TIMED = ("serve", "zamba2", "qwen3", "vlm", "audio", "nemotron")
 FEASIBILITY_INSTANTIATIONS = 1     # feasible_kernel
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # full-width depths, checked against each config before its run
 DEPTH = {"llama3.2-3b": (28, 3072), "mamba2-2.7b": (64, 2560), "zamba2-2.7b": (54, 2560),
          "qwen3-moe-30b-a3b": (48, 2048), "qwen2-vl-72b": (80, 8192),
-         "musicgen-medium": (48, 1536)}
+         "musicgen-medium": (48, 1536), "phi3-medium-14b": (40, 5120),
+         "phi4-mini-3.8b": (32, 3072), "nemotron-4-15b": (32, 6144)}
+# the widths of the configs built by ``serving_model``, checked before each run
+WIDTH = {
+    "qwen3-moe-30b-a3b": dict(family="moe", d_model=2048, n_heads=32, n_kv_heads=4,
+                              head_dim=128, n_experts=128, top_k=8, moe_d_ff=768,
+                              vocab=151936, moe_every=1, moe_impl="dispatch"),
+    "qwen2-vl-72b": dict(family="vlm", d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+                         d_ff=29568, vocab=152064, rope="mrope", frontend="vision_stub"),
+    "musicgen-medium": dict(family="audio", d_model=1536, n_heads=24, n_kv_heads=24,
+                            head_dim=64, d_ff=6144, vocab=2048, rope="abs_sin",
+                            frontend="audio_stub"),
+    "phi3-medium-14b": dict(family="dense", d_model=5120, n_heads=40, n_kv_heads=10,
+                            head_dim=128, d_ff=17920, vocab=100352, mlp_act="swiglu"),
+    "phi4-mini-3.8b": dict(family="dense", d_model=3072, n_heads=24, n_kv_heads=8,
+                           head_dim=128, d_ff=8192, vocab=200064, mlp_act="swiglu"),
+    "nemotron-4-15b": dict(family="dense", d_model=6144, n_heads=48, n_kv_heads=8,
+                           head_dim=128, d_ff=24576, vocab=256000, mlp_act="relu2"),
+}
 SSM_GEN = {"mamba2-2.7b": 32, "zamba2-2.7b": 8}
 # LLNL Quartz, a production system that Fluxion schedules: 3,018 nodes of
 # two 18-core Xeon E5-2695 v4 sockets
@@ -375,6 +440,8 @@ def phase_kernels(dev) -> dict:
         ("qwen3", 8, 32, 4, 512, 512, 128, 0, "bfloat16", "bshd"),      # GQA group 8
         ("vlm", 8, 64, 8, 512, 512, 128, 0, "bfloat16", "bshd"),        # qwen2-vl-72b: group 8
         ("audio", 8, 24, 24, 512, 512, 64, 0, "bfloat16", "bshd"),      # musicgen-medium: MHA
+        ("nemotron", 8, 48, 8, 512, 512, 128, 0, "bfloat16", "bshd"),   # nemotron-4-15b: group 6
+        ("phi3", 8, 40, 10, 512, 512, 128, 0, "bfloat16", "bshd"),      # phi3-medium: group 4
     ]
     fa = {}
     for name, b, h, kvh, sq, skv, d, window, dtype, layout in cases:
@@ -480,6 +547,33 @@ def expected_launches(cfg, gen: int) -> dict:
             "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
     ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn, "flash_decode": attn * (gen - 1), "ssd_chunk": ssd}
+
+
+def full_config(arch: str):
+    """``arch``'s full config, its depth checked against ``DEPTH`` and its
+    width against ``WIDTH``."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    check((full.n_layers, full.d_model) == DEPTH[arch]
+          and all(getattr(full, k) == v for k, v in WIDTH.get(arch, {}).items()),
+          f"{arch}: full-width config")
+    return full
+
+
+def serving_model(dev, arch: str, n_layers: int = None):
+    """``arch`` at full width (its depth cut to ``n_layers`` if given),
+    weights from seed 0 on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.model import make_model
+
+    full = full_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    model = make_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    return model
 
 
 def phase_serve(dev, arch: str, batch: int, prompt_len: int, gen: int,
@@ -1206,10 +1300,14 @@ BWD_CASES = [
     ("zamba2_train", (2, 32, 32, 1024, 1024, 80), 0, "bfloat16", "bshd"),
     # qwen3-moe-30b-a3b's attention (GQA group 8) as its training run calls it
     ("qwen3_train", (2, 32, 4, 1024, 1024, 128), 0, "bfloat16", "bshd"),
+    # qwen2-vl-72b's (64 heads, group 8) and musicgen-medium's (MHA, d 64)
+    # attention as their training runs call it
+    ("vlm_train", (2, 64, 8, 1024, 1024, 128), 0, "bfloat16", "bshd"),
+    ("audio_train", (2, 24, 24, 1024, 1024, 64), 0, "bfloat16", "bshd"),
 ]
 # the cases timed beside their bounds (bwd_timing): llama's row goes into the
-# kernel table, qwen3's is printed beside it
-BWD_TIMED = ("train", "qwen3_train")
+# kernel table, the others are printed beside it
+BWD_TIMED = ("train", "qwen3_train", "vlm_train", "audio_train")
 # of the largest |grad| of each output: in bf16 dq, dk and dv are rounded to
 # bf16 (as are o and dO, which both sides read); in fp32 only the order of
 # the sums differs (the plain version's einsums against the kernel's tiles)
@@ -1403,6 +1501,17 @@ def bwd_timing(q, k, v, o, lse, dO, err_share: float, case: str = "train") -> di
     return row
 
 
+def device_batch(batch: dict, dev) -> dict:
+    """A numpy batch on ``dev`` as ``ElasticRuntime.step`` uploads it:
+    integer arrays as int64, a stub frontend's embeddings in their dtype."""
+    import torch
+    out = {}
+    for n, a in batch.items():
+        t = torch.from_numpy(a)
+        out[n] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
+    return out
+
+
 def per_step_launches(cfg) -> dict:
     """Kernel launches of one training step: each forward kernel once a
     block and once more under remat, each backward kernel once a block
@@ -1445,8 +1554,7 @@ def phase_train_consistency(dev, arch: str = ARCH) -> None:
         batch = pipe.batch_at(step)
         losses = []
         for i, model in enumerate((host, card)):
-            tb = {n: torch.from_numpy(a).to(model.device, torch.long) for n, a in batch.items()}
-            states[i], m = model.train_step(states[i], tb)
+            states[i], m = model.train_step(states[i], device_batch(batch, model.device))
             losses.append(m["loss"].item())
         rel = abs(losses[1] - losses[0]) / abs(losses[0])
         check(math.isfinite(losses[1]) and rel <= TRAIN_TOL,
@@ -1469,7 +1577,7 @@ def phase_train_consistency(dev, arch: str = ARCH) -> None:
 
 
 def phase_train(dev, arch: str = ARCH, profile: bool = True, n_layers: int = None,
-                readings=None, phase: str = "train") -> dict:
+                readings=None, phase: str = "train", perf: bool = False) -> dict:
     """``run_training`` at full width and depth on the card (the cell of
     ``TRAIN_SHAPE``; with ``n_layers``, the depth cut to that many layers):
     a MATCHALLOCATE through the copied control plane, a grow, a shrink and
@@ -1477,7 +1585,8 @@ def phase_train(dev, arch: str = ARCH, profile: bool = True, n_layers: int = Non
     twice a block (once more under remat) and backward kernels once
     (``per_step_launches``). Launch counts are read around exactly this
     run; then ``readings(dev, cfg, res)``, if given, and with ``profile``
-    one more step under the profiler."""
+    one more step under the profiler. ``perf`` trains under the arch's
+    §Perf bundle (``run_training(perf=True)``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1495,7 +1604,7 @@ def phase_train(dev, arch: str = ARCH, profile: bool = True, n_layers: int = Non
     reset_launches()
     t0 = time.perf_counter()
     res = run_training(arch, smoke=False, shape=ShapeConfig("train_h100", seq, batch, "train"),
-                       n_layers=n_layers, device=dev, **TRAIN)
+                       n_layers=n_layers, perf=perf, device=dev, **TRAIN)
     wall_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1504,8 +1613,15 @@ def phase_train(dev, arch: str = ARCH, profile: bool = True, n_layers: int = Non
     losses, kinds = res["losses"], [e.kind for e in res["events"]]
     step_ms = [1e3 * s for s in res["step_s"]]
     steady = step_ms[1:]                 # the first step also warms up cuBLAS and the allocator
+    run_cfg = res["runtime"].cfg
+    if perf:
+        from repro_torch.configs.registry import perf_patch
+        check(all(getattr(run_cfg, k) == v for k, v in perf_patch(arch).items()
+                  if k != "ssm_chunk"), f"{arch}: the perf bundle was not applied")
     emit(phase, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
-         reduced=res["reduced"],
+         reduced=res["reduced"], perf=perf,
+         **({"moe_impl": run_cfg.moe_impl, "capacity_factor": run_cfg.capacity_factor}
+            if run_cfg.is_moe else {}),
          n_params=cfg.n_params(), seq_len=seq, batch=batch, steps=steps, remat=cfg.remat,
          losses=losses, events=kinds, step_ms=step_ms,
          step_ms_median=statistics.median(steady),
@@ -1543,7 +1659,7 @@ def profile_train_step(dev, cfg, res) -> None:
     rt = res["runtime"]
     model = rt.model
     batch_np = SyntheticTokenPipeline(rt.cfg, rt.shape, DataConfig()).batch_at(TRAIN["steps"])
-    tb = {n: torch.from_numpy(a).to(dev, torch.long) for n, a in batch_np.items()}
+    tb = device_batch(batch_np, dev)
     held = {}
     parts = [("train_grads", lambda: held.update(vg=model.value_and_grad(tb))),
              ("train_optimizer",
@@ -1784,18 +1900,29 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 # parameters, 3.74 GB as fp32 masters and the bf16 serving copy; 48 layers
 # and the fp32 embedding and head (2.49 GB) would take 182 GB, 16 take 62.3
 MOE_DEPTH = 16
-MOE_WIDTH = dict(d_model=2048, n_heads=32, n_kv_heads=4, head_dim=128, n_experts=128,
-                 top_k=8, moe_d_ff=768, vocab=151936)
 MOE_CONSISTENCY = (2, 256)                 # b, s, as phase_consistency
 MOE_REDUCED = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
 MOE_DECODE_STEPS = 3
-MOE_CPU_TOL = 2e-3                         # of the largest logit: fp32, sums in other orders
+CARD_CPU_TOL = 2e-3                        # of the largest logit: fp32, sums in other orders
+
+
+class MoeCall(NamedTuple):
+    """One MoE layer call as ``MoeRecorder`` saw it: its tokens, its
+    capacity (the dispatch's C, or the all-to-all's (S_cap, C2)), the
+    [T*k] pairs that reach an expert, and each stage's mask (the
+    dispatch's keep; the all-to-all's send keep [T*k] and receive keep
+    [n_sh*S_cap])."""
+    T: int
+    capacity: object
+    keep: object
+    stages: tuple
 
 
 class MoeRecorder:
-    """While active, every MoE layer's call also records its dispatch plan:
-    the tokens it saw and its keep mask [T*k] (as ``moe_dispatch`` computes
-    it from the same input). Patches ``models.transformer.moe``."""
+    """While active, every MoE layer's call also records its plan, as the
+    path ``cfg.moe_impl`` names computes it from the same input (the dense
+    oracle's calls as the dispatch would plan them). Patches
+    ``models.transformer.moe``."""
 
     def __init__(self):
         self.calls = []
@@ -1810,8 +1937,15 @@ class MoeRecorder:
         def recording(x, p, cfg):
             T = x.shape[0] * x.shape[1]
             xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, -1)
-            plan = moe_mod.dispatch_plan(moe_mod._route(xn, p, cfg)[1], cfg)
-            self.calls.append((T, plan.capacity, plan.keep))
+            ids = moe_mod._route(xn, p, cfg)[1]
+            if cfg.moe_impl == "a2a":
+                plan = moe_mod.a2a_plan(ids, cfg)
+                call = MoeCall(T, (plan.send_capacity, plan.expert_capacity), plan.kept(),
+                               (plan.keep, plan.recv_keep))
+            else:
+                plan = moe_mod.dispatch_plan(ids, cfg)
+                call = MoeCall(T, plan.capacity, plan.keep, (plan.keep,))
+            self.calls.append(call)
             return self._orig(x, p, cfg)
         transformer.moe = recording
         return self
@@ -1822,33 +1956,13 @@ class MoeRecorder:
 
     def dropped(self, pred) -> dict:
         """Pairs and the share dropped over the calls whose T passes ``pred``."""
-        keep = [k for T, _, k in self.calls if pred(T)]
+        keep = [c.keep for c in self.calls if pred(c.T)]
         pairs = sum(k.numel() for k in keep)
         dropped = sum(int((~k).sum().item()) for k in keep)
         return {"calls": len(keep), "pairs": pairs, "dropped": dropped,
                 "share": dropped / max(pairs, 1),
-                "capacity": sorted({C for T, C, _ in self.calls if pred(T)}),
+                "capacity": sorted({c.capacity for c in self.calls if pred(c.T)}),
                 "share_by_call": [float((~k).float().mean()) for k in keep[:MOE_DEPTH]]}
-
-
-def moe_serving_model(dev):
-    """qwen3-moe-30b-a3b at full width, depth cut to ``MOE_DEPTH``, weights
-    from seed 0 on the card."""
-    import dataclasses
-
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import make_model
-
-    full = get_config(MOE_ARCH)
-    check((full.n_layers, full.d_model) == DEPTH[MOE_ARCH]
-          and all(getattr(full, k) == v for k, v in MOE_WIDTH.items())
-          and full.family == "moe" and full.moe_every == 1 and full.moe_impl == "dispatch",
-          f"{MOE_ARCH}: full-width config")
-    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH)
-    model = make_model(cfg, device=dev)
-    model.init_params(torch.Generator(device=dev).manual_seed(0))
-    return model
 
 
 def phase_serve_moe(dev, model) -> dict:
@@ -1964,21 +2078,56 @@ def phase_moe_consistency(dev, model) -> None:
           f"{MOE_ARCH}: fp32 dispatch at E/k vs dense: {r}")
 
 
-def phase_moe_card_vs_cpu(dev) -> None:
-    """The reduced MoE configs in fp32 with the capacity dispatch: a forward,
-    a prefill and ``MOE_DECODE_STEPS`` decode steps on the card and on the
-    CPU from the same weights and tokens. Every MoE call keeps the same
-    (token, k) pairs on both; some drop; the logits agree within
-    ``MOE_CPU_TOL`` of the largest."""
-    import torch
+def moe_reduced_config(arch: str, perf: bool):
+    """``arch``'s reduced config (fp32, remat off): with the capacity
+    dispatch, or with ``perf`` under its §Perf bundle (``moe_impl="a2a"``),
+    patched before the cut as ``run_training(perf=True, smoke=True)``
+    patches it."""
+    import dataclasses
+
     from repro_torch.configs import get_config
+    from repro_torch.configs.registry import perf_patch
+
+    cfg = get_config(arch)
+    if perf:
+        cfg = dataclasses.replace(cfg, **{k: v for k, v in perf_patch(arch).items()
+                                          if k != "ssm_chunk"})
+    cfg = cfg.reduced()
+    check(cfg.dtype == "float32" and not cfg.remat
+          and cfg.moe_impl == ("a2a" if perf else "dispatch"), f"{arch}: reduced config")
+    return cfg
+
+
+def forward_prefill_decode(model, toks, s: int, steps: int) -> list:
+    """On the CPU: the logits of a forward over ``toks[:, :s]``, of its
+    prefill, and of ``steps`` decode steps on the next tokens through the
+    model's decode cache."""
     from repro_torch.launch.serve import splice_cache
     from repro_torch.models.config import ShapeConfig
+
+    t = toks.to(model.device)
+    logits = [model.forward_logits(t[:, :s])]
+    last, pc = model.prefill_step(t[:, :s])
+    logits.append(last)
+    cache = model.init_cache(ShapeConfig("serve", s + steps, t.shape[0], "decode"))
+    splice_cache(cache, pc)
+    for i in range(steps):
+        logits.append(model.serve_step(cache, t[:, s + i:s + i + 1], s + i)[0])
+    return [x.cpu() for x in logits]
+
+
+def phase_moe_card_vs_cpu(dev, perf: bool = False) -> None:
+    """The reduced MoE configs in fp32 (``moe_reduced_config``: the capacity
+    dispatch, or with ``perf`` the all-to-all path): a forward, a prefill
+    and ``MOE_DECODE_STEPS`` decode steps on the card and on the CPU from
+    the same weights and tokens. Every MoE call keeps the same (token, k)
+    pairs on both, at each stage of its path; some drop; the
+    logits agree within ``CARD_CPU_TOL`` of the largest."""
+    import torch
     from repro_torch.models.model import make_model
 
     for arch in MOE_REDUCED:
-        cfg = get_config(arch).reduced()
-        check(cfg.dtype == "float32" and cfg.moe_impl == "dispatch", f"{arch}: reduced config")
+        cfg = moe_reduced_config(arch, perf)
         host = make_model(cfg, device="cpu")
         host.init_params(torch.Generator().manual_seed(7))
         card = make_model(cfg, device=dev)
@@ -1988,31 +2137,25 @@ def phase_moe_card_vs_cpu(dev) -> None:
                              generator=torch.Generator().manual_seed(8))
         outs, recs = [], []
         for model in (host, card):
-            t = toks.to(model.device)
             with MoeRecorder() as rec:
-                logits = [model.forward_logits(t[:, :s])]
-                last, pc = model.prefill_step(t[:, :s])
-                logits.append(last)
-                cache = model.init_cache(ShapeConfig("serve", s + MOE_DECODE_STEPS, b, "decode"))
-                splice_cache(cache, pc)
-                for i in range(MOE_DECODE_STEPS):
-                    logits.append(model.serve_step(cache, t[:, s + i:s + i + 1], s + i)[0])
-            outs.append([x.cpu() for x in logits])
+                outs.append(forward_prefill_decode(model, toks, s, MOE_DECODE_STEPS))
             recs.append(rec)
         same = same_pairs(*recs)
         dropped = recs[0].dropped(lambda T: True)
         scale = max(x.abs().max().item() for x in outs[0])
         diff = max((a - c).abs().max().item() for a, c in zip(*outs))
-        emit("moe_card_vs_cpu", arch=cfg.name, moe_every=cfg.moe_every,
-             moe_shared=cfg.moe_shared, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        emit("moe_a2a" if perf else "moe_card_vs_cpu", arch=cfg.name, moe_impl=cfg.moe_impl,
+             moe_ep2d=cfg.moe_ep2d, capacity_factor=cfg.capacity_factor,
+             moe_every=cfg.moe_every, moe_shared=cfg.moe_shared,
+             n_experts=cfg.n_experts, top_k=cfg.top_k,
              batch=b, seq=s, decode_steps=MOE_DECODE_STEPS, moe_calls=len(recs[1].calls),
              pairs=dropped["pairs"], dropped=dropped["dropped"],
              capacity=dropped["capacity"], same_keep_masks=same, max_abs_diff=diff,
-             max_abs_logit=scale, tol_rel=MOE_CPU_TOL)
+             max_abs_logit=scale, tol_rel=CARD_CPU_TOL)
         check(same, f"{arch}: the card and the CPU keep different pairs")
         check(dropped["dropped"] > 0, f"{arch}: no pair dropped: {dropped}")
-        check(math.isfinite(diff) and diff <= MOE_CPU_TOL * scale,
-              f"{arch}: card vs CPU logits {diff} > {MOE_CPU_TOL} * {scale}")
+        check(math.isfinite(diff) and diff <= CARD_CPU_TOL * scale,
+              f"{arch}: card vs CPU logits {diff} > {CARD_CPU_TOL} * {scale}")
 
 
 # ---------------------------------------------------------------------- #
@@ -2027,6 +2170,8 @@ MOE_TRAIN_DEPTH = 5
 # Adafactor step, then two more whose losses are printed unchecked
 MOE_TRAIN_CHECKED = {"qwen3-moe-30b-a3b": 3, "llama4-maverick-400b-a17b": 1}
 MOE_TRAIN_UNCHECKED = {"qwen3-moe-30b-a3b": 0, "llama4-maverick-400b-a17b": 2}
+# under the perf bundle (the all-to-all path): one checked step each
+A2A_TRAIN_CHECKED = {"qwen3-moe-30b-a3b": 1, "llama4-maverick-400b-a17b": 1}
 TOP1_ROUTER = "blocks.moe.ffn.router"      # llama4's router: top_k 1
 ROUTER_NOISE = 1e-6                        # of the largest |grad| of the model
 # name parts of the kernels PyTorch launches for indexing, sorting, top-k,
@@ -2037,16 +2182,20 @@ MOE_DISPATCH_KERNELS = ("index", "sort", "gather", "scatter", "topk", "searchsor
 
 
 def same_pairs(rec_a, rec_b) -> bool:
-    """Whether two recorders saw the same MoE calls keep the same pairs."""
+    """Whether two recorders saw the same MoE calls keep the same pairs at
+    every stage."""
     import torch
     return len(rec_a.calls) == len(rec_b.calls) and all(
-        (T0, C0) == (T1, C1) and torch.equal(k0.cpu(), k1.cpu())
-        for (T0, C0, k0), (T1, C1, k1) in zip(rec_a.calls, rec_b.calls))
+        (a.T, a.capacity) == (b.T, b.capacity) and len(a.stages) == len(b.stages)
+        and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a.stages, b.stages))
+        for a, b in zip(rec_a.calls, rec_b.calls))
 
 
-def phase_moe_train_consistency(dev) -> None:
-    """The reduced MoE configs in fp32 with the capacity dispatch, card
-    against CPU from the same weights and batches, each step as
+def phase_moe_train_consistency(dev, perf: bool = False) -> None:
+    """The reduced MoE configs in fp32 (``moe_reduced_config``; with
+    ``perf`` the all-to-all path, one checked step each,
+    ``A2A_TRAIN_CHECKED``), card against CPU from the same weights and
+    batches, each step as
     ``train_step`` runs it (``value_and_grad``, then ``apply_updates``)
     under ``MoeRecorder``: every MoE call of the checked steps keeps the
     same (token, k) pairs on both devices, and each step launches each
@@ -2065,7 +2214,6 @@ def phase_moe_train_consistency(dev) -> None:
     differences). The two devices' routers part there, and with them the
     losses of the next steps, which are printed unchecked beside."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.config import ShapeConfig
@@ -2073,9 +2221,7 @@ def phase_moe_train_consistency(dev) -> None:
     from repro_torch.optim.adamw import OptConfig, apply_updates
 
     for arch in MOE_REDUCED:
-        cfg = get_config(arch).reduced()
-        check(cfg.dtype == "float32" and cfg.moe_impl == "dispatch" and not cfg.remat,
-              f"{arch}: reduced config")
+        cfg = moe_reduced_config(arch, perf)
         router = TOP1_ROUTER if cfg.top_k == 1 else None
         opt = OptConfig(kind=cfg.optimizer, warmup=5, total_steps=10)
         host = make_model(cfg, device="cpu", opt=opt)
@@ -2085,18 +2231,16 @@ def phase_moe_train_consistency(dev) -> None:
         pipe = SyntheticTokenPipeline(cfg, ShapeConfig("smoke_train", 32, 8, "train"),
                                       DataConfig())
         states = [host.init_opt(), card.init_opt()]
-        checked = MOE_TRAIN_CHECKED[arch]
-        steps = checked + MOE_TRAIN_UNCHECKED[arch]
+        checked = (A2A_TRAIN_CHECKED if perf else MOE_TRAIN_CHECKED)[arch]
+        steps = checked + (0 if perf else MOE_TRAIN_UNCHECKED[arch])
         reset_launches()
         rows, unchecked = [], []
         for step in range(steps):
             batch = pipe.batch_at(step)
             losses, recs, noise = [], [], []
             for i, model in enumerate((host, card)):
-                tb = {n: torch.from_numpy(a).to(model.device, torch.long)
-                      for n, a in batch.items()}
                 with MoeRecorder() as rec:
-                    loss, grads = model.value_and_grad(tb)
+                    loss, grads = model.value_and_grad(device_batch(batch, model.device))
                 if router:
                     largest = max(g.abs().max().item() for g in grads.values())
                     noise.append(grads[router].abs().max().item() / largest)
@@ -2137,7 +2281,8 @@ def phase_moe_train_consistency(dev) -> None:
         expect = {k: steps * n for k, n in per_step_launches(cfg).items()}
         check(all(launches[k] == expect.get(k, 0) for k in launches),
               f"{arch} MoE train consistency launches {launches}, expected {expect}")
-        emit("moe_train_consistency", arch=cfg.name, dtype=cfg.dtype, optimizer=cfg.optimizer,
+        emit("moe_a2a" if perf else "moe_train_consistency", arch=cfg.name, dtype=cfg.dtype,
+             moe_impl=cfg.moe_impl, optimizer=cfg.optimizer,
              top_k=cfg.top_k, moe_every=cfg.moe_every, moe_shared=cfg.moe_shared,
              steps=rows, unchecked_steps=unchecked, **param_row, tol=TRAIN_TOL,
              router_noise_tol=ROUTER_NOISE if router else None, launches=launches)
@@ -2158,7 +2303,7 @@ def moe_train_readings(dev, cfg, res) -> None:
     rt = res["runtime"]
     model = rt.model
     batch_np = SyntheticTokenPipeline(rt.cfg, rt.shape, DataConfig()).batch_at(TRAIN["steps"])
-    tb = {n: torch.from_numpy(a).to(dev, torch.long) for n, a in batch_np.items()}
+    tb = device_batch(batch_np, dev)
     with MoeRecorder() as rec:
         _, grads = model.value_and_grad(tb)
     first = {n: g.cpu() for n, g in grads.items()}
@@ -2176,10 +2321,10 @@ def moe_train_readings(dev, cfg, res) -> None:
     # the backward recomputes the layers last to first
     fwd, again = rec.calls[:L], rec.calls[L:][::-1]
     remat_same = len(again) == L and all(
-        C0 == C1 and torch.equal(k0, k1) for (_, C0, k0), (_, C1, k1) in zip(fwd, again))
+        a.capacity == b.capacity and torch.equal(a.keep, b.keep) for a, b in zip(fwd, again))
     T = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
     drops = rec.dropped(lambda n: n == T)
-    kept = sum(int(k.sum().item()) for _, _, k in fwd)
+    kept = sum(int(c.keep.sum().item()) for c in fwd)
     worst = max(diff, key=diff.get)
     emit("train_moe", arch=cfg.name, reading="one step's forward and gradients",
          moe_calls=len(rec.calls), forward_calls=len(fwd),
@@ -2193,16 +2338,11 @@ def moe_train_readings(dev, cfg, res) -> None:
 
 def phase_train_moe(dev) -> dict:
     """``run_training`` of qwen3-moe-30b-a3b at full width (checked against
-    ``MOE_WIDTH`` first) with its depth cut to ``MOE_TRAIN_DEPTH`` of 48
+    ``WIDTH`` first) with its depth cut to ``MOE_TRAIN_DEPTH`` of 48
     layers, as ``phase_train`` runs llama: the launch counts, the losses,
     the events and the peak; then ``moe_train_readings`` and a profiled
     step."""
-    from repro_torch.configs import get_config
-
-    full = get_config(MOE_ARCH)
-    check(all(getattr(full, k) == v for k, v in MOE_WIDTH.items())
-          and full.family == "moe" and full.moe_every == 1 and full.moe_impl == "dispatch",
-          f"{MOE_ARCH}: full-width config")
+    full_config(MOE_ARCH)
     return phase_train(dev, MOE_ARCH, n_layers=MOE_TRAIN_DEPTH, readings=moe_train_readings,
                        phase="train_moe")
 
@@ -2216,36 +2356,11 @@ VLM_ARCH, AUDIO_ARCH = "qwen2-vl-72b", "musicgen-medium"
 # (2.49 G parameters) take 9.97 GB and the fp32 prefill logits 2.49 GB: about
 # 66 GB at 10 of 80 layers, about 72 GB at 11
 VLM_DEPTH = 10
-STUB_WIDTH = {
-    VLM_ARCH: dict(family="vlm", d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
-                   d_ff=29568, vocab=152064, rope="mrope", frontend="vision_stub"),
-    AUDIO_ARCH: dict(family="audio", d_model=1536, n_heads=24, n_kv_heads=24, head_dim=64,
-                     d_ff=6144, vocab=2048, rope="abs_sin", frontend="audio_stub"),
-}
 # apply_rope under M-RoPE, card against CPU: fp32 differs in sin / cos and
 # the order of nothing else (the layer test's 1e-5); bf16 also rounds the
 # output (the bf16 kernel tolerance)
 MROPE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 MROPE_SHAPES = {"float32": (2, 512, 8), "bfloat16": (8, 512, 64)}     # b, s, heads at d 128
-
-
-def stub_serving_model(dev, arch: str, n_layers: int = None):
-    """``arch`` at full width (depth cut to ``n_layers`` if given), weights
-    from seed 0 on the card."""
-    import dataclasses
-
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import make_model
-
-    full = get_config(arch)
-    check((full.n_layers, full.d_model) == DEPTH[arch]
-          and all(getattr(full, k) == v for k, v in STUB_WIDTH[arch].items()),
-          f"{arch}: full-width config")
-    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
-    model = make_model(cfg, device=dev)
-    model.init_params(torch.Generator(device=dev).manual_seed(0))
-    return model
 
 
 def phase_mrope(dev) -> None:
@@ -2278,8 +2393,8 @@ def phase_mrope(dev) -> None:
     emit("mrope", arch=VLM_ARCH, sections=list(secs), theta=cfg.rope_theta, **rows)
 
 
-def phase_serve_stub(dev, model, phase: str) -> dict:
-    """``serve_model`` on a stub-frontend model after a short warm-up
+def phase_serve_model(dev, model, phase: str) -> dict:
+    """``serve_model`` on a model from ``serving_model`` after a short warm-up
     (the serving cast, cuBLAS): a first run after ``empty_cache``, as the
     other serving phases time theirs, then the run whose times, peak memory
     and launch counts are read, on the caching allocator's blocks as a
@@ -2325,6 +2440,72 @@ def phase_serve_stub(dev, model, phase: str) -> dict:
     check(peak_gb < 80.0, f"{cfg.name}: peak memory {peak_gb} GB")
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# phases 24-28: the all-to-all MoE path, the last training runs, three
+# dense configs served
+# ---------------------------------------------------------------------- #
+# qwen2-vl-72b's training depth cut: 16 bytes a parameter (fp32 master,
+# gradient, both AdamW moments); the fp32 embedding and untied head (2.49 G
+# parameters) take 39.9 GB and each 0.878 G layer 14.0 GB, so 2 layers hold
+# 68.0 GB before the bf16 casts and the [2, 1024, 152064] fp32 logits
+VLM_TRAIN_DEPTH = 2
+TRAIN_STUB = ((VLM_ARCH, VLM_TRAIN_DEPTH, "train_vlm"), (AUDIO_ARCH, None, "train_audio"))
+# the dense configs served at batch 8 x 512 + 32, each with its depth cut
+# (None: whole) so that its fp32 masters, bf16 serving copy (6 bytes a
+# parameter) and prefill logits fit the card: phi4-mini 32 layers of 100.7 M
+# and a 614.6 M embedding and head, about 27 GB; phi3-medium 2.04 GB a layer
+# and 6.2 GB of embedding and head, 32 of 40 layers about 73 GB; nemotron
+# 2.34 GB a layer and 18.9 GB of its 256,000-row embedding and head, 20 of 32
+# layers about 70 GB
+DENSE_SERVE = {"phi4-mini-3.8b": None, "phi3-medium-14b": 32, "nemotron-4-15b": 20}
+# each dense config narrowed for the card-against-CPU check, keeping its GQA
+# group at head dim 16: (n_heads, n_kv_heads)
+DENSE_NARROW = {"phi4-mini-3.8b": (6, 2), "phi3-medium-14b": (8, 2), "nemotron-4-15b": (12, 2)}
+
+
+def phase_dense_card_vs_cpu(dev, arch: str) -> None:
+    """``arch``'s reduced config narrowed to ``DENSE_NARROW`` (its GQA group,
+    MLP and untied head kept), fp32: a forward, a prefill and
+    ``MOE_DECODE_STEPS`` decode steps over the bf16 cache on the card and on
+    the CPU from the same weights and tokens, within ``CARD_CPU_TOL`` of the
+    largest logit. The card launches the prefill kernel once a layer for the
+    forward and for the prefill, and the decode kernel once a layer and step
+    (a group of 5 to 7 runs the G = 8 instantiation with rows idle)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import make_model
+
+    full = full_config(arch)
+    h, kvh = DENSE_NARROW[arch]
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_heads=h, n_kv_heads=kvh, head_dim=16)
+    check(cfg.dtype == "float32" and h // kvh == full.n_heads // full.n_kv_heads
+          and cfg.mlp_act == full.mlp_act, f"{arch}: narrow config")
+    host = make_model(cfg, device="cpu")
+    host.init_params(torch.Generator().manual_seed(7))
+    card = make_model(cfg, device=dev)
+    card.load_params(host.state_dict())
+    b, s, steps = 2, 16, MOE_DECODE_STEPS
+    toks = torch.randint(0, cfg.vocab, (b, s + steps), generator=torch.Generator().manual_seed(8))
+    reset_launches()
+    outs = [forward_prefill_decode(model, toks, s, steps) for model in (host, card)]
+    launches = dict(LAUNCHES)
+    expect = {"flash_attention": 2 * cfg.n_layers, "flash_decode": steps * cfg.n_layers}
+    scale = max(x.abs().max().item() for x in outs[0])
+    diff = max((a - c).abs().max().item() for a, c in zip(*outs))
+    emit("serve_dense", arch=arch, part="card_vs_cpu", n_layers=cfg.n_layers, n_heads=h,
+         n_kv_heads=kvh, head_dim=cfg.hd, mlp_act=cfg.mlp_act, dtype=cfg.dtype, batch=b, seq=s,
+         decode_steps=steps, launches=launches, expected_launches=expect, max_abs_diff=diff,
+         max_abs_logit=scale, tol_rel=CARD_CPU_TOL)
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"{arch} narrow: {name} launches {n} != "
+              f"{expect.get(name, 0)}")
+    check(math.isfinite(diff) and diff <= CARD_CPU_TOL * scale,
+          f"{arch}: narrow card vs CPU logits {diff} > {CARD_CPU_TOL} * {scale}")
 
 
 def kernel_classes(rows) -> dict:
@@ -2471,7 +2652,7 @@ def drive(dev, smi: str, ptxas: list) -> None:
         paths[f"train {arch}"] = phase_train(dev, arch, profile=arch == "mamba2-2.7b")
     torch.cuda.empty_cache()
 
-    model = moe_serving_model(dev)
+    model = serving_model(dev, MOE_ARCH, MOE_DEPTH)
     paths[f"serve {MOE_ARCH}"] = phase_serve_moe(dev, model)
     phase_profile(dev, model, steps=1)
     phase_moe_consistency(dev, model)
@@ -2485,12 +2666,31 @@ def drive(dev, smi: str, ptxas: list) -> None:
     phase_mrope(dev)
     for arch, n_layers, phase in ((VLM_ARCH, VLM_DEPTH, "serve_vlm"),
                                   (AUDIO_ARCH, None, "serve_audio")):
-        model = stub_serving_model(dev, arch, n_layers)
-        paths[f"serve {arch}"] = phase_serve_stub(dev, model, phase)
+        model = serving_model(dev, arch, n_layers)
+        paths[f"serve {arch}"] = phase_serve_model(dev, model, phase)
         phase_profile(dev, model)
         check_consistency(dev, model)
         del model
         torch.cuda.empty_cache()
+
+    phase_moe_card_vs_cpu(dev, perf=True)
+    phase_moe_train_consistency(dev, perf=True)
+    paths[f"train {MOE_ARCH} perf"] = phase_train(
+        dev, MOE_ARCH, profile=False, n_layers=MOE_TRAIN_DEPTH, phase="train_moe_perf", perf=True)
+    torch.cuda.empty_cache()
+    for arch, n_layers, phase in TRAIN_STUB:
+        full_config(arch)
+        phase_train_consistency(dev, arch)
+        paths[f"train {arch}"] = phase_train(dev, arch, n_layers=n_layers, phase=phase)
+        torch.cuda.empty_cache()
+    for arch, n_layers in DENSE_SERVE.items():
+        model = serving_model(dev, arch, n_layers)
+        paths[f"serve {arch}"] = phase_serve_model(dev, model, "serve_dense")
+        phase_profile(dev, model, steps=2)
+        check_consistency(dev, model)
+        del model
+        torch.cuda.empty_cache()
+        phase_dense_card_vs_cpu(dev, arch)
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

@@ -15,6 +15,8 @@ experts are plain PyTorch (the JAX layer has no kernel of its own).
       --full --seq-len 1024 --batch 2 --steps 6 --grow-at 2 --shrink-at 3 --fail-at 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
       --full --n-layers 5 --seq-len 1024 --batch 2 --steps 6 --grow-at 2 --shrink-at 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-72b \\
+      --full --n-layers 2 --seq-len 1024 --batch 2 --steps 6
 """
 from __future__ import annotations
 
@@ -55,9 +57,10 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     card at full width), ``n_layers`` cuts the depth (``cut_depth``: a
     full-width MoE model's masters, gradients and optimizer state do not
     fit one card), and ``device`` ("cuda" by default; "cpu" only when
-    asked). Every family the port models trains on the CPU; dense, moe,
-    ssm and hybrid also on the card (vlm and audio, whose stub frontends
-    train on embeddings, have not been run there). Besides JAX's results
+    asked). Every family the port models trains on the CPU and on the
+    card (vlm and audio through their stub frontends, on embeddings);
+    ``perf`` applies the arch's §Perf bundle (a MoE config's
+    ``moe_impl="a2a"`` runs the all-to-all body at one shard). Besides JAX's results
     it returns each step's seconds (batch upload to the loss on the host,
     the grow, shrink and failure before it excluded), the depth cut
     (``reduced``: None, or {"n_layers": "5 of 48"}) and the runtime, whose

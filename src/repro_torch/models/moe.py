@@ -13,8 +13,17 @@ The port of ``repro/models/moe.py``, plain functions on tensors:
 
 ``moe_dense`` runs every expert on every token and combines by the gate
 weights: the oracle of the tests. The JAX layer's sharding constraints
-are no-ops without a mesh and are dropped; ``moe_a2a``, its expert
-parallelism over an all-to-all, needs several cards and is not ported.
+are no-ops without a mesh and are dropped.
+
+``moe_a2a`` is the body of JAX's expert parallelism over an all-to-all
+(``local_moe`` in ``repro/models/moe.py``) at one model shard: the pairs
+are ranked twice, into a send buffer by their destination shard
+(``a2a_plan``'s first stage, capacity ``S_cap`` a shard), then into each
+local expert's buffer (its second stage, capacity ``C2`` an expert). JAX's
+runtime always binds a ("data", "model") mesh, so on one device it runs
+this body; the port has one shard, over which the two all-to-alls, and
+``moe_ep2d``'s gather and reduce-scatter over a data axis of size 1, are
+the identity. The all-to-all over several cards is not ported.
 """
 from __future__ import annotations
 
@@ -86,17 +95,22 @@ class DispatchPlan(NamedTuple):
     capacity: int
 
 
+def _ranks(keys: torch.Tensor) -> torch.Tensor:
+    """The rank of each entry among the entries of its key, in order: a
+    stable sort, then each position less the first of its key."""
+    order = torch.argsort(keys, stable=True)
+    sorted_keys = keys[order]
+    first = torch.searchsorted(sorted_keys, sorted_keys, side="left")
+    rank = torch.empty_like(keys)
+    rank[order] = torch.arange(keys.numel(), device=keys.device) - first
+    return rank
+
+
 def dispatch_plan(ids: torch.Tensor, cfg: ArchConfig) -> DispatchPlan:
     """The plan of ``moe_dispatch`` for expert ids [T, k]."""
-    T = ids.shape[0]
-    C = capacity(T, cfg)
+    C = capacity(ids.shape[0], cfg)
     fid = ids.reshape(-1)
-    order = torch.argsort(fid, stable=True)
-    sorted_fid = fid[order]
-    # the first position of each expert in the sorted stream
-    first = torch.searchsorted(sorted_fid, sorted_fid, side="left")
-    rank = torch.empty_like(fid)
-    rank[order] = torch.arange(fid.numel(), device=fid.device) - first
+    rank = _ranks(fid)
     keep = rank < C
     dest = torch.where(keep, fid * C + rank, cfg.n_experts * C)
     return DispatchPlan(keep, dest, C)
@@ -148,11 +162,99 @@ def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     return y.reshape(b, s, e)
 
 
+# the model shards ``moe_a2a`` spreads the experts over: one card
+A2A_SHARDS = 1
+
+
+class A2aPlan(NamedTuple):
+    """Where the T*k (token, k) pairs go in ``moe_a2a``, in two stages.
+    First into the send buffer: a pair fits if its rank among the pairs
+    bound for its expert's shard, in token order, is below ``send_capacity``
+    (S_cap), and takes row ``slot`` (the dump row n_sh*S_cap where it does
+    not). Then each received row into its local expert's buffer: a row
+    that holds a pair (``recv_eid`` >= 0, -1 in an empty row) fits if its
+    rank among the rows of that expert is below ``expert_capacity`` (C2),
+    and takes row ``recv_slot`` (the dump row e_loc*C2 where it does not).
+    A pair reaches an expert where ``keep`` and ``recv_keep[slot]`` hold."""
+    keep: torch.Tensor           # [T*k] bool
+    slot: torch.Tensor           # [T*k] int64
+    send_capacity: int
+    recv_eid: torch.Tensor       # [n_sh*S_cap] int64, the local expert or -1
+    recv_keep: torch.Tensor      # [n_sh*S_cap] bool
+    recv_slot: torch.Tensor      # [n_sh*S_cap] int64
+    expert_capacity: int
+
+    def kept(self) -> torch.Tensor:
+        """[T*k] bool: the pairs that reach an expert."""
+        n = self.recv_keep.numel()
+        return self.keep & self.recv_keep[self.slot.clamp(0, n - 1)]
+
+
+def a2a_plan(ids: torch.Tensor, cfg: ArchConfig) -> A2aPlan:
+    """The plan of ``moe_a2a`` for expert ids [T, k] at ``A2A_SHARDS``
+    shards: JAX's ``local_moe`` ranks, with both capacities,
+    S_cap = max(int(T k cf / n_sh), 8) and C2 = max(int(N cf / e_loc), 8)
+    for the N = n_sh * S_cap received rows."""
+    T, k = ids.shape
+    n_sh = A2A_SHARDS
+    e_loc = cfg.n_experts // n_sh
+    S = max(int(T * k * cfg.capacity_factor / n_sh), 8)
+    fid = ids.reshape(-1)
+    dest = fid // e_loc                                       # the target shard
+    rank = _ranks(dest)
+    keep = rank < S
+    slot = torch.where(keep, dest * S + rank, n_sh * S)
+    N = n_sh * S
+    # the send buffer's local expert ids, -1 in the rows no pair took; the
+    # dropped pairs write -1 into the dump row, which is cut off. The
+    # all-to-all at one shard is the identity: what is sent is received
+    eid = torch.full((N + 1,), -1, dtype=fid.dtype, device=fid.device)
+    eid[slot] = torch.where(keep, fid % e_loc, -1)
+    rid = eid[:N]
+    C2 = max(int(N * cfg.capacity_factor / e_loc), 8)
+    rank2 = _ranks(rid)
+    keep2 = (rid >= 0) & (rank2 < C2)
+    slot2 = torch.where(keep2, rid * C2 + rank2, e_loc * C2)
+    return A2aPlan(keep, slot, S, rid, keep2, slot2, C2)
+
+
+def moe_a2a(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """JAX's ``moe_a2a`` at one model shard: the pairs packed into the send
+    buffer, the received rows into the local experts' buffers, the experts'
+    products, the rows back to their send slots and the gated parts summed
+    into their tokens; the shared expert added outside, as JAX adds it."""
+    b, s, e = x.shape
+    cdt = x.dtype
+    k, T = cfg.top_k, b * s
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, e)
+    gates, ids = _route(xn, p, cfg)                                     # [T, k]
+    plan = a2a_plan(ids, cfg)
+    N = plan.recv_eid.numel()
+    e_loc, C2 = cfg.n_experts // A2A_SHARDS, plan.expert_capacity
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    send = torch.zeros((N + 1, e), dtype=cdt, device=x.device)
+    send = send.index_add(0, plan.slot, xn[tok] * plan.keep.to(cdt)[:, None])[:N]
+    # all-to-all out at one shard: the rows received are the rows sent
+    keep2 = plan.recv_keep.to(cdt)[:, None]
+    buf = torch.zeros((e_loc * C2 + 1, e), dtype=cdt, device=x.device)
+    buf = buf.index_add(0, plan.recv_slot, send * keep2)[:e_loc * C2]
+    # moe_ep2d's gather over "data" before the products and its
+    # reduce-scatter after them: the identity over a data axis of size 1
+    yb = _expert_ffn(buf.view(e_loc, C2, e), p, cfg)                    # [e_loc, C2, e]
+    ry = yb.reshape(e_loc * C2, e)[plan.recv_slot.clamp(0, e_loc * C2 - 1)] * keep2
+    # all-to-all back at one shard: the rows return to their send slots
+    got = ry[plan.slot.clamp(0, N - 1)]
+    got = got * (plan.keep.to(cdt) * gates.reshape(T * k).to(cdt))[:, None]
+    # each token's k parts summed in a fixed order (JAX scatter-adds them)
+    y = got.view(T, k, e).sum(1)
+    if cfg.moe_shared:
+        y = y + _shared(xn, p, cfg)
+    return y.reshape(b, s, e)
+
+
 def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.moe_impl == "dense":
         return moe_dense(x, p, cfg)
     if cfg.moe_impl == "a2a":
-        raise NotImplementedError(
-            "moe_impl='a2a' (expert parallelism over an all-to-all) lands with "
-            "parallel/ (A14)")
+        return moe_a2a(x, p, cfg)
     return moe_dispatch(x, p, cfg)

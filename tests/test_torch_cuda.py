@@ -93,6 +93,8 @@ BWD_TILE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
     (1, 4, 2, 100, 100, 16, 0),
     (2, 6, 2, 130, 130, 16, 32),     # head_dim 16, ragged under a window
     (1, 8, 2, 72, 200, 80, 0),       # head_dim 80, sq < skv, GQA group 4
+    (1, 24, 24, 192, 192, 64, 0),    # musicgen-medium's MHA at d 64
+    (1, 64, 8, 128, 128, 128, 0),    # qwen2-vl-72b's 64 heads at group 8
 ])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -241,6 +243,10 @@ def _decode_inputs(rng, b, h, kvh, S, d, dtype, cache_dtype, device):
     (2, 12, 4, 100, 32),             # d 32, group 3
     (4, 8, 2, 300, 64),              # d 64, group 4
     (2, 10, 2, 130, 80),             # group 5, run as 8 with 3 heads idle
+    (2, 12, 2, 200, 64),             # group 6, run as 8 with 2 heads idle
+    (2, 14, 2, 130, 128),            # group 7, run as 8 with 1 head idle
+    (8, 48, 8, 544, 128),            # nemotron-4-15b decode: group 6
+    (8, 40, 10, 544, 128),           # phi3-medium-14b decode: 10 kv heads, group 4
     (1, 8, 1, 512, 128),             # 8 splits, the most a cluster takes
 ])
 def test_flash_decode_kernel_vs_plain(b, h, kvh, S, d, dtype, cache_dtype, cuda):
@@ -779,6 +785,45 @@ def test_mrope_on_card_matches_cpu(d, cuda):
     want = apply_rope(x, pos, 1e6, secs)
     got = apply_rope(x.to(cuda), pos.to(cuda), 1e6, secs).cpu()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_a2a_on_card_matches_cpu(cuda):
+    """``moe_impl="a2a"`` at capacity factor 0.5 on the reduced qwen3-moe
+    (both stages drop pairs), fp32: the same ids and pairs kept at both
+    stages on the card as on the CPU, the output and every gradient of
+    sum(y^2) within 1e-4 of its largest |value|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), moe_impl="a2a",
+                              capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(3)
+    params = {}
+    for name, spec in moe.moe_specs(cfg).items():
+        params[name] = torch.empty(spec.shape)
+        spec.materialize_(params[name], gen)
+    params["router"] *= 100.0        # tie-free top-k sets on both devices
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 32, cfg.d_model),
+                                                                  np.float32))
+    fields = ("keep", "slot", "recv_eid", "recv_keep", "recv_slot")
+    outs = []
+    for dev in ("cpu", cuda):
+        p = {n: t.to(dev).requires_grad_() for n, t in params.items()}
+        xd = x.to(dev).requires_grad_()
+        plan = moe.a2a_plan(moe._route(xd.detach().reshape(64, -1), p, cfg)[1], cfg)
+        y = moe.moe(xd, p, cfg)
+        grads = torch.autograd.grad((y ** 2).sum(), [xd, *p.values()])
+        outs.append(({f: getattr(plan, f).cpu() for f in fields}, plan.kept().cpu(),
+                     y.detach().cpu(), [g.cpu() for g in grads]))
+    (plan0, kept0, y0, g0), (plan1, kept1, y1, g1) = outs
+    assert all(torch.equal(plan0[f], plan1[f]) for f in fields) and torch.equal(kept0, kept1)
+    assert 0 < kept0.sum() < kept0.numel()
+    for got, want in [(y1, y0), *zip(g1, g0)]:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
 
 
 @pytest.mark.cuda

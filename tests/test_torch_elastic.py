@@ -18,6 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import EventType, Instance
 from repro_torch.core.graph import build_tpu_fleet
 from repro_torch.core.scheduler import SchedulerInstance
+from repro_torch.data.pipeline import SyntheticTokenPipeline
 from repro_torch.launch.train import run_training
 from repro_torch.models.config import ShapeConfig
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -104,6 +105,33 @@ def test_rebind_keeps_the_model_and_its_state(tmp_path):
     assert {n: t.data_ptr() for n, t in rt.params.items()} == masters
     assert {n: t.data_ptr() for n, t in rt.opt_state.mu.items()} == moments
     assert [e.kind for e in rt.events][-4:] == ["grow", "rebind", "shrink", "rebind"]
+
+
+def test_checkpoint_restart_resumes(tmp_path):
+    """The twin of tests/test_elastic.py's ``test_checkpoint_restart_resumes``
+    in process (the JAX one needs 8 and then 4 host devices in a subprocess
+    and is marked slow): train with a checkpoint every 10 steps, restore into
+    a fresh runtime at another allocation (4 chips of a one-node fleet), and
+    take one finite step from the latest checkpoint (step 10 or later)."""
+    run_training("llama3.2-3b", steps=11, smoke=True, ckpt_dir=str(tmp_path),
+                 ckpt_every=10, device="cpu")
+    cfg = get_config("llama3.2-3b").reduced()
+    shape = ShapeConfig("smoke_train", 32, 8, "train")
+    fleet = build_tpu_fleet(pods=1, racks_per_pod=1, nodes_per_rack=1,
+                            chips_per_node=4, device="cpu")
+    rt = ElasticRuntime(SchedulerInstance("top", fleet), cfg, shape, chip_type="chip",
+                        device="cpu")
+    assert rt.allocate(4)
+    rt.bind(torch.Generator().manual_seed(0))
+    step, state = CheckpointManager(str(tmp_path)).restore(
+        like={"params": rt.params, "opt_state": rt.opt_state})
+    with torch.no_grad():
+        for name, t in state["params"].items():
+            rt.params[name].copy_(t)
+    rt.opt_state = state["opt_state"]
+    m = rt.step(SyntheticTokenPipeline(cfg, shape).batch_at(step))
+    assert step >= 10 and rt.opt_state.step == step + 1
+    assert np.isfinite(float(m["loss"]))
 
 
 def test_straggler_ejection():

@@ -8,10 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AxisType
 
 from repro.configs.registry import get_config as jax_get_config
 from repro.models.config import ShapeConfig as JaxShapeConfig
 from repro.models.model import make_model as jax_make_model
+from repro.parallel.sharding import Rules, ShardingCtx
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models.config import ArchConfig, ShapeConfig
@@ -234,11 +236,31 @@ def test_moe_decode_consistent_with_forward(moe_pair):
     np.testing.assert_allclose(log[:, 0].numpy(), full[:, -1].numpy(), atol=2e-3, rtol=2e-3)
 
 
-def test_moe_a2a_raises():
-    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), moe_impl="a2a")
-    model = make_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        model.forward_logits(torch.zeros((1, 4), dtype=torch.long))
+@pytest.mark.parametrize("factor", [1.0, 0.5])
+def test_moe_a2a_forward_and_prefill_match_jax(moe_pair, factor):
+    """``moe_impl="a2a"`` through the whole model: the forward logits and
+    the prefill against JAX's model under a one-device ("data", "model")
+    mesh, as JAX's runtime binds it (without a mesh JAX's ``moe_a2a`` runs
+    the dispatch instead)."""
+    from repro.models.transformer import forward as jax_forward
+    jmodel, jparams, model = moe_pair
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    jcfg = dataclasses.replace(jmodel.cfg, moe_impl="a2a", capacity_factor=factor)
+    jm = jax_make_model(jcfg, ShardingCtx(Rules(), mesh))
+    cfg = model.cfg
+    model.cfg = ArchConfig(**vars(jcfg))
+    try:
+        toks = _tokens(2, 16, cfg.vocab, seed=10)
+        jlog, _ = jax.jit(lambda p, t: jax_forward(p, jcfg, jm.ctx, tokens=t))(
+            jparams, jnp.asarray(toks))
+        _close(model.forward_logits(torch.from_numpy(toks).long()), jlog, 1e-4)
+        jlast, jcache = jax.jit(jm.prefill_step)(jparams, {"tokens": jnp.asarray(toks)})
+        last, cache = model.prefill_step(torch.from_numpy(toks).long())
+        _close(last, jlast, 1e-4)
+        for name in ("k", "v"):
+            _close(cache[name], jcache[name], 1e-4)
+    finally:
+        model.cfg = cfg
 
 
 def test_moe_bf16_paths_diverge_as_in_the_reference():

@@ -2,18 +2,22 @@
 ``repro.models.moe`` on the same numpy inputs and JAX's weights, copied
 through ``params_from_jax``: the router, the dense oracle, the capacity
 dispatch (the same pairs kept, pair for pair, where the capacity drops
-some), the capacity's rounding, and the gradients; then the twins of
-tests/test_moe.py."""
+some), the capacity's rounding, the gradients, and ``moe_a2a`` against
+JAX's under a one-device mesh (both stages' pairs and the gradients);
+then the twins of tests/test_moe.py."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import get_config as jax_get_config
 from repro.models import moe as jmoe
 from repro.models.config import ArchConfig as JaxArchConfig
 from repro.models.layers import materialize_tree, rmsnorm as jrmsnorm
-from repro.parallel.sharding import ShardingCtx
+from repro.parallel.sharding import Rules, ShardingCtx
 from repro_torch.convert import params_from_jax
 from repro_torch.models import moe
 from repro_torch.models.config import ArchConfig
@@ -166,11 +170,112 @@ def test_dispatch_grads_match_jax(kw):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
-def test_a2a_raises():
-    _, cfg = _cfgs(moe_impl="a2a")
-    _, p = _params(_cfgs()[0])
-    with pytest.raises(NotImplementedError, match="A14"):
-        moe.moe(torch.zeros(1, 2, 32), p, cfg)
+def _mesh_ctx():
+    """JAX's runtime's mesh on one device: ("data", "model") of 1 x 1."""
+    from jax.sharding import AxisType
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    return ShardingCtx(Rules(), mesh)
+
+
+A2A_CFGS = {"qwen3-reduced": lambda: dataclasses.replace(
+                jax_get_config("qwen3-moe-30b-a3b").reduced(), dtype="float32"),
+            "base": lambda: JaxArchConfig(**BASE)}
+
+
+def _a2a_pair(name, **kw):
+    jcfg = dataclasses.replace(A2A_CFGS[name](), moe_impl="a2a", **kw)
+    return jcfg, ArchConfig(**vars(jcfg))
+
+
+@pytest.mark.parametrize("factor", [1.0, 1.25, 0.5])
+@pytest.mark.parametrize("name", list(A2A_CFGS))
+def test_a2a_matches_jax(name, factor):
+    """``moe(moe_impl="a2a")`` against JAX's ``moe_a2a`` under a one-device
+    mesh (JAX's runtime binds one; without it JAX falls back to the
+    dispatch): y within 2e-5 of the largest |y|, each parameter's and x's
+    gradient of sum(y^2) within 1e-5 of its largest |value|. Where the
+    capacities of the two paths differ (1.25, 0.5) y is also held more than
+    0.1 of the largest |y| away from ``moe_dispatch``'s, so no fallback to
+    the dispatch can pass."""
+    jcfg, cfg = _a2a_pair(name, capacity_factor=factor)
+    jp, p = _params(jcfg)
+    x = np.array(jax.random.normal(jax.random.key(1), (2, 16, jcfg.d_model)))
+    ctx = _mesh_ctx()
+    want = np.asarray(jax.jit(lambda x, jp: jmoe.moe_a2a(x, jp, jcfg, ctx))(x, jp))
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    y = moe.moe(xt, leaves, cfg)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(y.detach().numpy(), want, atol=2e-5 * scale, rtol=0)
+    if factor != 1.0:
+        disp = moe.moe_dispatch(torch.from_numpy(x), p, cfg).numpy()
+        assert np.abs(y.detach().numpy() - disp).max() > 0.1 * scale
+
+    def jloss(jp, x):
+        return jnp.sum(jmoe.moe_a2a(x, jp, jcfg, ctx) ** 2)
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, jnp.asarray(x))
+    (y ** 2).sum().backward()
+    pairs = [(xt.grad, jgx)] + [(leaves[k].grad, jgp[k]) for k in sorted(leaves)]
+    for got, want in pairs:
+        want = np.asarray(want)
+        assert np.abs(want).max() > 0 and np.isfinite(want).all()
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def _jax_a2a_plan(ids, jcfg):
+    """JAX's two stages of ranks, by the lines of ``local_moe`` at one
+    shard (the reference exposes no plan of its own)."""
+    T, k = ids.shape
+    n_sh, e_loc = 1, jcfg.n_experts
+    S_cap = max(int(T * k * jcfg.capacity_factor / n_sh), 8)
+    fid = ids.reshape(T * k)
+    dest = fid // e_loc
+    order = jnp.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    first = jnp.searchsorted(sorted_dest, sorted_dest, side="left")
+    ranks_sorted = jnp.arange(T * k, dtype=jnp.int32) - first.astype(jnp.int32)
+    rank = ranks_sorted[jnp.argsort(order, stable=True)]
+    keep = rank < S_cap
+    slot = jnp.where(keep, dest * S_cap + rank, n_sh * S_cap)
+    rid = jnp.full((n_sh * S_cap + 1,), -1, jnp.int32).at[slot].set(
+        jnp.where(keep, fid % e_loc, -1), mode="drop")[:-1]
+    N = n_sh * S_cap
+    C2 = max(int(N * jcfg.capacity_factor / e_loc), 8)
+    order2 = jnp.argsort(rid, stable=True)
+    sid = rid[order2]
+    first2 = jnp.searchsorted(sid, sid, side="left")
+    rk2 = (jnp.arange(N, dtype=jnp.int32) - first2.astype(jnp.int32))[
+        jnp.argsort(order2, stable=True)]
+    ok2 = jnp.logical_and(rid >= 0, rk2 < C2)
+    slot2 = jnp.where(ok2, rid * C2 + rk2, e_loc * C2)
+    return {k_: np.asarray(v) for k_, v in dict(
+        keep=keep, slot=slot, recv_eid=rid, recv_keep=ok2, recv_slot=slot2).items()}, S_cap, C2
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 16, 32), dict(capacity_factor=0.5)),        # both stages drop
+    ((2, 16, 32), dict(capacity_factor=0.1)),        # S_cap and C2 at their floor of 8
+    ((1, 8, 32), dict(n_experts=128, top_k=8, capacity_factor=1.25)),
+    ((4, 64, 32), dict(capacity_factor=1.0)),
+])
+def test_a2a_plan_keeps_jax_pairs(shape, kw):
+    """``a2a_plan`` keeps JAX's pairs at both stages, row for row: the send
+    slots, the received expert ids (-1 in empty rows), the expert slots,
+    both capacities."""
+    jcfg, cfg = _cfgs(**kw)
+    jp, p = _params(jcfg)
+    x = _x(shape, seed=3)
+    (_, jids), (_, ids) = _routes(jcfg, cfg, jp, p, x)
+    np.testing.assert_array_equal(ids, jids)
+    want, S_cap, C2 = _jax_a2a_plan(jnp.asarray(jids), jcfg)   # eager: a few small ops
+    plan = moe.a2a_plan(torch.from_numpy(ids), cfg)
+    assert (plan.send_capacity, plan.expert_capacity) == (S_cap, C2)
+    for name, w in want.items():
+        np.testing.assert_array_equal(getattr(plan, name).numpy(), w, err_msg=name)
+    kept = plan.kept().numpy()
+    assert kept.sum() == want["recv_keep"].sum()
+    if kw["capacity_factor"] < 1:
+        assert 0 < kept.sum() < kept.size
 
 
 # ---------------------------------------------------------------------- #
@@ -198,6 +303,32 @@ def test_dispatch_matches_dense_oracle(top_k, shared):
     x = _tx((2, 16, cfg.d_model))
     np.testing.assert_allclose(moe.moe_dispatch(x, p, cfg).numpy(),
                                moe.moe_dense(x, p, cfg).numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("top_k,shared", [(1, 0), (2, 1), (4, 0)])
+def test_a2a_matches_dense_oracle(top_k, shared):
+    """With capacity high enough that neither stage drops, ``moe_a2a``
+    equals the all-experts dense oracle; ``moe_ep2d`` changes nothing at
+    one shard."""
+    _, cfg = _cfgs(top_k=top_k, moe_shared=shared, capacity_factor=8.0, moe_impl="a2a")
+    p = _torch_params(cfg)
+    x = _tx((2, 16, cfg.d_model))
+    want = moe.moe_dense(x, p, cfg).numpy()
+    for ep2d in (False, True):
+        got = moe.moe(x, p, dataclasses.replace(cfg, moe_ep2d=ep2d))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_a2a_drops_tokens_gracefully():
+    """At tiny capacity both stages drop (S_cap 25 of 256 pairs, C2 8 of
+    the 25 rows for each of 2 experts); the output is finite."""
+    _, cfg = _cfgs(capacity_factor=0.1, n_experts=2, moe_impl="a2a")
+    p = _torch_params(cfg)
+    x = _tx((4, 32, cfg.d_model))
+    y = moe.moe(x, p, cfg)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    plan = moe.a2a_plan(moe._route(x.reshape(128, -1), p, cfg)[1], cfg)
+    assert not plan.keep.all() and not plan.recv_keep[plan.recv_eid >= 0].all()
 
 
 def test_capacity_drops_tokens_gracefully():

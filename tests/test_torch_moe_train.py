@@ -19,12 +19,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AxisType
 
 from repro.configs.registry import get_config as jax_get_config
+from repro.configs.registry import perf_patch as jax_perf_patch
 from repro.models.model import make_model as jax_make_model
 from repro.optim.adamw import OptConfig as JaxOptConfig
+from repro.parallel.sharding import Rules, ShardingCtx
 from repro.runtime.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.configs.registry import perf_patch
 from repro_torch.convert import params_from_jax
 from repro_torch.launch.train import run_training
 from repro_torch.models.model import make_model
@@ -95,6 +99,18 @@ def _patch_id(p):
     return "-".join(f"{k}={v}" if isinstance(v, str) else k for k, v in p.items()) or "base"
 
 
+def _check_grads(arch, grads, jgrads):
+    """Each leaf within ``GRAD_TOL`` of its own largest |grad|; a top-1
+    router within ``GRAD_TOL`` of the model's largest."""
+    assert list(grads) == list(jgrads)
+    largest = max(np.abs(g).max() for g in jgrads.values())
+    for name, want in jgrads.items():
+        got = grads[name]
+        assert got.shape == want.shape, name
+        scale = largest if name == _top1_router(arch) else np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=GRAD_TOL * scale, err_msg=name)
+
+
 @pytest.mark.parametrize("patch", PATCHES, ids=_patch_id)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_jax(arch, patch):
@@ -104,13 +120,38 @@ def test_loss_and_grads_match_jax(arch, patch):
     largest |grad| over all leaves."""
     jloss, jgrads, loss, grads = _losses_and_grads(arch, tuple(patch.items()))
     np.testing.assert_allclose(loss, jloss, rtol=LOSS_RTOL)
-    assert list(grads) == list(jgrads)
-    largest = max(np.abs(g).max() for g in jgrads.values())
-    for name, want in jgrads.items():
-        got = grads[name]
-        assert got.shape == want.shape, name
-        scale = largest if name == _top1_router(arch) else np.abs(want).max()
-        np.testing.assert_allclose(got, want, rtol=0, atol=GRAD_TOL * scale, err_msg=name)
+    _check_grads(arch, grads, jgrads)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_perf_bundle_loss_and_grads_match_jax(arch):
+    """The §Perf bundle (``moe_impl="a2a"``: qwen3-moe at capacity factor
+    1.0, llama4 with ``moe_ep2d``; bf16_grads, seq_sharded_loss,
+    prefill_last_logits) against JAX's model under a one-device ("data",
+    "model") mesh, as JAX's runtime binds it: the loss and every gradient
+    leaf as ``test_loss_and_grads_match_jax`` holds them."""
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    jpatch = {k: v for k, v in jax_perf_patch(arch).items() if k != "ssm_chunk"}
+    assert jpatch == perf_patch(arch) and jpatch["moe_impl"] == "a2a"
+    jcfg = dataclasses.replace(jax_get_config(arch), **jpatch).reduced()
+    jmodel = jax_make_model(jcfg, ShardingCtx(Rules(), mesh))
+    model = make_model(dataclasses.replace(get_config(arch), **jpatch).reduced(), device="cpu")
+    assert vars(model.cfg) == vars(jcfg)
+    model.load_params(params_from_jax(jax.device_get(_jax_params(arch))))
+    batch = _batch()
+    jloss, jgrads = jax.jit(jmodel._value_and_grad)(_jax_params(arch), _jax_batch(batch))
+    loss, grads = model.value_and_grad(_torch_batch(batch))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL)
+    _check_grads(arch, {n: g.float().numpy() for n, g in grads.items()}, _flat(jgrads))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_run_training_perf_bundle(arch):
+    """``run_training(perf=True)`` runs the a2a path to three finite losses."""
+    res = run_training(arch, steps=3, perf=True, device="cpu")
+    assert res["runtime"].cfg.moe_impl == "a2a"
+    assert len(res["losses"]) == 3 and np.isfinite(res["losses"]).all()
+    assert abs(res["losses"][0] - math.log(256)) < 1.0
 
 
 @pytest.mark.parametrize("patch", PATCHES, ids=_patch_id)
