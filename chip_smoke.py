@@ -204,6 +204,21 @@ Phases, each printing JSON lines:
    decode steps over the bf16 cache on the card and on the CPU within 2e-3
    of the largest logit, with exact launch counts (nemotron's group 6
    decodes through the G = 8 instantiation).
+29. a2a_shards: qwen3-moe-30b-a3b's MoE layer at full width through
+   ``moe_a2a``'s three stages with the loopback exchange (n_sh model
+   shards in one process) at n_sh 1, 4 and 8: one shard bit for bit the
+   no-mesh body; fp32 at T = 1024, capacity factor 1.0, the same pairs at
+   both stages on card and CPU, y and every gradient within 1e-5; at
+   capacity factor 16 against ``moe_dense``; the bf16 forward and backward
+   time at 8 x 512, the pairs dropped, the peak memory.
+30. dist_world1: an NCCL process group of world 1 from a ``FileStore``
+   and its ("data", "model") mesh of 1 x 1: ``moe_a2a`` through the real
+   all-to-all (and ``moe_ep2d``'s gather and reduce-scatter) equal to the
+   no-mesh body bit for bit; the int8 quantization and all-reduce equal
+   to the CPU's; ``run_training`` of llama3.2-3b at full width, 2 of 28
+   layers, three steps through the world-1 bind, equal bit for bit to the
+   same steps with no process group, its launches added to the kernel
+   table; then the group is destroyed.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -218,6 +233,7 @@ import math
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1934,19 +1950,20 @@ class MoeRecorder:
 
         self._mod, self._orig = transformer, transformer.moe
 
-        def recording(x, p, cfg):
+        def recording(x, p, cfg, group=None):
             T = x.shape[0] * x.shape[1]
             xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, -1)
             ids = moe_mod._route(xn, p, cfg)[1]
             if cfg.moe_impl == "a2a":
-                plan = moe_mod.a2a_plan(ids, cfg)
-                call = MoeCall(T, (plan.send_capacity, plan.expert_capacity), plan.kept(),
-                               (plan.keep, plan.recv_keep))
+                sp = moe_mod.send_plan(ids, cfg, 1)
+                rp = moe_mod.recv_plan(sp.send_eid.reshape(-1), cfg, 1)
+                call = MoeCall(T, (sp.send_capacity, rp.expert_capacity), sp.kept(rp),
+                               (sp.keep, rp.recv_keep))
             else:
                 plan = moe_mod.dispatch_plan(ids, cfg)
                 call = MoeCall(T, plan.capacity, plan.keep, (plan.keep,))
             self.calls.append(call)
-            return self._orig(x, p, cfg)
+            return self._orig(x, p, cfg, group)
         transformer.moe = recording
         return self
 
@@ -2508,6 +2525,279 @@ def phase_dense_card_vs_cpu(dev, arch: str) -> None:
           f"{arch}: narrow card vs CPU logits {diff} > {CARD_CPU_TOL} * {scale}")
 
 
+A2A_SHARDS = (1, 4, 8)                     # model shards of the loopback runs
+A2A_CHECK = (2, 512)                       # b, s: T = 1024 tokens, fp32, capacity factor 1.0
+A2A_DENSE = (1, 128)                       # at capacity factor 16: C2 grows with its square
+A2A_TIMED = (8, 512)                       # bf16, the config's capacity factor
+A2A_TOL = 1e-5                             # of the largest |y| / each leaf's largest |g|
+WORLD1_TRAIN = dict(steps=3, n_layers=2, seq=1024, batch=2)
+
+
+def moe_layer_params(dev, cfg, seed: int = 0) -> dict:
+    """One MoE layer's parameters (``moe_specs``) at ``cfg``'s width, drawn
+    on ``dev`` from ``seed`` by the model's init rule, in fp32."""
+    import torch
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {}
+    for name, spec in moe.moe_specs(cfg).items():
+        params[name] = torch.empty(spec.shape, device=dev)
+        spec.materialize_(params[name], gen)
+    return params
+
+
+def loopback_run(x, params, cfg, n_sh: int, grad: bool = True):
+    """``moe_a2a_shards`` over n_sh model shards in one process, the
+    loopback exchange between the stages: each shard's x slice
+    (``moe_shard_input``) and parameters (``moe_shard_params``) as leaves,
+    and the gradients of sum(y^2) over the shards. Returns (runs, leaves,
+    grads): grads in the order of leaves, x's slices first."""
+    import torch
+    from repro_torch.models import moe
+
+    xs = [moe.moe_shard_input(x, cfg, (m, n_sh)).detach().requires_grad_(grad)
+          for m in range(n_sh)]
+    ps = [{n: t.detach().requires_grad_(grad)
+           for n, t in moe.moe_shard_params(params, cfg, (m, n_sh)).items()}
+          for m in range(n_sh)]
+    runs = moe.moe_a2a_shards(xs, ps, cfg, n_sh, moe.loopback_exchange)
+    leaves = xs + [t for p in ps for t in p.values()]
+    grads = None
+    if grad:
+        grads = torch.autograd.grad(sum((r.y.float() ** 2).sum() for r in runs), leaves)
+    return runs, leaves, grads
+
+
+def pairs_dropped(runs) -> dict:
+    """Pairs that each stage dropped, over the shards."""
+    pairs = sum(r.send.keep.numel() for r in runs)
+    sent = sum(int(r.send.keep.sum()) for r in runs)
+    reached = sum(int(r.recv.recv_keep.sum()) for r in runs)
+    return {"pairs": pairs, "send_dropped": pairs - sent, "expert_dropped": sent - reached,
+            "share": (pairs - reached) / pairs}
+
+
+def phase_a2a_shards(dev) -> None:
+    """qwen3-moe-30b-a3b's MoE layer at full width (d 2048, 128 experts,
+    top 8, expert f 768) through ``moe_a2a``'s three stages with the
+    loopback exchange at n_sh 1, 4 and 8: at one shard the card's loopback
+    equals the one-shard body of ``moe_a2a`` bit for bit; in fp32 (TF32
+    off) at T = 1024 and capacity factor 1.0 the card and the CPU keep the
+    same pairs at both stages of every shard, y within 1e-5 of the largest
+    |y| and every gradient of sum(y^2) within 1e-5 of its leaf's largest
+    |g|; at capacity factor 16 (nothing drops; T = 128, as the capacity C2
+    grows with its square) y within 1e-5 of ``moe_dense`` on the card. Then
+    the bf16 forward and backward time at T = 8 x 512 for each n_sh, the
+    pairs each stage dropped, and the peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import moe
+
+    full = full_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, moe_impl="a2a", dtype="float32", capacity_factor=1.0)
+    t0 = time.perf_counter()
+    params = moe_layer_params(dev, cfg)
+    host = {n: t.cpu() for n, t in params.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(A2A_CHECK + (cfg.d_model,), generator=gen, device=dev)
+    rows = []
+    for n_sh in A2A_SHARDS:
+        card, card_leaves, card_g = loopback_run(x, params, cfg, n_sh)
+        cpu, _, cpu_g = loopback_run(x.cpu(), host, cfg, n_sh)
+        same = all(torch.equal(a.cpu(), b) for rc, rh in zip(card, cpu)
+                   for a, b in ((rc.send.keep, rh.send.keep), (rc.send.slot, rh.send.slot),
+                                (rc.send.send_eid, rh.send.send_eid),
+                                (rc.recv.recv_keep, rh.recv.recv_keep),
+                                (rc.recv.recv_slot, rh.recv.recv_slot)))
+        y_err = max((rc.y.cpu() - rh.y).abs().max().item() for rc, rh in zip(card, cpu))
+        y_scale = max(rh.y.abs().max().item() for rh in cpu)
+        g_share = max(((gc.cpu() - gh).abs().max() / gh.abs().max()).item()
+                      for gc, gh in zip(card_g, cpu_g))
+        row = {"n_sh": n_sh, "same_pairs": same, "y_err": y_err, "y_scale": y_scale,
+               "grad_err_share": g_share, "dropped": pairs_dropped(cpu),
+               "capacities": [card[0].send.send_capacity, card[0].recv.expert_capacity]}
+        check(same, f"a2a_shards n_sh {n_sh}: card and CPU keep different pairs")
+        check(y_err <= A2A_TOL * y_scale, f"a2a_shards n_sh {n_sh}: y {y_err} > {A2A_TOL} * "
+                                          f"{y_scale}")
+        check(g_share <= A2A_TOL, f"a2a_shards n_sh {n_sh}: gradient share {g_share}")
+        if n_sh == 1:
+            # the one-shard body of moe_a2a (no mesh), on the same leaves
+            y1 = moe.moe_a2a(card_leaves[0], {n: t for n, t in zip(
+                moe.moe_specs(cfg), card_leaves[1:])}, cfg)
+            g1 = torch.autograd.grad((y1 ** 2).sum(), card_leaves)
+            row["bitwise_one_shard"] = bool(torch.equal(y1, card[0].y) and all(
+                torch.equal(a, b) for a, b in zip(g1, card_g)))
+            check(row["bitwise_one_shard"], "a2a_shards: n_sh 1 is not the one-shard body")
+            del y1, g1
+        rows.append(row)
+        del card, cpu, card_g, cpu_g, card_leaves
+    del host
+    # capacity factor 16: nothing drops, the dense oracle on the card
+    c16 = dataclasses.replace(cfg, capacity_factor=16.0)
+    xd = torch.randn(A2A_DENSE + (cfg.d_model,), generator=gen, device=dev)
+    with torch.no_grad():
+        want = moe.moe_dense(xd, params, c16)
+        scale = want.abs().max().item()
+        dense = []
+        for n_sh in A2A_SHARDS:
+            runs, _, _ = loopback_run(xd, params, c16, n_sh, grad=False)
+            y = torch.cat([r.y for r in runs], dim=1)
+            err = (y - want).abs().max().item()
+            dense.append({"n_sh": n_sh, "err": err, "dropped": pairs_dropped(runs)})
+            check(err <= A2A_TOL * scale and dense[-1]["dropped"]["share"] == 0,
+                  f"a2a_shards cf 16 n_sh {n_sh}: {err} from moe_dense ({scale})")
+            del runs, y
+    check_s = time.perf_counter() - t0
+    # bf16 timing at T = 8 x 512, the config's capacity factor
+    bcfg = dataclasses.replace(full, moe_impl="a2a")
+    bparams = {n: t.to(torch.bfloat16) if n.startswith("w") else t for n, t in params.items()}
+    del params
+    xb = torch.randn(A2A_TIMED + (cfg.d_model,), generator=gen, device=dev, dtype=torch.bfloat16)
+    timed = []
+    for n_sh in A2A_SHARDS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs, _, _ = loopback_run(xb, bparams, bcfg, n_sh)
+        drops = pairs_dropped(runs)
+        del runs
+        ms = time_ms(lambda: loopback_run(xb, bparams, bcfg, n_sh), iters=5, warmup=1)
+        timed.append({"n_sh": n_sh, "fwd_bwd_ms": ms, "dropped": drops,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit("a2a_shards", arch=MOE_ARCH, d_model=cfg.d_model, n_experts=cfg.n_experts,
+         top_k=cfg.top_k, expert_d_ff=cfg.expert_ff, check_shape=A2A_CHECK, checks=rows,
+         dense_shape=A2A_DENSE, dense_cf16=dense, tol=A2A_TOL, check_s=check_s,
+         timed_shape=A2A_TIMED, capacity_factor=bcfg.capacity_factor, timed=timed)
+    del bparams, xb
+    torch.cuda.empty_cache()
+
+
+def phase_dist_world1(dev) -> dict:
+    """An NCCL process group of world 1 (a ``FileStore`` under a temporary
+    directory) and its ("data", "model") mesh of 1 x 1: (a) the full-width
+    qwen3-moe layer through the real ``all_to_all_single`` (and, under
+    ``moe_ep2d``, the gather and reduce-scatter over "data") equals the
+    no-mesh body bit for bit, output and gradients; (b) the int8
+    quantization on the card equals the CPU's on the same draws, the int8
+    all-reduce over the one-rank group equals its arithmetic on the CPU, and
+    ``compressed_psum`` over a one-rank "pod" axis returns its input; (c)
+    ``run_training`` of llama3.2-3b at full width (depth cut) through the
+    world-1 bind (its gradient all-reduce and loss mean over "data") equals
+    the same steps with no process group, bit for bit. Returns (c)'s launch
+    counts."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        return world1_checks(dev, t0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def world1_checks(dev, t0: float) -> dict:
+    """The body of ``phase_dist_world1`` under its process group, which
+    (c) destroys before its run without one."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import moe
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel import compress
+    from repro_torch.parallel.sharding import Rules, ShardingCtx
+
+    mesh = make_mesh_for(1, 1)
+    ctx = ShardingCtx(Rules(), mesh)
+    out = {"backend": dist.get_backend(), "mesh": list(mesh.shape)}
+    # (a) the full-width layer through the process group's exchanges
+    full = full_config(MOE_ARCH)
+    params = moe_layer_params(dev, full)
+    x = torch.randn((2, 256, full.d_model), generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    for ep2d in (False, True):
+        cfg = dataclasses.replace(full, moe_impl="a2a", dtype="float32", moe_ep2d=ep2d)
+        res = []
+        for c in (None, ctx):
+            leaves = [x.detach().requires_grad_()] + [
+                t.detach().requires_grad_() for t in params.values()]
+            y = moe.moe_a2a(leaves[0], dict(zip(params, leaves[1:])), cfg, c)
+            res.append((y.detach(), torch.autograd.grad((y ** 2).sum(), leaves)))
+        same = torch.equal(res[0][0], res[1][0]) and all(
+            torch.equal(a, b) for a, b in zip(res[0][1], res[1][1]))
+        out[f"a2a_bitwise{'_ep2d' if ep2d else ''}"] = same
+        check(same, f"dist_world1: moe_a2a through the group (ep2d {ep2d}) is not the body")
+        del res
+    del params
+    # (b) int8 quantization and the int8 all-reduce
+    g = torch.Generator().manual_seed(3)
+    xq = torch.randn((512, 1024), generator=g) * 3
+    u = torch.rand((512, 1024), generator=g)
+    q0, s0 = compress._quantize(xq, u)
+    q1, s1 = compress._quantize(xq.to(dev), u.to(dev))
+    want = compress.dequantize_int8(torch.clamp(torch.round(
+        compress.dequantize_int8(q0, s0) / s0), -127, 127).to(torch.int8), s0)
+    red = compress._reduce_leaves([xq.to(dev)], [u.to(dev)], mesh.get_group("data"), 1)[0]
+    grads = {"w": xq.to(dev)}
+    pod_mesh = DeviceMesh(dev.type, torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("pod", "data"))      # a one-rank axis named "pod"
+    out["quantize_bitwise"] = bool(torch.equal(q0, q1.cpu()) and torch.equal(s0, s1.cpu()) and
+                                   torch.equal(compress.dequantize_int8(q1, s1).cpu(),
+                                               compress.dequantize_int8(q0, s0)))
+    out["int8_allreduce_bitwise"] = bool(torch.equal(red.cpu(), want))
+    out["psum_one_rank_untouched"] = compress.compressed_psum(
+        grads, torch.Generator(device=dev).manual_seed(0), pod_mesh, "pod") is grads
+    check(out["quantize_bitwise"] and out["int8_allreduce_bitwise"]
+          and out["psum_one_rank_untouched"], f"dist_world1: int8 compression {out}")
+    # (c) training through the world-1 bind against no process group
+    shape = ShapeConfig("train_h100", WORLD1_TRAIN["seq"], WORLD1_TRAIN["batch"], "train")
+    kw = dict(smoke=False, shape=shape, steps=WORLD1_TRAIN["steps"],
+              n_layers=WORLD1_TRAIN["n_layers"], device=dev, log_every=10 ** 9)
+    torch.cuda.empty_cache()
+    reset_launches()
+    r = run_training(ARCH, **kw)
+    launches = dict(LAUNCHES)
+    rt = r["runtime"]
+    check(rt.device_mesh is not None and list(rt.device_mesh.shape) == [1, 1],
+          "dist_world1: the runtime did not bind the process group's mesh")
+    with_pg = {n: t.cpu() for n, t in rt.params.items()}
+    losses_pg = r["losses"]
+    del r, rt
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    r = run_training(ARCH, **kw)
+    check(r["runtime"].device_mesh is None, "dist_world1: a mesh without a process group")
+    same = all(torch.equal(with_pg[n], t.cpu()) for n, t in r["runtime"].params.items())
+    out.update(losses=losses_pg, losses_no_pg=r["losses"], train_bitwise=same,
+               train=dict(WORLD1_TRAIN), launches=launches, wall_s=time.perf_counter() - t0)
+    del r
+    torch.cuda.empty_cache()
+    emit("dist_world1", **out)
+    check(same and out["losses"] == out["losses_no_pg"],
+          "dist_world1: training through the world-1 bind is not the run without a group")
+    per_step = per_step_launches(cut_config(ARCH, WORLD1_TRAIN["n_layers"]))
+    check(all(launches.get(k, 0) == n * WORLD1_TRAIN["steps"] for k, n in per_step.items()),
+          f"dist_world1: launches {launches}, per step {per_step}")
+    return launches
+
+
+def cut_config(arch: str, n_layers: int):
+    from repro_torch.launch.train import cut_depth
+    return cut_depth(full_config(arch), n_layers)
+
+
 def kernel_classes(rows) -> dict:
     """Device ms of profiler rows by kind: the attention and SSD kernels,
     matrix products (cuBLAS and CUTLASS), the index, sort, gather and
@@ -2691,6 +2981,11 @@ def drive(dev, smi: str, ptxas: list) -> None:
         del model
         torch.cuda.empty_cache()
         phase_dense_card_vs_cpu(dev, arch)
+
+    phase_a2a_shards(dev)
+    torch.cuda.empty_cache()
+    paths[f"train {ARCH} world1"] = phase_dist_world1(dev)
+    torch.cuda.empty_cache()
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

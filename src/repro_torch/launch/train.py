@@ -26,6 +26,7 @@ import time
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..configs.registry import ARCH_IDS, get_config, perf_patch
 from ..core.external import TPUSliceProvider
@@ -64,7 +65,13 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     it returns each step's seconds (batch upload to the loss on the host,
     the grow, shrink and failure before it excluded), the depth cut
     (``reduced``: None, or {"n_layers": "5 of 48"}) and the runtime, whose
-    model and optimizer state are the trained ones."""
+    model and optimizer state are the trained ones.
+
+    Across ranks, every rank of an initialised ``torch.distributed`` world
+    calls it with the same arguments (one process a card, e.g. under
+    ``torchrun``; gloo on the CPU): the runtime binds ranks of the world
+    (``runtime/elastic.py``), a rank that is not bound records a NaN loss
+    for the steps it skips, and rank 0 alone writes the checkpoints."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # the LM head is an fp32 product, as in JAX: keep TF32 out of it
@@ -98,6 +105,7 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     rt.bind(torch.Generator(device=dev).manual_seed(0))
 
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    writer = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
     pipe = SyntheticTokenPipeline(cfg, shape, DataConfig())
     fault = FaultPolicy(rt, HeartbeatMonitor(timeout_s=1e9))
     fault.watch_allocation()
@@ -129,14 +137,14 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
         loss = float(metrics["loss"])          # waits for the step
         step_s.append(time.perf_counter() - ts)
         losses.append(loss)
-        if ckpt and step and step % ckpt_every == 0:
+        if ckpt and writer and step and step % ckpt_every == 0:
             ckpt.save(step, {"params": rt.params,
                              "opt_state": rt.opt_state}, blocking=False)
         if step % log_every == 0:
             print(f"[step {step}] loss={loss:.4f} "
                   f"chips={rt.chips_allocated()} "
                   f"mesh={len(rt.mesh)}", flush=True)
-    if ckpt:
+    if ckpt and writer:
         ckpt.save(steps, {"params": rt.params, "opt_state": rt.opt_state})
     wall = time.time() - t0
     cut = f"; layers {reduced['n_layers']}" if reduced else ""

@@ -24,7 +24,7 @@ update. The optimizer (``optim/adamw.py``) updates the masters in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -142,7 +142,7 @@ class Model(nn.Module):
     def init_opt(self) -> OptState:
         return init_opt_state(self.masters(), self.opt)
 
-    def _value_and_grad(self, batch: Dict[str, torch.Tensor]):
+    def _value_and_grad(self, batch: Dict[str, torch.Tensor], group=None):
         """(loss, {name: grad}) of ``loss_fn`` at the current masters. The
         leaves are the masters themselves (detached aliases), or with
         ``cfg.bf16_grads`` copies of the fp32 ones in the compute dtype,
@@ -158,25 +158,27 @@ class Model(nn.Module):
             leaves[name] = leaf.requires_grad_()
         tree = _unflatten(leaves)
         params = {name: _cast(tree[name], cdt) for name in self.parts}
-        loss = loss_fn(params, self.cfg, batch)
+        loss = loss_fn(params, self.cfg, batch, group)
         # a stub frontend's model never reads its embedding table: its
         # gradient is zeros, as JAX's
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         return loss.detach(), {name: torch.zeros_like(leaf) if g is None else g
                                for (name, leaf), g in zip(leaves.items(), grads)}
 
-    def value_and_grad(self, batch: Dict[str, torch.Tensor]):
+    def value_and_grad(self, batch: Dict[str, torch.Tensor], group=None):
         """(loss, {name: grad}) of a step's batch. With ``cfg.grad_accum``
         k > 1 the batch is split into k microbatches whose gradients are
         summed in fp32 and divided by k, and the loss is their mean (JAX's
-        ``train_step``)."""
+        ``train_step``). ``group``: the data-parallel group when the batch
+        is this rank's rows of a global one, microbatch i its rows of the
+        global microbatch i (``loss_fn``)."""
         k = self.cfg.grad_accum
         if k <= 1:
-            return self._value_and_grad(batch)
+            return self._value_and_grad(batch, group)
         micro = {n: t.reshape((k, t.shape[0] // k) + t.shape[1:]) for n, t in batch.items()}
         grads, losses = {}, []
         for i in range(k):
-            loss, g = self._value_and_grad({n: t[i] for n, t in micro.items()})
+            loss, g = self._value_and_grad({n: t[i] for n, t in micro.items()}, group)
             losses.append(loss)
             for name, gi in g.items():
                 if name in grads:
@@ -188,13 +190,19 @@ class Model(nn.Module):
             g.div_(k)
         return torch.stack(losses).mean(), grads
 
-    def train_step(self, opt_state: OptState, batch: Dict[str, torch.Tensor]):
+    def train_step(self, opt_state: OptState, batch: Dict[str, torch.Tensor],
+                   reduce: Optional[Callable] = None, group=None):
         """One optimizer step on ``batch`` ({"tokens", "labels"} [b, s] on
         the model's device; a stub frontend's {"embeds" [b, s, e],
         "labels"}): updates the masters and the moments in place
-        and returns (opt_state, {"loss": loss})."""
+        and returns (opt_state, {"loss": loss}). ``reduce(loss, grads)``,
+        if given, returns the (loss, grads) the optimizer takes: across
+        ranks, their mean over the data-parallel group ``group``, over
+        which the batch is split (``value_and_grad``)."""
         self._compute = None                 # the serving cast is stale after the step
-        loss, grads = self.value_and_grad(batch)
+        loss, grads = self.value_and_grad(batch, group)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         opt_state = apply_updates(self.masters(), grads, opt_state, self.opt)
         return opt_state, {"loss": loss}
 

@@ -15,23 +15,26 @@ The port of ``repro/models/moe.py``, plain functions on tensors:
 weights: the oracle of the tests. The JAX layer's sharding constraints
 are no-ops without a mesh and are dropped.
 
-``moe_a2a`` is the body of JAX's expert parallelism over an all-to-all
-(``local_moe`` in ``repro/models/moe.py``) at one model shard: the pairs
-are ranked twice, into a send buffer by their destination shard
-(``a2a_plan``'s first stage, capacity ``S_cap`` a shard), then into each
-local expert's buffer (its second stage, capacity ``C2`` an expert). JAX's
-runtime always binds a ("data", "model") mesh, so on one device it runs
-this body; the port has one shard, over which the two all-to-alls, and
-``moe_ep2d``'s gather and reduce-scatter over a data axis of size 1, are
-the identity. The all-to-all over several cards is not ported.
+``moe_a2a`` is JAX's expert parallelism over an all-to-all (``local_moe``
+in ``repro/models/moe.py``): the pairs are ranked twice, into a send
+buffer by their destination shard (capacity ``S_cap`` a shard), then,
+after the all-to-all over "model", into each local expert's buffer
+(capacity ``C2`` an expert). Its body is three stages (``a2a_pack``,
+``a2a_experts``, ``a2a_combine``) joined by an exchange: the mesh's
+collectives (``group_exchange``, each rank holding one shard), the
+identity at one shard without a mesh (JAX's runtime always binds a mesh,
+so on one device it runs this body), or ``loopback_exchange``, which runs
+n_sh shards in one process.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..parallel.sharding import mesh_shape
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -139,64 +142,88 @@ def moe_dense(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     return y.reshape(b, s, e)
 
 
-def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
-    """Capacity-based scatter dispatch (see the module docstring)."""
+def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch.Tensor:
+    """Capacity-based scatter dispatch (see the module docstring).
+
+    ``group``: the data-parallel process group when each of its ranks holds
+    its rows of the batch (in rank order). JAX's dispatch under a mesh is
+    partitioned by GSPMD and keeps its global meaning: the capacity comes
+    from the global T and the pairs are ranked over every rank's tokens
+    (``repro/models/moe.py:95-114``). So the expert ids are gathered over
+    the group, the global batch's plan is made, and this rank's pairs take
+    their rows of it. A pair's expert output depends on its own token
+    alone, so the rows of the other ranks' pairs stay empty here: each rank
+    runs the experts over the global [E, C, e] buffer (JAX shards its C
+    over "data" instead)."""
     b, s, e = x.shape
     cdt = x.dtype
     E, k, T = cfg.n_experts, cfg.top_k, b * s
     xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, e)
     gates, ids = _route(xn, p, cfg)                                     # [T, k]
+    mine = slice(None)
+    if group is not None and dist.get_world_size(group) > 1:
+        r = dist.get_rank(group)
+        ids = _gather_rows(ids, group)                                  # [n T, k]
+        mine = slice(r * T * k, (r + 1) * T * k)
     plan = dispatch_plan(ids, cfg)
     C = plan.capacity
+    kept, dest = plan.keep[mine], plan.dest[mine]
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    keep = plan.keep.to(cdt)[:, None]
     # each kept pair has a row of its own; the dropped ones add zeros into the dump row
     buf = torch.zeros((E * C + 1, e), dtype=cdt, device=x.device)
-    buf = buf.index_add(0, plan.dest, xn[tok] * keep)
+    buf = buf.index_add(0, dest, xn[tok] * kept.to(cdt)[:, None])
     yb = _expert_ffn(buf[:E * C].view(E, C, e), p, cfg)                 # [E, C, e]
-    gathered = yb.reshape(E * C, e)[plan.dest.clamp(0, E * C - 1)]
-    gathered = gathered * (gates.reshape(T * k) * plan.keep).to(cdt)[:, None]
+    gathered = yb.reshape(E * C, e)[dest.clamp(0, E * C - 1)]
+    gathered = gathered * (gates.reshape(T * k) * kept).to(cdt)[:, None]
     # each token's k parts summed in a fixed order (JAX scatter-adds them)
     y = gathered.view(T, k, e).sum(1)
     y = y + _shared(xn, p, cfg)
     return y.reshape(b, s, e)
 
 
-# the model shards ``moe_a2a`` spreads the experts over: one card
-A2A_SHARDS = 1
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's t [T, ...] of ``group``, concatenated in rank order."""
+    t = t.contiguous()
+    out = torch.empty((dist.get_world_size(group) * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
 
 
-class A2aPlan(NamedTuple):
-    """Where the T*k (token, k) pairs go in ``moe_a2a``, in two stages.
-    First into the send buffer: a pair fits if its rank among the pairs
-    bound for its expert's shard, in token order, is below ``send_capacity``
-    (S_cap), and takes row ``slot`` (the dump row n_sh*S_cap where it does
-    not). Then each received row into its local expert's buffer: a row
-    that holds a pair (``recv_eid`` >= 0, -1 in an empty row) fits if its
-    rank among the rows of that expert is below ``expert_capacity`` (C2),
-    and takes row ``recv_slot`` (the dump row e_loc*C2 where it does not).
-    A pair reaches an expert where ``keep`` and ``recv_keep[slot]`` hold."""
+class SendPlan(NamedTuple):
+    """The first stage of ``moe_a2a``'s plan on one shard: a pair of its
+    T*k (token, k) pairs fits if its rank among the pairs bound for its
+    expert's shard, in token order, is below ``send_capacity`` (S_cap), and
+    takes row ``slot`` of the send buffer (the dump row n_sh*S_cap where it
+    does not); the buffer's local expert ids [n_sh, S_cap] (-1 in the rows
+    no pair took)."""
     keep: torch.Tensor           # [T*k] bool
     slot: torch.Tensor           # [T*k] int64
     send_capacity: int
-    recv_eid: torch.Tensor       # [n_sh*S_cap] int64, the local expert or -1
-    recv_keep: torch.Tensor      # [n_sh*S_cap] bool
-    recv_slot: torch.Tensor      # [n_sh*S_cap] int64
+    send_eid: torch.Tensor       # [n_sh, S_cap] int64
+
+    def kept(self, recv: "RecvPlan") -> torch.Tensor:
+        """[T*k] bool at one shard, where what is sent is received: the
+        pairs that reach an expert (``keep`` and ``recv_keep[slot]``)."""
+        n = recv.recv_keep.numel()
+        return self.keep & recv.recv_keep[self.slot.clamp(0, n - 1)]
+
+
+class RecvPlan(NamedTuple):
+    """The second stage on one shard, for the N rows it received: a row
+    that holds a pair (local expert id >= 0) fits if its rank among the rows
+    of that expert is below ``expert_capacity`` (C2), and takes row
+    ``recv_slot`` of the experts' buffer (the dump row e_loc*C2 where it
+    does not)."""
+    recv_keep: torch.Tensor      # [N] bool
+    recv_slot: torch.Tensor      # [N] int64
     expert_capacity: int
 
-    def kept(self) -> torch.Tensor:
-        """[T*k] bool: the pairs that reach an expert."""
-        n = self.recv_keep.numel()
-        return self.keep & self.recv_keep[self.slot.clamp(0, n - 1)]
 
-
-def a2a_plan(ids: torch.Tensor, cfg: ArchConfig) -> A2aPlan:
-    """The plan of ``moe_a2a`` for expert ids [T, k] at ``A2A_SHARDS``
-    shards: JAX's ``local_moe`` ranks, with both capacities,
-    S_cap = max(int(T k cf / n_sh), 8) and C2 = max(int(N cf / e_loc), 8)
-    for the N = n_sh * S_cap received rows."""
+def send_plan(ids: torch.Tensor, cfg: ArchConfig, n_sh: int) -> SendPlan:
+    """The pairs of expert ids [T, k] packed by destination shard, as JAX's
+    ``local_moe`` ranks them: S_cap = max(int(T k cf / n_sh), 8)."""
     T, k = ids.shape
-    n_sh = A2A_SHARDS
     e_loc = cfg.n_experts // n_sh
     S = max(int(T * k * cfg.capacity_factor / n_sh), 8)
     fid = ids.reshape(-1)
@@ -205,56 +232,307 @@ def a2a_plan(ids: torch.Tensor, cfg: ArchConfig) -> A2aPlan:
     keep = rank < S
     slot = torch.where(keep, dest * S + rank, n_sh * S)
     N = n_sh * S
-    # the send buffer's local expert ids, -1 in the rows no pair took; the
-    # dropped pairs write -1 into the dump row, which is cut off. The
-    # all-to-all at one shard is the identity: what is sent is received
+    # the dropped pairs write -1 into the dump row, which is cut off
     eid = torch.full((N + 1,), -1, dtype=fid.dtype, device=fid.device)
     eid[slot] = torch.where(keep, fid % e_loc, -1)
-    rid = eid[:N]
+    return SendPlan(keep, slot, S, eid[:N].view(n_sh, S))
+
+
+def recv_plan(rid: torch.Tensor, cfg: ArchConfig, n_sh: int) -> RecvPlan:
+    """The N received rows' local expert ids ``rid`` [N] ranked into the
+    shard's experts: C2 = max(int(N cf / e_loc), 8)."""
+    N = rid.numel()
+    e_loc = cfg.n_experts // n_sh
     C2 = max(int(N * cfg.capacity_factor / e_loc), 8)
     rank2 = _ranks(rid)
     keep2 = (rid >= 0) & (rank2 < C2)
     slot2 = torch.where(keep2, rid * C2 + rank2, e_loc * C2)
-    return A2aPlan(keep, slot, S, rid, keep2, slot2, C2)
+    return RecvPlan(keep2, slot2, C2)
 
 
-def moe_a2a(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
-    """JAX's ``moe_a2a`` at one model shard: the pairs packed into the send
-    buffer, the received rows into the local experts' buffers, the experts'
-    products, the rows back to their send slots and the gated parts summed
-    into their tokens; the shared expert added outside, as JAX adds it."""
+# ---------------------------------------------------------------------- #
+# the exchanges between the stages: each takes the buffers [n_sh, ...] of
+# the shards this process holds, one list entry a shard, and returns what
+# each of them receives, in the same order
+# ---------------------------------------------------------------------- #
+Exchange = Callable[[List[torch.Tensor]], List[torch.Tensor]]
+
+
+def _identity(sends: List[torch.Tensor]) -> List[torch.Tensor]:
+    """One shard and no mesh: what is sent is received."""
+    return sends
+
+
+def loopback_exchange(sends: List[torch.Tensor]) -> List[torch.Tensor]:
+    """All n_sh shards in one process: shard r receives ``sends[src][r]``
+    from every src, at position src (JAX's ``all_to_all`` over "model"
+    with split and concat axis 0). Differentiable through autograd."""
+    n = len(sends)
+    return [torch.stack([sends[src][r] for src in range(n)]) for r in range(n)]
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` with equal splits on dim 0; its
+    backward is the all-to-all of the gradient (the exchange is its own
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def group_exchange(group) -> Exchange:
+    """The exchange of one rank's shard over the model axis's process
+    group: floating buffers through ``_AllToAll`` (differentiable), the
+    integer expert ids through ``all_to_all_single``."""
+    def exchange(sends: List[torch.Tensor]) -> List[torch.Tensor]:
+        (x,) = sends
+        if x.is_floating_point():
+            return [_AllToAll.apply(x, group)]
+        return [_all_to_all(x, group)]
+    return exchange
+
+
+def _gather_data(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[e_loc, C2, e] of each data rank -> [e_loc, n*C2, e], rank d's rows
+    at d*C2 (JAX's ``all_gather(axis=1, tiled=True)``)."""
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    all_gather(out, x, group=group)
+    return out.view((n,) + tuple(x.shape)).movedim(0, 1).reshape(
+        x.shape[0], n * x.shape[1], x.shape[2])
+
+
+def _scatter_data(y: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[e_loc, n*C2, e] summed over the data ranks, rank d keeping rows
+    [d*C2, (d+1)*C2) (JAX's ``psum_scatter(scatter_dimension=1,
+    tiled=True)``)."""
+    e_loc, nc, e = y.shape
+    parts = y.reshape(e_loc, n, nc // n, e).movedim(1, 0).reshape(n * e_loc, nc // n, e)
+    out = torch.empty((e_loc, nc // n, e), dtype=y.dtype, device=y.device)
+    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _GatherData(torch.autograd.Function):
+    """``moe_ep2d``'s gather over "data"; its backward is the reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _gather_data(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_data(g, ctx.group, ctx.n), None, None
+
+
+class _ScatterData(torch.autograd.Function):
+    """``moe_ep2d``'s reduce-scatter over "data"; its backward is the gather."""
+
+    @staticmethod
+    def forward(ctx, y, group, n):
+        ctx.group, ctx.n = group, n
+        return _scatter_data(y, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_data(g, ctx.group, ctx.n), None, None
+
+
+# ---------------------------------------------------------------------- #
+# the three stages of ``moe_a2a``, each on one shard
+# ---------------------------------------------------------------------- #
+class Packed(NamedTuple):
+    """A shard's tokens after stage 1: the normed tokens [T, e], the gates
+    [T, k], the first stage's plan and the send buffer [n_sh, S_cap, e]."""
+    xn: torch.Tensor
+    gates: torch.Tensor
+    plan: SendPlan
+    send: torch.Tensor
+
+
+def a2a_pack(x: torch.Tensor, p: Dict, cfg: ArchConfig, n_sh: int) -> Packed:
+    """Stage 1: route the shard's tokens x [b, s, e] and pack the kept
+    pairs into the send buffer, by destination shard."""
     b, s, e = x.shape
     cdt = x.dtype
     k, T = cfg.top_k, b * s
     xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, e)
     gates, ids = _route(xn, p, cfg)                                     # [T, k]
-    plan = a2a_plan(ids, cfg)
-    N = plan.recv_eid.numel()
-    e_loc, C2 = cfg.n_experts // A2A_SHARDS, plan.expert_capacity
+    plan = send_plan(ids, cfg, n_sh)
+    N = n_sh * plan.send_capacity
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     send = torch.zeros((N + 1, e), dtype=cdt, device=x.device)
     send = send.index_add(0, plan.slot, xn[tok] * plan.keep.to(cdt)[:, None])[:N]
-    # all-to-all out at one shard: the rows received are the rows sent
-    keep2 = plan.recv_keep.to(cdt)[:, None]
-    buf = torch.zeros((e_loc * C2 + 1, e), dtype=cdt, device=x.device)
-    buf = buf.index_add(0, plan.recv_slot, send * keep2)[:e_loc * C2]
-    # moe_ep2d's gather over "data" before the products and its
-    # reduce-scatter after them: the identity over a data axis of size 1
-    yb = _expert_ffn(buf.view(e_loc, C2, e), p, cfg)                    # [e_loc, C2, e]
-    ry = yb.reshape(e_loc * C2, e)[plan.recv_slot.clamp(0, e_loc * C2 - 1)] * keep2
-    # all-to-all back at one shard: the rows return to their send slots
-    got = ry[plan.slot.clamp(0, N - 1)]
-    got = got * (plan.keep.to(cdt) * gates.reshape(T * k).to(cdt))[:, None]
+    return Packed(xn, gates, plan, send.view(n_sh, plan.send_capacity, e))
+
+
+def a2a_experts(recv: torch.Tensor, recv_eid: torch.Tensor, p: Dict, cfg: ArchConfig,
+                n_sh: int, data=None) -> Tuple[torch.Tensor, RecvPlan]:
+    """Stage 2: the received rows [n_sh, S_cap, e] (with their local expert
+    ids) into the shard's e_loc experts' buffers, the experts' products,
+    and the rows back in their received order [n_sh, S_cap, e]. ``data``,
+    under ``moe_ep2d``, is (the "data" group, its size): the buffers are
+    gathered over it before the products (the shard holds its data slice
+    of each expert's f) and the partial outputs reduce-scattered after."""
+    _, S, e = recv.shape
+    cdt = recv.dtype
+    N = n_sh * S
+    e_loc = cfg.n_experts // n_sh
+    rp = recv_plan(recv_eid.reshape(N), cfg, n_sh)
+    C2 = rp.expert_capacity
+    keep2 = rp.recv_keep.to(cdt)[:, None]
+    buf = torch.zeros((e_loc * C2 + 1, e), dtype=cdt, device=recv.device)
+    buf = buf.index_add(0, rp.recv_slot, recv.reshape(N, e) * keep2)[:e_loc * C2]
+    xb = buf.view(e_loc, C2, e)
+    if data is not None:
+        xb = _GatherData.apply(xb, *data)                               # [e_loc, D*C2, e]
+    yb = _expert_ffn(xb, p, cfg)
+    if data is not None:
+        yb = _ScatterData.apply(yb, *data)                              # [e_loc, C2, e]
+    ry = yb.reshape(e_loc * C2, e)[rp.recv_slot.clamp(0, e_loc * C2 - 1)] * keep2
+    return ry.view(n_sh, S, e), rp
+
+
+def a2a_combine(back: torch.Tensor, packed: Packed, cfg: ArchConfig) -> torch.Tensor:
+    """Stage 3: the rows back in their send slots [n_sh, S_cap, e], scaled
+    by the gates, each token's k parts summed: y [T, e]."""
+    cdt = back.dtype
+    N, e = back.shape[0] * back.shape[1], back.shape[2]
+    T, k = packed.gates.shape
+    plan = packed.plan
+    got = back.reshape(N, e)[plan.slot.clamp(0, N - 1)]
+    got = got * (plan.keep.to(cdt) * packed.gates.reshape(T * k).to(cdt))[:, None]
     # each token's k parts summed in a fixed order (JAX scatter-adds them)
-    y = got.view(T, k, e).sum(1)
-    if cfg.moe_shared:
-        y = y + _shared(xn, p, cfg)
-    return y.reshape(b, s, e)
+    return got.view(T, k, e).sum(1)
 
 
-def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
+class ShardRun(NamedTuple):
+    """What ``moe_a2a_shards`` returns for each shard: y [b, s, e] without
+    the shared expert, and both stages' plans."""
+    y: torch.Tensor
+    send: SendPlan
+    recv: RecvPlan
+
+
+def moe_a2a_shards(xs: List[torch.Tensor], ps: List[Dict], cfg: ArchConfig, n_sh: int,
+                   exchange: Exchange, data=None) -> List[ShardRun]:
+    """The body of JAX's ``local_moe`` for the shards this process holds:
+    xs[i] [b, s, e] and ps[i] (the router and norm, and the shard's e_loc
+    experts) are shard i's. The model passes its one shard and the model
+    group's exchange (``group_exchange``); a test or a card check passes
+    all n_sh shards and ``loopback_exchange``."""
+    packs = [a2a_pack(x, p, cfg, n_sh) for x, p in zip(xs, ps)]
+    recv = exchange([pk.send for pk in packs])
+    recv_eid = exchange([pk.plan.send_eid for pk in packs])
+    outs = [a2a_experts(r, i, p, cfg, n_sh, data) for r, i, p in zip(recv, recv_eid, ps)]
+    back = exchange([ry for ry, _ in outs])
+    return [ShardRun(a2a_combine(bk, pk, cfg).view(x.shape), pk.plan, rp)
+            for bk, pk, (_, rp), x in zip(back, packs, outs, xs)]
+
+
+def moe_shard_params(p: Dict, cfg: ArchConfig, model: Tuple[int, int],
+                     data: Tuple[int, int] = (0, 1)) -> Dict:
+    """Shard (m, n_sh) of the model axis's slice of a full parameter dict:
+    its e_loc = E / n_sh experts (JAX's ``w_spec``); under ``moe_ep2d``
+    with data (d, D), also data rank d's slice of each expert's f
+    (``wu_spec`` / ``wd_spec``). The rest is replicated."""
+    (m, n_sh), (d, D) = model, data
+    e_loc = cfg.n_experts // n_sh
+    ex = slice(m * e_loc, (m + 1) * e_loc)
+    out = dict(p)
+    out["w_up"], out["w_gate"], out["w_down"] = p["w_up"][ex], p["w_gate"][ex], p["w_down"][ex]
+    if cfg.moe_ep2d and D > 1:
+        f = cfg.expert_ff // D
+        fs = slice(d * f, (d + 1) * f)
+        out["w_up"], out["w_gate"] = out["w_up"][:, :, fs], out["w_gate"][:, :, fs]
+        out["w_down"] = out["w_down"][:, fs]
+    return out
+
+
+def _check_shards(s: int, cfg: ArchConfig, n_sh: int, sizes) -> None:
+    if not n_sh or s % n_sh or cfg.n_experts % n_sh:
+        raise NotImplementedError(
+            f"moe_a2a under a mesh {sizes} at s {s}, {cfg.n_experts} experts: JAX falls back "
+            "to the GSPMD-sharded moe_dispatch there (repro/models/moe.py:165-174), which is "
+            "not ported")
+
+
+def moe_shard_input(x: torch.Tensor, cfg: ArchConfig, model: Tuple[int, int],
+                    data: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Rank (d, m)'s slice of x [b, s, e] (JAX's ``x_spec``): its batch rows
+    over "data", its sequence positions over "model". Raises where JAX
+    falls back to the dispatch (s % n_sh or E % n_sh nonzero)."""
+    b, s, _ = x.shape
+    (m, n_sh), (d, D) = model, data
+    _check_shards(s, cfg, n_sh, {"data": D, "model": n_sh})
+    if b % D:
+        raise ValueError(f"batch {b} does not split over {D} data ranks")
+    return x[d * b // D:(d + 1) * b // D, m * s // n_sh:(m + 1) * s // n_sh]
+
+
+def moe_a2a(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None) -> torch.Tensor:
+    """JAX's ``moe_a2a``: the pairs packed into the send buffer by their
+    expert's shard, the all-to-all out over "model", the received rows into
+    the local experts' buffers, the experts' products, the all-to-all back
+    and the gated parts summed into their tokens; the shared expert added
+    outside, as JAX adds it.
+
+    Without a mesh (``ctx`` None, or ``ctx.mesh`` None) it runs one shard,
+    over which the all-to-alls are the identity. Under a ("data", "model")
+    mesh each rank calls it on its own x [b_loc, s_loc, e] (batch over
+    "data", sequence over "model": ``moe_shard_input``) and p
+    (``moe_shard_params``), and the
+    exchanges are the mesh's collectives; under ``moe_ep2d`` the buffers
+    are also gathered and reduce-scattered over "data". Where JAX falls
+    back to ``moe_dispatch`` under a mesh (``repro/models/moe.py:165-174``:
+    no "model" axis, s % n_sh or E % n_sh nonzero) GSPMD shards the
+    dispatch, which the port does not have: it raises there."""
+    n_sh, exchange, data = 1, _identity, None
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is not None:
+        sizes = mesh_shape(mesh)
+        n_sh = sizes.get("model", 0)
+        _check_shards(x.shape[1] * n_sh, cfg, n_sh, sizes)
+        exchange = group_exchange(mesh.get_group("model"))
+        if cfg.moe_ep2d and "data" in sizes:
+            data = (mesh.get_group("data"), sizes["data"])
+    return add_shared(moe_a2a_shards([x], [p], cfg, n_sh, exchange, data)[0].y, x, p, cfg)
+
+
+def add_shared(y: torch.Tensor, x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """y [b, s, e] plus the shared expert of x, as ``moe_a2a`` adds it
+    outside the all-to-all body (y itself without a shared expert)."""
+    if not cfg.moe_shared:
+        return y
+    b, s, e = x.shape
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(b * s, e)
+    return y + _shared(xn, p, cfg).view(b, s, e)
+
+
+def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch.Tensor:
+    """The layer ``cfg.moe_impl`` names. ``group`` is the data-parallel
+    group over whose ranks the batch is split: the dispatch ranks its pairs
+    over the global batch (``moe_dispatch``); the dense oracle couples no
+    tokens, and ``moe_a2a`` at one model shard ranks a rank's own tokens,
+    as JAX's ``shard_map`` body does."""
     if cfg.moe_impl == "dense":
         return moe_dense(x, p, cfg)
     if cfg.moe_impl == "a2a":
         return moe_a2a(x, p, cfg)
-    return moe_dispatch(x, p, cfg)
+    return moe_dispatch(x, p, cfg, group)

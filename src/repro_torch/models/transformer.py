@@ -128,22 +128,26 @@ def _cast_blocks(blocks: Dict, dtype: torch.dtype) -> Dict:
 
 
 def _block(x: torch.Tensor, bp: Dict, cfg: ArchConfig,
-           positions: torch.Tensor, **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
+           positions: torch.Tensor, group=None, **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Attention then the feed-forward: the MoE layer where ``bp`` has one
     ("ffn"), else the MLP. A dense or MoE layer, or the hybrid's shared
-    block (the same weights at every application)."""
+    block (the same weights at every application). ``group``: the
+    data-parallel group the batch is split over (``moe.moe``)."""
     a, kv = attention(x, bp["attn"], cfg, positions, **attn_kw)
     x = x + a
-    ffn = moe(x, bp["ffn"], cfg) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
+    ffn = moe(x, bp["ffn"], cfg, group) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
     return x + ffn, kv
 
 
 def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
             want_cache: bool = False,
             logits_positions: str = "all", *,
-            embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+            embeds: Optional[torch.Tensor] = None,
+            group=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence forward over tokens [b, s], or over ``embeds`` [b, s, e]
-    for the stub frontends. Returns (logits, cache or None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
+    for the stub frontends; ``group`` is the data-parallel group when the
+    batch is this rank's rows of a global one (the MoE dispatch plans the
+    global batch). Returns (logits, cache or None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
     d] in the compute dtype (interleaved moe [groups, 2, b, s, kvh, d]:
     each group's dense layer, then its MoE layer); ssm {"conv" [L, b, K-1,
     conv_dim], "ssm" [L, b, H, P, N]} in fp32; hybrid the ssm states plus
@@ -169,7 +173,7 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
         blocks = _cast_blocks(blocks, getattr(torch, cfg.dtype))
 
     def block_body(x, bp):
-        return _block(x, bp, cfg, positions, want_cache=want_cache)
+        return _block(x, bp, cfg, positions, group, want_cache=want_cache)
 
     if cfg.family in ("ssm", "hybrid"):
         def ssm_body(x, bp):
@@ -212,11 +216,13 @@ def _pack_cache(cfg: ArchConfig, cache: Dict[str, list]) -> Dict[str, torch.Tens
     return {k: torch.stack(v) for k, v in cache.items()}
 
 
-def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            group=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
     [b, s], or {"embeds" [b, s, e], "labels"} for the stub frontends), as
-    ``repro/models/transformer.py::loss_fn``."""
-    logits, _ = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"))
+    ``repro/models/transformer.py::loss_fn``; ``group`` as in ``forward``."""
+    logits, _ = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
+                        group=group)
     return cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
 
 

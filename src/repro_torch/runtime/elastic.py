@@ -18,22 +18,43 @@ graph) for its whole life. Elasticity events map as:
   a rebind.
 
 Where JAX binds a mesh of ``min(allocated chips, jax.devices())`` devices
-and re-shards the state onto it, the port binds the list of usable local
-devices (``torch.cuda.device_count()`` on a card, one CPU otherwise) and
-trains on the first of them: one card, so a resize changes the bound
-list's length and not where the state lives. A rebind to the same device
-keeps the model and its state where they are (at full width a second
-copy would not fit the card); it still records its ``rebind`` event and
-rebuilds the step.
+and re-shards the state onto it, the port binds ranks of a
+``torch.distributed`` world, one device a rank (``cuda:{local rank}`` on a
+card, the CPU under gloo): a ("data", "model") ``DeviceMesh`` over ranks
+``[0, n)`` (``launch/mesh.py``'s ``make_mesh_for``), built once for each
+n and kept, since a mesh's groups live as long as the world. Every rank of
+the world runs the same control plane (the Instance, its queue and
+scheduler are deterministic, so every rank takes the same decisions) and
+calls ``bind`` at every resize; ranks ``[0, n)`` are bound, the others
+skip steps until the next rebind. Ranks that join (on a grow, or the first
+bind) receive the parameters and the optimizer state by broadcast from
+rank 0, which is always bound: the counterpart of JAX's ``device_put``
+onto the new mesh. The state is replicated over the bound ranks (JAX's
+Zero-3 layout, 1/n of it a device, gives the same update and is not
+ported); each bound rank takes its ``global_batch / n`` rows of the step's
+batch (its rows of each of ``grad_accum``'s microbatches), and the
+gradients are all-reduced over "data" and divided by n before the
+optimizer: JAX's global-batch mean. The MoE dispatch plans the global
+batch, as JAX's does under a mesh (``models/moe.py::moe_dispatch``). The
+reported loss is the mean over the bound ranks.
+
+Without a process group the world is one device (the first CUDA card, or
+the CPU), and a rebind keeps the model and its state where they are (at
+full width a second copy would not fit the card); it still records its
+``rebind`` event and rebuilds the step. JAX's runtime always uses a model
+axis of 1 (``repro/launch/train.py:58``); a model axis above 1, which
+would shard every layer's sequence over "model", is not ported.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.api import Instance, JobHandle
 from ..core.jobspec import Jobspec, ResourceReq
@@ -41,9 +62,11 @@ from ..core.queue import JobState
 from ..core.scheduler import SchedulerInstance
 from ..core.transform import remove_subgraph
 from ..device import resolve_device
+from ..launch.mesh import make_mesh_for
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.model import Model, make_model
 from ..optim.adamw import OptConfig, OptState
+from ..parallel.compress import _flatten
 
 
 @dataclass
@@ -76,9 +99,15 @@ class ElasticRuntime:
         self.model_axis = model_axis
         self.chip_type = chip_type
         self.opt = opt
+        if model_axis != 1:
+            raise NotImplementedError(
+                "a model axis above 1 (every layer's sequence sharded over 'model') is not "
+                "ported; JAX's run_training uses 1 (repro/launch/train.py:58)")
         self.device = resolve_device(device)
         self.events: List[ElasticEvent] = []
         self.mesh: Optional[List[torch.device]] = None     # the bound devices
+        self.device_mesh = None        # their ("data", "model") DeviceMesh, None in a world of one
+        self._meshes: Dict[int, Any] = {}      # every mesh built so far, by its device count
         self.model: Optional[Model] = None
         self._train_step = None
         self.opt_state: Optional[OptState] = None
@@ -97,7 +126,34 @@ class ElasticRuntime:
         return sum(1 for p in alloc.paths
                    if p in g and g.vertex(p).type == self.chip_type)
 
+    @staticmethod
+    def _distributed() -> bool:
+        return dist.is_available() and dist.is_initialized()
+
+    def _world(self) -> int:
+        return dist.get_world_size() if self._distributed() else 1
+
+    def _rank(self) -> int:
+        return dist.get_rank() if self._distributed() else 0
+
+    def _rank_device(self) -> torch.device:
+        """This rank's device: ``cuda:{LOCAL_RANK}`` (one process a card) in
+        a world on cards, the CPU under gloo, ``self.device`` without a
+        process group."""
+        if self._distributed() and self.device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", self._rank() % torch.cuda.device_count()))
+            return torch.device("cuda", local)
+        return self.device
+
     def _local_devices(self) -> List[torch.device]:
+        """One device for each rank of the default group when
+        ``torch.distributed`` is initialised; else the local CUDA cards,
+        or the CPU."""
+        if self._distributed():
+            if self.device.type == "cuda":
+                n = torch.cuda.device_count()
+                return [torch.device("cuda", r % n) for r in range(self._world())]
+            return [torch.device("cpu")] * self._world()
         if self.device.type == "cuda":
             return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         return [self.device]
@@ -114,26 +170,61 @@ class ElasticRuntime:
             usable -= self.model_axis
         return max(usable, self.model_axis)
 
+    @property
+    def bound(self) -> bool:
+        """Whether this rank is one of the bound ranks ``[0, n)``."""
+        return self.mesh is not None and self._rank() < len(self.mesh)
+
     # ---------------------------------------------------------------- #
     def bind(self, generator: Optional[torch.Generator] = None) -> None:
-        """(Re)bind the job to the devices its allocation makes usable: the
-        model and its optimizer state are built on first use (the masters
-        drawn from ``generator``) and kept where they are otherwise (the
-        first local device is the first bound one at every size)."""
+        """(Re)bind the job to the devices its allocation makes usable.
+        Every rank of the world calls it. The model and its optimizer state
+        are built on first use (the masters drawn from ``generator``) and
+        kept where they are otherwise; ranks that join the bound set get
+        them from rank 0 by broadcast, ranks that stay keep theirs."""
         n = self._usable_devices()
         before = 0 if self.mesh is None else len(self.mesh)
-        self.mesh = self._local_devices()[:n]
-        dev = self.mesh[0]
+        devices = self._local_devices()[:n]
+        dev = self._rank_device()
+        self.device_mesh = self._mesh(n)
         if self.model is None:
             self.model = make_model(self.cfg, device=dev, opt=self.opt)
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
             self.model.init_params(generator)
             self.opt_state = self.model.init_opt()
+        if self._distributed() and n > max(before, 1):
+            # ranks [before, n) join (all but rank 0 on the first bind)
+            self._broadcast_state()
+        self.mesh = devices
         self._train_step = self.model.train_step
         self.events.append(ElasticEvent(
             "rebind", time.time(), before, len(self.mesh),
             f"devices={len(self.mesh)} model_axis={self.model_axis}"))
+
+    def _mesh(self, n: int):
+        """The mesh of n devices, built on first use (by every rank) and
+        kept: building one creates process groups that live until the
+        world is destroyed, so a job that resizes often reuses them."""
+        if not self._distributed():
+            return None
+        if n not in self._meshes:
+            self._meshes[n] = make_mesh_for(n, self.model_axis)
+        return self._meshes[n]
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's masters and optimizer state to every rank of the world
+        (every rank calls it, in ``bind``)."""
+        with torch.no_grad():
+            for t in self.model.masters().values():
+                dist.broadcast(t, src=0)
+            for t in _flatten((self.opt_state.mu, self.opt_state.nu))[0]:
+                dist.broadcast(t, src=0)
+            step = torch.tensor([self.opt_state.step], dtype=torch.int64,
+                                device=self._rank_device())
+            dist.broadcast(step, src=0)
+        self.opt_state = self.opt_state._replace(step=int(step.item()))
+        self.model._compute = None
 
     # ---------------------------------------------------------------- #
     def allocate(self, chips: int) -> bool:
@@ -221,11 +312,46 @@ class ElasticRuntime:
     def step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """One training step on a numpy batch ({"tokens", "labels"}, or a
         stub frontend's {"embeds", "labels"}): integer arrays as int64,
-        embeddings in their own dtype."""
-        dev = self.mesh[0]
+        embeddings in their own dtype. Across ranks, every rank passes the
+        same global batch; a bound rank of data coordinate r trains on its
+        rows [r B/n, (r+1) B/n) (with ``grad_accum`` k, on its rows
+        [i B/k + r B/(k n), i B/k + (r+1) B/(k n)) of each microbatch i, so
+        that microbatch i holds the global microbatch's rows, as in JAX), and
+        a rank that is not bound skips the step (its loss is NaN)."""
+        dev = self._rank_device()
+        reduce = group = None
+        if self.device_mesh is None:
+            rows = slice(None)
+        elif not self.bound:
+            return {"loss": torch.tensor(float("nan"))}
+        else:
+            n = self.device_mesh.shape[0]
+            r = self.device_mesh.get_coordinate()[0]
+            k = max(self.cfg.grad_accum, 1)
+            B = self.shape.global_batch
+            if B % (k * n):
+                raise ValueError(f"global batch {B} does not split into {k} microbatches "
+                                 f"over {n} data ranks")
+            rows = np.arange(B).reshape(k, n, B // (k * n))[:, r].reshape(-1)
+            reduce, group = self._mean_over_data, self.device_mesh.get_group("data")
         on_dev = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.asarray(v))
-            on_dev[k] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
-        self.opt_state, metrics = self._train_step(self.opt_state, on_dev)
+        for key, v in batch.items():
+            t = torch.from_numpy(np.asarray(v)[rows])
+            on_dev[key] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
+        self.opt_state, metrics = self._train_step(self.opt_state, on_dev, reduce=reduce,
+                                                   group=group)
         return metrics
+
+    def _mean_over_data(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
+        """The gradients and the loss summed over the "data" group and
+        divided by its size: the global batch's mean, before clipping
+        reads the global norm."""
+        group = self.device_mesh.get_group("data")
+        n = self.device_mesh.shape[0]
+        for g in grads.values():
+            dist.all_reduce(g, group=group)
+            g.div_(n)
+        loss = loss.clone()
+        dist.all_reduce(loss, group=group)
+        return loss / n, grads
+

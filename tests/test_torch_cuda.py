@@ -813,10 +813,13 @@ def test_moe_a2a_on_card_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         p = {n: t.to(dev).requires_grad_() for n, t in params.items()}
         xd = x.to(dev).requires_grad_()
-        plan = moe.a2a_plan(moe._route(xd.detach().reshape(64, -1), p, cfg)[1], cfg)
+        sp = moe.send_plan(moe._route(xd.detach().reshape(64, -1), p, cfg)[1], cfg, 1)
+        rp = moe.recv_plan(sp.send_eid.reshape(-1), cfg, 1)
+        plan = dict(keep=sp.keep, slot=sp.slot, recv_eid=sp.send_eid.reshape(-1),
+                    recv_keep=rp.recv_keep, recv_slot=rp.recv_slot)
         y = moe.moe(xd, p, cfg)
         grads = torch.autograd.grad((y ** 2).sum(), [xd, *p.values()])
-        outs.append(({f: getattr(plan, f).cpu() for f in fields}, plan.kept().cpu(),
+        outs.append(({f: plan[f].cpu() for f in fields}, sp.kept(rp).cpu(),
                      y.detach().cpu(), [g.cpu() for g in grads]))
     (plan0, kept0, y0, g0), (plan1, kept1, y1, g1) = outs
     assert all(torch.equal(plan0[f], plan1[f]) for f in fields) and torch.equal(kept0, kept1)
@@ -858,3 +861,59 @@ def test_moe_train_step_on_card_matches_cpu(cuda):
     for name, t in want.items():
         np.testing.assert_allclose(got[name].cpu().numpy(), t.numpy(), rtol=0,
                                    atol=1e-4 * scale, err_msg=name)
+
+
+def _loopback(x, params, cfg, n_sh, dev):
+    """``moe_a2a_shards`` over n_sh shards in one process on ``dev``: each
+    shard's y, both stages' plans, and the gradients of sum(y^2) over
+    the shards (x's and each shard's parameter leaves)."""
+    from repro_torch.models import moe
+    xs, ps = [], []
+    for m in range(n_sh):
+        xs.append(moe.moe_shard_input(x, cfg, (m, n_sh)).to(dev).detach().requires_grad_())
+        ps.append({n: t.to(dev).detach().requires_grad_()     # a leaf a shard on either device
+                   for n, t in moe.moe_shard_params(params, cfg, (m, n_sh)).items()})
+    runs = moe.moe_a2a_shards(xs, ps, cfg, n_sh, moe.loopback_exchange)
+    leaves = xs + [t for p in ps for t in p.values()]
+    grads = torch.autograd.grad(sum((r.y ** 2).sum() for r in runs), leaves)
+    plans = [[t.cpu() for t in (r.send.keep, r.send.slot, r.send.send_eid, r.recv.recv_keep,
+                                r.recv.recv_slot)] for r in runs]
+    return [r.y.detach().cpu() for r in runs], plans, [g.cpu() for g in grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sh", [1, 2, 4])
+def test_moe_a2a_loopback_on_card_matches_cpu(n_sh, cuda):
+    """The all-to-all body over n_sh model shards with the loopback
+    exchange, on the reduced qwen3-moe (4 experts, d 64) in fp32 at
+    capacity factor 1.0: every shard keeps the same pairs at both stages
+    on the card as on the CPU, y and every gradient within 1e-4 of its
+    largest |value| (as the one-shard case above); at one shard the card's
+    loopback equals ``moe_a2a`` on the card bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), moe_impl="a2a",
+                              capacity_factor=1.0, dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    params = {}
+    for name, spec in moe.moe_specs(cfg).items():
+        params[name] = torch.empty(spec.shape)
+        spec.materialize_(params[name], gen)
+    params["router"] *= 100.0        # tie-free top-k sets on both devices
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 32, cfg.d_model),
+                                                                   np.float32))
+    y0, plans0, g0 = _loopback(x, params, cfg, n_sh, "cpu")
+    y1, plans1, g1 = _loopback(x, params, cfg, n_sh, cuda)
+    for a, b in zip(plans0, plans1):
+        assert all(torch.equal(s, t) for s, t in zip(a, b))
+    reached = sum(int(p[3].sum()) for p in plans0)      # pairs that reach an expert
+    assert 0 < reached < x.shape[0] * x.shape[1] * cfg.top_k
+    for got, want in [*zip(y1, y0), *zip(g1, g0)]:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    if n_sh == 1:
+        p = {n: t.to(cuda) for n, t in params.items()}
+        assert torch.equal(moe.moe_a2a(x.to(cuda), p, cfg).cpu(), y1[0])

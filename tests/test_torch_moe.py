@@ -259,20 +259,23 @@ def _jax_a2a_plan(ids, jcfg):
     ((4, 64, 32), dict(capacity_factor=1.0)),
 ])
 def test_a2a_plan_keeps_jax_pairs(shape, kw):
-    """``a2a_plan`` keeps JAX's pairs at both stages, row for row: the send
-    slots, the received expert ids (-1 in empty rows), the expert slots,
-    both capacities."""
+    """``send_plan`` and ``recv_plan`` at one shard keep JAX's pairs at
+    both stages, row for row: the send slots, the received expert ids (-1
+    in empty rows), the expert slots, both capacities."""
     jcfg, cfg = _cfgs(**kw)
     jp, p = _params(jcfg)
     x = _x(shape, seed=3)
     (_, jids), (_, ids) = _routes(jcfg, cfg, jp, p, x)
     np.testing.assert_array_equal(ids, jids)
     want, S_cap, C2 = _jax_a2a_plan(jnp.asarray(jids), jcfg)   # eager: a few small ops
-    plan = moe.a2a_plan(torch.from_numpy(ids), cfg)
-    assert (plan.send_capacity, plan.expert_capacity) == (S_cap, C2)
+    sp = moe.send_plan(torch.from_numpy(ids), cfg, 1)
+    rp = moe.recv_plan(sp.send_eid.reshape(-1), cfg, 1)
+    assert (sp.send_capacity, rp.expert_capacity) == (S_cap, C2)
+    got = dict(keep=sp.keep, slot=sp.slot, recv_eid=sp.send_eid.reshape(-1),
+               recv_keep=rp.recv_keep, recv_slot=rp.recv_slot)
     for name, w in want.items():
-        np.testing.assert_array_equal(getattr(plan, name).numpy(), w, err_msg=name)
-    kept = plan.kept().numpy()
+        np.testing.assert_array_equal(got[name].numpy(), w, err_msg=name)
+    kept = sp.kept(rp).numpy()
     assert kept.sum() == want["recv_keep"].sum()
     if kw["capacity_factor"] < 1:
         assert 0 < kept.sum() < kept.size
@@ -327,8 +330,9 @@ def test_a2a_drops_tokens_gracefully():
     x = _tx((4, 32, cfg.d_model))
     y = moe.moe(x, p, cfg)
     assert y.shape == x.shape and torch.isfinite(y).all()
-    plan = moe.a2a_plan(moe._route(x.reshape(128, -1), p, cfg)[1], cfg)
-    assert not plan.keep.all() and not plan.recv_keep[plan.recv_eid >= 0].all()
+    sp = moe.send_plan(moe._route(x.reshape(128, -1), p, cfg)[1], cfg, 1)
+    rid = sp.send_eid.reshape(-1)
+    assert not sp.keep.all() and not moe.recv_plan(rid, cfg, 1).recv_keep[rid >= 0].all()
 
 
 def test_capacity_drops_tokens_gracefully():
