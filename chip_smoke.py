@@ -13,7 +13,8 @@ Phases, each printing JSON lines:
    the card, at the serving shapes and a few more: prefill in bf16 (the
    tensor-core kernel: the model's permuted [b, s, h, d] views, windows,
    a ragged length, skv > sq, GQA groups 1 to 8, head dims 16 to
-   128, nemotron-4-15b's group 6 and phi3-medium's 10 kv heads) and in
+   128, nemotron-4-15b's group 6 and phi3-medium's 10 kv heads, at its
+   serving shape and at zero3_rank's training shape) and in
    fp32 (the CUDA-core kernel); decode at the llama, zamba2, qwen3-moe,
    qwen2-vl-72b, musicgen-medium, nemotron-4-15b (group 6: the G = 8
    instantiation with two rows of each kv head idle) and phi3-medium
@@ -75,8 +76,8 @@ Phases, each printing JSON lines:
    shape, the model's permuted views, GQA groups 1, 3 and 8, window 32,
    sq 72 < skv 200, head dims 16 / 64 / 80 / 128, ragged lengths,
    zamba2's shared block, qwen3-moe's attention (GQA group 8), qwen2-vl's
-   (64 heads, group 8) and musicgen's (MHA, d 64) at their training
-   shapes), the forward's o and
+   (64 heads, group 8), musicgen's (MHA, d 64) and phi3-medium's (40
+   heads, group 4, one row) at their training shapes), the forward's o and
    logsumexp against the plain ones, the autograd path of ``attention_op``
    against autograd through the plain forward; the backward's registers
    and spills (none may spill); its device time by kernel, the plain
@@ -216,9 +217,27 @@ Phases, each printing JSON lines:
    all-to-all (and ``moe_ep2d``'s gather and reduce-scatter) equal to the
    no-mesh body bit for bit; the int8 quantization and all-reduce equal
    to the CPU's; ``run_training`` of llama3.2-3b at full width, 2 of 28
-   layers, three steps through the world-1 bind, equal bit for bit to the
-   same steps with no process group, its launches added to the kernel
-   table; then the group is destroyed.
+   layers, three steps through the world-1 bind, which holds the Zero-3
+   layout (each layer's weights gathered over the one-rank "data" group
+   inside the remat region, their gradients reduce-scattered, the global
+   norm all-reduced), equal bit for bit to the same steps with no process
+   group, with exactly the gathers and reduce-scatters a step that the
+   layer loop and remat give, its launches added to the kernel table; then
+   the group is destroyed.
+31. zero3_rank: rank 0 of a ("data" 8, "model" 1) mesh under PyTorch's
+   fake process group (collectives that move nothing), every rank's
+   device the one card: phi3-medium-14b at full width and depth (40
+   layers, d_model 5120, d_ff 17920, vocab 100352), AdamW, remat on,
+   three steps of a global batch of 8 x 1024 (one row a rank) through
+   ``ElasticRuntime``. The bytes of masters and moments the rank holds
+   equal those reckoned from ``param_shapes()`` and the specs (1/8 of each
+   split leaf, the norms whole), the peak stays under 80 GB, the gathers
+   and reduce-scatters a step and the attention launches are exact; then
+   a shrink to 4 bound ranks, one step there, and a grow back to 8: after
+   each rebind the bytes held are those the specs give at 4 and at 8, and
+   the rebind's own peak, and the step's at 4, stay under 80 GB. The
+   device ms of a step is printed with no communication in it, and the
+   values are not checked (the gathers write nothing).
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -458,6 +477,8 @@ def phase_kernels(dev) -> dict:
         ("audio", 8, 24, 24, 512, 512, 64, 0, "bfloat16", "bshd"),      # musicgen-medium: MHA
         ("nemotron", 8, 48, 8, 512, 512, 128, 0, "bfloat16", "bshd"),   # nemotron-4-15b: group 6
         ("phi3", 8, 40, 10, 512, 512, 128, 0, "bfloat16", "bshd"),      # phi3-medium: group 4
+        # phi3-medium as zero3_rank trains it: one row of 1024 a rank
+        ("phi3_train", 1, 40, 10, 1024, 1024, 128, 0, "bfloat16", "bshd"),
     ]
     fa = {}
     for name, b, h, kvh, sq, skv, d, window, dtype, layout in cases:
@@ -1320,6 +1341,8 @@ BWD_CASES = [
     # attention as their training runs call it
     ("vlm_train", (2, 64, 8, 1024, 1024, 128), 0, "bfloat16", "bshd"),
     ("audio_train", (2, 24, 24, 1024, 1024, 64), 0, "bfloat16", "bshd"),
+    # phi3-medium-14b's (40 heads, group 4) as zero3_rank trains it, one row a rank
+    ("phi3_train", (1, 40, 10, 1024, 1024, 128), 0, "bfloat16", "bshd"),
 ]
 # the cases timed beside their bounds (bwd_timing): llama's row goes into the
 # kernel table, the others are printed beside it
@@ -2717,7 +2740,8 @@ def world1_checks(dev, t0: float) -> dict:
     from repro_torch.models import moe
     from repro_torch.models.config import ShapeConfig
     from repro_torch.parallel import compress
-    from repro_torch.parallel.sharding import Rules, ShardingCtx
+    from repro_torch.parallel.sharding import (COLLECTIVES, Rules, ShardingCtx,
+                                               reset_collectives)
 
     mesh = make_mesh_for(1, 1)
     ctx = ShardingCtx(Rules(), mesh)
@@ -2765,13 +2789,19 @@ def world1_checks(dev, t0: float) -> dict:
     shape = ShapeConfig("train_h100", WORLD1_TRAIN["seq"], WORLD1_TRAIN["batch"], "train")
     kw = dict(smoke=False, shape=shape, steps=WORLD1_TRAIN["steps"],
               n_layers=WORLD1_TRAIN["n_layers"], device=dev, log_every=10 ** 9)
+    cut = cut_config(ARCH, WORLD1_TRAIN["n_layers"])
+    want = {k: n * WORLD1_TRAIN["steps"] for k, n in per_step_collectives(cut).items()}
     torch.cuda.empty_cache()
     reset_launches()
+    reset_collectives()
     r = run_training(ARCH, **kw)
-    launches = dict(LAUNCHES)
+    launches, collectives = dict(LAUNCHES), dict(COLLECTIVES)
     rt = r["runtime"]
     check(rt.device_mesh is not None and list(rt.device_mesh.shape) == [1, 1],
           "dist_world1: the runtime did not bind the process group's mesh")
+    out.update(collectives=collectives, expected_collectives=want,
+               collectives_per_step=per_step_collectives(cut))
+    check(collectives == want, f"dist_world1: collectives {collectives}, expected {want}")
     with_pg = {n: t.cpu() for n, t in rt.params.items()}
     losses_pg = r["losses"]
     del r, rt
@@ -2796,6 +2826,172 @@ def world1_checks(dev, t0: float) -> dict:
 def cut_config(arch: str, n_layers: int):
     from repro_torch.launch.train import cut_depth
     return cut_depth(full_config(arch), n_layers)
+
+
+def per_step_collectives(cfg) -> dict:
+    """The Zero-3 gathers and reduce-scatters of one training step of a
+    dense model: each layer body gathers its attention's four matrices and
+    its MLP's two or three (the norms are whole), once in the forward and
+    once more when remat recomputes it; the embedding (or the tied table
+    twice) and the LM head are gathered where they are used, outside the
+    remat region; each gather of the forward is reduce-scattered once in
+    the backward. Times ``grad_accum``'s microbatches."""
+    check(cfg.family == "dense", f"{cfg.name}: collectives are counted for dense models")
+    per_layer = 4 + (3 if cfg.mlp_act == "swiglu" else 2)
+    fwd = cfg.n_layers * per_layer + 2
+    k = max(cfg.grad_accum, 1)
+    return {"gather": k * (fwd + (cfg.n_layers * per_layer if cfg.remat else 0)),
+            "reduce_scatter": k * fwd}
+
+
+ZERO3_ARCH = "phi3-medium-14b"
+ZERO3 = dict(world=8, seq=1024, batch=8, steps=3)
+
+
+def phase_zero3_rank(dev) -> dict:
+    """Rank 0 of a ("data" 8, "model" 1) mesh under the fake process group
+    (``FakeStore``, backend "fake": collectives that move nothing), all
+    eight ranks' devices the one card: ``ElasticRuntime`` binds the 8 ranks
+    and holds phi3-medium-14b at full width and depth in JAX's Zero-3
+    layout; three AdamW steps of 8 x 1024 (one row a rank), then a shrink
+    to 4 ranks, a step there, and a grow back to 8. Returns the run's
+    launch counts."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ZERO3["world"])
+    try:
+        return zero3_checks(dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def zero3_held(rt) -> int:
+    """The bytes of masters and moments this rank holds."""
+    leaves = list(rt.params.values()) + list(rt.opt_state.mu.values()) \
+        + list(rt.opt_state.nu.values())
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def zero3_expected(model, n: int) -> int:
+    """The bytes reckoned from the specs: masters and both moments fp32,
+    1/n of each leaf split over "data"."""
+    from repro_torch.parallel.sharding import data_dim
+    psh = model.param_shardings()
+    return sum(3 * 4 * (math.prod(shape) // (n if data_dim(psh[name].spec) is not None else 1))
+               for name, (shape, _) in model.param_shapes().items())
+
+
+def zero3_checks(dev) -> dict:
+    """The body of ``phase_zero3_rank`` under its process group: three
+    steps at 8 bound ranks, a shrink to 4 and a step there, a grow back
+    to 8, each rebind's peak memory read around it alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.graph import build_tpu_fleet
+    from repro_torch.core.scheduler import SchedulerInstance
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import COLLECTIVES, reset_collectives
+    from repro_torch.runtime.elastic import ElasticRuntime
+
+    t0 = time.perf_counter()
+    cfg = full_config(ZERO3_ARCH)
+    check(cfg.remat and cfg.optimizer == "adamw", f"{ZERO3_ARCH}: remat and AdamW")
+    n, seq, batch, steps = ZERO3["world"], ZERO3["seq"], ZERO3["batch"], ZERO3["steps"]
+    fleet = build_tpu_fleet(pods=1, racks_per_pod=1, nodes_per_rack=2, chips_per_node=4,
+                            device=dev)
+    rt = ElasticRuntime(SchedulerInstance("top", fleet), cfg,
+                        ShapeConfig("zero3_rank", seq, batch, "train"), chip_type="chip",
+                        opt=OptConfig(kind="adamw", warmup=5, total_steps=10), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    check(rt.allocate(n), "zero3_rank: MATCHALLOCATE of 8 chips")
+    rt.bind(torch.Generator(device=dev).manual_seed(0))
+    mesh = rt.device_mesh
+    check(mesh is not None and list(mesh.shape) == [n, 1] and rt.bound,
+          f"zero3_rank: bound mesh {None if mesh is None else list(mesh.shape)}")
+    held, expect = zero3_held(rt), zero3_expected(rt.model, n)
+    whole = 16 * cfg.n_params()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, (batch, seq)),
+                "labels": rng.integers(0, cfg.vocab, (batch, seq))} for _ in range(steps + 1)]
+    want = per_step_collectives(cfg)
+
+    def timed_step(b):
+        reset_collectives()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rt.step(b)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), dict(COLLECTIVES)
+
+    reset_launches()
+    step_ms, collectives = [], []
+    for b in batches[:steps]:
+        ms, c = timed_step(b)
+        step_ms.append(ms)
+        collectives.append(c)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the rebinds: shrink to 4 bound ranks, one step there, grow back to 8
+    rebinds = []
+    for name, act, m in (("shrink 8 -> 4", lambda: rt.shrink(n // 2), n // 2),
+                         ("grow 4 -> 8", lambda: rt.grow(n // 2), n)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        t = time.perf_counter()
+        ok = act()
+        torch.cuda.synchronize()
+        row = dict(rebind=name, ok=ok, mesh=list(rt.device_mesh.shape), s=time.perf_counter() - t,
+                   held_bytes=zero3_held(rt), held_bytes_from_specs=zero3_expected(rt.model, m),
+                   allocated_before_gb=before_gb,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        if m != n:
+            torch.cuda.reset_peak_memory_stats()
+            row["step_ms"], row["collectives"] = timed_step(batches[steps])
+            row["step_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rebinds.append(row)
+    launches = dict(LAUNCHES)
+    per_step = {k: v for k, v in per_step_launches(cfg).items() if v}
+    emit("zero3_rank", arch=ZERO3_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab, n_params=cfg.n_params(), mesh=list(mesh.shape),
+         backend=dist.get_backend(), seq_len=seq, global_batch=batch, rows_a_rank=batch // n,
+         steps=steps, held_bytes=held, held_bytes_from_specs=expect,
+         held_gb=held / 1e9, whole_state_gb_16b=whole / 1e9, peak_mem_gb=peak_gb,
+         step_ms=step_ms, step_ms_median=statistics.median(step_ms[1:]),
+         collectives_per_step=collectives, expected_collectives=want, rebinds=rebinds,
+         launches=launches, init_s=init_s, wall_s=time.perf_counter() - t0,
+         note="fake process group: the step time has no communication in it and the "
+              "values are not checked (the gathers write nothing)")
+    check(held == expect, f"zero3_rank: holds {held} bytes, the specs give {expect}")
+    check(abs(held - 12 * cfg.n_params() / n) <= 1e-3 * held,
+          f"zero3_rank: {held} bytes against 12 x {cfg.n_params()} / {n}")
+    check(peak_gb < 80.0, f"zero3_rank: peak memory {peak_gb} GB")
+    check(all(c == want for c in collectives), f"zero3_rank: collectives {collectives}, "
+          f"expected {want} a step")
+    for row, m in zip(rebinds, (n // 2, n)):
+        check(row["ok"] and row["mesh"] == [m, 1], f"zero3_rank: {row['rebind']}: {row}")
+        check(row["held_bytes"] == row["held_bytes_from_specs"],
+              f"zero3_rank: after {row['rebind']} holds {row['held_bytes']} bytes, the specs "
+              f"give {row['held_bytes_from_specs']}")
+        check(row["peak_mem_gb"] < 80.0,
+              f"zero3_rank: {row['rebind']} peaks at {row['peak_mem_gb']} GB")
+    check(rebinds[0]["collectives"] == want and rebinds[0]["step_peak_mem_gb"] < 80.0,
+          f"zero3_rank: the step at {n // 2} ranks: {rebinds[0]}")
+    check(all(launches.get(k, 0) == v * (steps + 1) for k, v in per_step.items()),
+          f"zero3_rank: launches {launches}, per step {per_step}")
+    del rt
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_classes(rows) -> dict:
@@ -2985,6 +3181,8 @@ def drive(dev, smi: str, ptxas: list) -> None:
     phase_a2a_shards(dev)
     torch.cuda.empty_cache()
     paths[f"train {ARCH} world1"] = phase_dist_world1(dev)
+    torch.cuda.empty_cache()
+    paths[f"train {ZERO3_ARCH} zero3 rank"] = phase_zero3_rank(dev)
     torch.cuda.empty_cache()
 
     csrc = "src/repro_torch/kernels/csrc/"

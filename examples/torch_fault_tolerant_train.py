@@ -55,17 +55,15 @@ def run(device: str, ckpt_dir: str) -> None:
             print(f"[{step}] straggler ejected: {straggler.ejected}")
             assert straggler.ejected == [cur[-1]]
         if step == 8:
-            ckpt.save(step, {"params": rt.params, "opt_state": rt.opt_state},
-                      blocking=False)
+            ckpt.save(step, rt.full_state(), blocking=False)
         if step % 4 == 0:
             print(f"[{step}] loss={float(m['loss']):.4f} devices={len(rt.mesh)}")
 
     # restart from the checkpoint into the live model (topology-independent)
-    step, state = ckpt.restore(like={"params": rt.params, "opt_state": rt.opt_state})
-    with torch.no_grad():
-        for name, t in state["params"].items():
-            rt.params[name].copy_(t)
-    rt.opt_state = state["opt_state"]
+    step, state = ckpt.restore(like={"params": rt.params, "opt_state": rt.opt_state},
+                               shardings={"params": rt.model.param_shardings(),
+                                          "opt_state": rt.model.opt_shardings()})
+    rt.params, rt.opt_state = state["params"], state["opt_state"]
     m = rt.step(pipe.batch_at(step))
     print(f"restored at step {step}, next loss={float(m['loss']):.4f}")
     print("events:", [e.kind for e in rt.events])

@@ -70,8 +70,10 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
     Across ranks, every rank of an initialised ``torch.distributed`` world
     calls it with the same arguments (one process a card, e.g. under
     ``torchrun``; gloo on the CPU): the runtime binds ranks of the world
-    (``runtime/elastic.py``), a rank that is not bound records a NaN loss
-    for the steps it skips, and rank 0 alone writes the checkpoints."""
+    (``runtime/elastic.py``) and holds its shards of the state, a rank that
+    is not bound records a NaN loss for the steps it skips, and the bound
+    ranks gather each checkpoint's leaves, which rank 0 alone writes
+    whole."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # the LM head is an fp32 product, as in JAX: keep TF32 out of it
@@ -137,15 +139,20 @@ def run_training(arch: str, steps: int = 20, smoke: bool = True,
         loss = float(metrics["loss"])          # waits for the step
         step_s.append(time.perf_counter() - ts)
         losses.append(loss)
-        if ckpt and writer and step and step % ckpt_every == 0:
-            ckpt.save(step, {"params": rt.params,
-                             "opt_state": rt.opt_state}, blocking=False)
+        if ckpt and step and step % ckpt_every == 0:
+            state = rt.full_state()           # every bound rank gathers; rank 0 writes
+            if writer:
+                ckpt.save(step, state, blocking=False)
+            del state
         if step % log_every == 0:
             print(f"[step {step}] loss={loss:.4f} "
                   f"chips={rt.chips_allocated()} "
                   f"mesh={len(rt.mesh)}", flush=True)
-    if ckpt and writer:
-        ckpt.save(steps, {"params": rt.params, "opt_state": rt.opt_state})
+    if ckpt:
+        state = rt.full_state()
+        if writer:
+            ckpt.save(steps, state)
+        del state
     wall = time.time() - t0
     cut = f"; layers {reduced['n_layers']}" if reduced else ""
     print(f"done: {steps} steps in {wall:.1f}s; "

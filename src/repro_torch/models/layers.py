@@ -2,10 +2,12 @@
 LM head. Plain functions on tensors.
 
 The port of ``repro/models/layers.py``. The JAX layers take a
-``ShardingCtx`` whose constraints are no-ops without a mesh; the port
-runs on one card and drops it. Attention goes through the port's
-kernels (``kernels/ops.py``): prefill through ``flash_attention``,
-cached decode through ``flash_decode``.
+``ShardingCtx`` for their activation constraints, hints to GSPMD that
+change no value; the port has no GSPMD and drops them. The parameters'
+specs keep JAX's logical axes, from which the model lays them out over a
+mesh (``models/model.py``). Attention goes through the port's kernels
+(``kernels/ops.py``): prefill through ``flash_attention``, cached decode
+through ``flash_decode``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import attention_op, decode_attention_op
+from ..parallel.sharding import gathered
 from .config import ArchConfig
 
 
@@ -25,9 +28,10 @@ from .config import ArchConfig
 # ---------------------------------------------------------------------- #
 @dataclass(frozen=True)
 class ParamSpec:
-    """Shape, init rule and dtype of one parameter (the JAX spec's logical
-    sharding axes are dropped: the port runs on one card)."""
+    """Shape, logical axes (one a dimension: the names the sharding rules
+    map onto a mesh), init rule and dtype of one parameter."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"                 # normal | zeros | ones | small
     dtype: str = "float32"
 
@@ -50,9 +54,9 @@ class ParamSpec:
 
 
 def stack_specs(specs: Dict, n: int) -> Dict:
-    """Prepend a stacked-layer axis to every ParamSpec in a tree."""
+    """Prepend a stacked-layer axis ("layers") to every ParamSpec in a tree."""
     return {k: stack_specs(v, n) if isinstance(v, dict)
-            else ParamSpec((n,) + v.shape, v.init, v.dtype)
+            else ParamSpec((n,) + v.shape, ("layers",) + v.axes, v.init, v.dtype)
             for k, v in specs.items()}
 
 
@@ -112,11 +116,11 @@ def mrope_sections_for(head_dim: int) -> Tuple[int, int, int]:
 def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     e, h, kvh, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     return {
-        "wq": ParamSpec((e, h * d)),
-        "wk": ParamSpec((e, kvh * d)),
-        "wv": ParamSpec((e, kvh * d)),
-        "wo": ParamSpec((h * d, e)),
-        "norm": ParamSpec((e,), init="zeros"),
+        "wq": ParamSpec((e, h * d), ("fsdp2d", None)),
+        "wk": ParamSpec((e, kvh * d), ("fsdp2d", None)),
+        "wv": ParamSpec((e, kvh * d), ("fsdp2d", None)),
+        "wo": ParamSpec((h * d, e), ("fsdp2d", None)),
+        "norm": ParamSpec((e,), (None,), init="zeros"),
     }
 
 
@@ -183,12 +187,12 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
 def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
     e, f = cfg.d_model, (d_ff or cfg.d_ff)
     specs = {
-        "w_up": ParamSpec((e, f)),
-        "w_down": ParamSpec((f, e)),
-        "norm": ParamSpec((e,), init="zeros"),
+        "w_up": ParamSpec((e, f), ("fsdp", "tp")),
+        "w_down": ParamSpec((f, e), ("tp", "fsdp")),
+        "norm": ParamSpec((e,), (None,), init="zeros"),
     }
     if cfg.mlp_act == "swiglu":
-        specs["w_gate"] = ParamSpec((e, f))
+        specs["w_gate"] = ParamSpec((e, f), ("fsdp", "tp"))
     return specs
 
 
@@ -212,17 +216,21 @@ def mlp(x: torch.Tensor, p: Dict, cfg: ArchConfig, normed: bool = False) -> torc
 # ---------------------------------------------------------------------- #
 def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     v, e = cfg.vocab, cfg.d_model
+    vocab_ax = "vocab" if v % 256 == 0 else None   # mamba2's 50280 is odd
+    emb_e_ax = "fsdp" if vocab_ax else "fsdp2d"
     specs = {
-        "embedding": ParamSpec((v, e), init="small"),
-        "final_norm": ParamSpec((e,), init="zeros"),
+        "embedding": ParamSpec((v, e), (vocab_ax, emb_e_ax), init="small"),
+        "final_norm": ParamSpec((e,), (None,), init="zeros"),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((e, v), init="small")
+        specs["lm_head"] = ParamSpec((e, v), (emb_e_ax, vocab_ax), init="small")
     return specs
 
 
 def embed_tokens(tokens: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
-    return p["embedding"][tokens].to(getattr(torch, cfg.dtype))
+    """The rows of the fp32 table (gathered whole where it is sharded, so
+    that a token's repeated rows sum their gradients in fp32), cast."""
+    return gathered(p["embedding"])[tokens].to(getattr(torch, cfg.dtype))
 
 
 def lm_logits(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
@@ -235,13 +243,14 @@ def lm_logits(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     tensors would round its output to bf16). Without a mesh the two
     variants are the same arithmetic. On a card this needs
     ``torch.backends.cuda.matmul.allow_tf32 = False``, which the entry
-    points set."""
+    points set. A sharded head is gathered in the dtype it is used in."""
     xn = rmsnorm(x, p["final_norm"], cfg.norm_eps)
-    head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    head = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
     if cfg.cast_params_once or cfg.seq_sharded_loss:
         cdt = getattr(torch, cfg.dtype)
-        return xn.to(cdt).float() @ head.to(cdt).float()
-    return xn.float() @ head.float()
+        xn, head = xn.to(cdt), head.to(cdt)
+    head = gathered(head).float()
+    return xn.float() @ (head.T if cfg.tie_embeddings else head)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -35,15 +35,15 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     conv_dim = di + 2 * G * N
     return {
         # in_proj emits [z, x, B, C, dt]
-        "in_proj": ParamSpec((e, 2 * di + 2 * G * N + H)),
-        "conv_w": ParamSpec((CONV_K, conv_dim), init="small"),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "A_log": ParamSpec((H,), init="zeros"),
-        "D": ParamSpec((H,), init="ones"),
-        "dt_bias": ParamSpec((H,), init="zeros"),
-        "out_norm": ParamSpec((di,), init="zeros"),
-        "out_proj": ParamSpec((di, e)),
-        "norm": ParamSpec((e,), init="zeros"),
+        "in_proj": ParamSpec((e, 2 * di + 2 * G * N + H), ("fsdp2d", None)),
+        "conv_w": ParamSpec((CONV_K, conv_dim), (None, None), init="small"),
+        "conv_b": ParamSpec((conv_dim,), (None,), init="zeros"),
+        "A_log": ParamSpec((H,), (None,), init="zeros"),
+        "D": ParamSpec((H,), (None,), init="ones"),
+        "dt_bias": ParamSpec((H,), (None,), init="zeros"),
+        "out_norm": ParamSpec((di,), (None,), init="zeros"),
+        "out_proj": ParamSpec((di, e), (None, "fsdp2d")),
+        "norm": ParamSpec((e,), (None,), init="zeros"),
     }
 
 

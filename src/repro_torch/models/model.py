@@ -21,28 +21,52 @@ Training (``train_step``) builds that cast anew inside the autograd graph
 at every step, from the masters as they are, and drops the serving copy:
 a cached cast would be detached from the graph and stale after the
 update. The optimizer (``optim/adamw.py``) updates the masters in place.
+
+Under a mesh (``ctx``) the model holds JAX's Zero-3 layout: each leaf is
+this rank's shard (``param_shardings``: "fsdp" over "data"; the norms,
+the router, the conv weights, ``A_log``, ``D`` and ``dt_bias`` whole),
+and the optimizer state mirrors it (``opt_shardings``). A training step
+hands the layers each split leaf as a ``Sharded``, which the layer body
+gathers where it uses it (``models/transformer.py``); the gradients come
+back as shards, summed over "data" by the gathers' reduce-scatters.
+Serving binds no mesh, as JAX's ``run_serving``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..optim.adamw import OptConfig, OptState, apply_updates, init_opt_state
+from ..optim.adamw import (DataShards, OptConfig, OptState, apply_updates, init_opt_state,
+                           opt_state_specs)
+from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, data_dim, gather_full,
+                                 mesh_shape, shard_shape)
 from .config import ArchConfig, ShapeConfig
 from .layers import ParamSpec
-from .transformer import decode_step, forward, init_cache_specs, init_specs, loss_fn
+from .transformer import (cache_shardings, decode_step, forward, init_cache_specs, init_specs,
+                          loss_fn)
 
 
-def _params_module(specs: Dict, device: torch.device) -> nn.Module:
+def _params_module(specs: Dict, device: torch.device, shapes: Dict[str, Tuple[int, ...]],
+                   prefix: str = "") -> nn.Module:
     if all(isinstance(s, ParamSpec) for s in specs.values()):
         return nn.ParameterDict({
-            k: nn.Parameter(torch.empty(s.shape, dtype=getattr(torch, s.dtype),
+            k: nn.Parameter(torch.empty(shapes[prefix + k], dtype=getattr(torch, s.dtype),
                                         device=device), requires_grad=False)
             for k, s in specs.items()})
-    return nn.ModuleDict({k: _params_module(v, device) for k, v in specs.items()})
+    return nn.ModuleDict({k: _params_module(v, device, shapes, f"{prefix}{k}.")
+                          for k, v in specs.items()})
+
+
+def _map(tree: Any, fn: Callable) -> Any:
+    """``fn`` on each ParamSpec of an OptState or a dict of ParamSpecs."""
+    if isinstance(tree, OptState):
+        return OptState(step=fn(tree.step), mu=_map(tree.mu, fn), nu=_map(tree.nu, fn))
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _tree(module: nn.Module) -> Dict:
@@ -88,42 +112,167 @@ def _flat_specs(specs: Dict, prefix: str = "") -> Dict[str, ParamSpec]:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device] = "cuda",
-                 opt: Optional[OptConfig] = None):
+    """``ctx``: the sharding rules and the mesh (None, or a ``ShardingCtx``
+    without a mesh: one device holding every leaf whole). ``device="meta"``
+    allocates nothing, for the layout alone."""
+
+    def __init__(self, cfg: ArchConfig, ctx: Optional[ShardingCtx] = None,
+                 device: Union[str, torch.device] = "cuda", opt: Optional[OptConfig] = None):
         super().__init__()
         self.cfg = cfg
+        self.ctx = ctx if ctx is not None else ShardingCtx()
         self.opt = opt if opt is not None else OptConfig(kind=cfg.optimizer)
-        self.device = resolve_device(device)
+        self.device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         specs = init_specs(cfg)
         self.parts = tuple(specs)                    # embed, blocks (, shared)
+        shapes = {n: shard_shape(s.shape, sh.spec, self.ctx.mesh, n)
+                  for (n, s), sh in zip(self.param_specs().items(),
+                                        self.param_shardings().values())}
         for name in self.parts:
-            setattr(self, name, _params_module(specs[name], self.device))
+            setattr(self, name, _params_module(specs[name], self.device, shapes, f"{name}."))
         self._compute: Optional[Dict] = None
 
     # -------------------------------------------------------------- #
-    # params
+    # params and their layout
     # -------------------------------------------------------------- #
     def param_specs(self) -> Dict[str, ParamSpec]:
         """Flat {state_dict key: ParamSpec}, in JAX's flatten order."""
         return _flat_specs(init_specs(self.cfg))
 
+    def param_shardings(self) -> Dict[str, Sharding]:
+        """{name: the leaf's layout on the mesh} (JAX's ``param_shardings``)."""
+        return {n: self.ctx.sharding(*s.axes) for n, s in self.param_specs().items()}
+
+    def param_shapes(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """{name: (whole shape, dtype)}."""
+        return {n: (s.shape, getattr(torch, s.dtype)) for n, s in self.param_specs().items()}
+
+    def opt_specs(self) -> OptState:
+        return opt_state_specs(self.param_specs(), self.opt)
+
+    def opt_shardings(self) -> OptState:
+        """The optimizer state's layout, mirroring the masters' (JAX's
+        ``opt_shardings``)."""
+        return _map(self.opt_specs(), lambda s: self.ctx.sharding(*s.axes))
+
+    def opt_shapes(self) -> OptState:
+        return _map(self.opt_specs(), lambda s: (s.shape, getattr(torch, s.dtype)))
+
+    def input_shardings(self, shape: ShapeConfig) -> Dict[str, Sharding]:
+        """The batch's layout: rows over the batch axes, positions over
+        "model" except in decode (JAX's ``input_shardings``)."""
+        sh = self.ctx.sharding
+        seq_ax = "seq" if shape.mode != "decode" else None
+        out: Dict[str, Sharding] = {}
+        if self.cfg.frontend != "token":
+            out["embeds"] = sh("batch", seq_ax, "embed")
+        else:
+            out["tokens"] = sh("batch", seq_ax)
+        if shape.mode == "train":
+            out["labels"] = sh("batch", seq_ax)
+        return out
+
+    def cache_shardings(self) -> Optional[Dict[str, Sharding]]:
+        """The decode cache's layout, None without a mesh."""
+        return cache_shardings(self.cfg, self.ctx)
+
+    def data_shards(self) -> DataShards:
+        """The masters' layout over "data": each leaf's split dimension and,
+        under a mesh, the group and its size."""
+        dims = {n: data_dim(sh.spec) for n, sh in self.param_shardings().items()}
+        mesh = self.ctx.mesh
+        if mesh is None:
+            return DataShards(dims)
+        return DataShards(dims, mesh.get_group("data"), mesh_shape(mesh)["data"])
+
+    def gather(self, t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+        """The whole leaf from this rank's shard ``t`` (a collective over
+        "data" where the leaf is split there), built in place with a
+        buffer of one shard's size (``gather_full``'s ``pieces``)."""
+        d = data_dim(sharding.spec)
+        if sharding.mesh is None or d is None:
+            return t
+        n = mesh_shape(sharding.mesh)["data"]
+        return gather_full(t, d, sharding.mesh.get_group("data"), n, pieces=n)
+
+    def full_params(self, keep: bool = True) -> Optional[Dict[str, torch.Tensor]]:
+        """A copy of the whole masters on the host, gathered one leaf at a
+        time. Every rank of the mesh calls it; a rank with ``keep`` False
+        takes part in the gathers, keeps no copy and gets None."""
+        masters, psh = self.masters(), self.param_shardings()
+        out = {}
+        for n in masters:
+            full = self.gather(masters[n], psh[n])
+            if keep:
+                out[n] = full.to("cpu", copy=True)
+            del full
+        return out if keep else None
+
+    def full_opt_state(self, state: OptState, keep: bool = True) -> Optional[OptState]:
+        """``state`` whole on the host, one leaf at a time, as ``full_params``."""
+        def walk(tree, sh):
+            if isinstance(tree, dict):
+                return {k: walk(tree[k], sh[k]) for k in tree}
+            full = self.gather(tree, sh)
+            return full.to("cpu", copy=True) if keep else None
+        osh = self.opt_shardings()
+        mu, nu = walk(state.mu, osh.mu), walk(state.nu, osh.nu)
+        return OptState(step=state.step, mu=mu, nu=nu) if keep else None
+
+    @torch.no_grad()
+    def adopt(self, shards: Mapping[str, torch.Tensor]) -> None:
+        """Take ``shards``, this rank's shard of every master, as the
+        masters' storage, with no copy, and their device as the model's. A
+        model built on "meta" for its layout gets its tensors so, made one
+        leaf at a time (``ElasticRuntime._reshard``)."""
+        params = dict(self.named_parameters())
+        if set(shards) != set(params):
+            raise KeyError(f"the shards {sorted(set(shards) ^ set(params))} "
+                           "are not the model's leaves")
+        for name, t in shards.items():
+            if t.shape != params[name].shape:
+                raise ValueError(f"{name}: shard {tuple(t.shape)}, not "
+                                 f"{tuple(params[name].shape)}")
+            parent, leaf = name.rsplit(".", 1)
+            self.get_submodule(parent)[leaf] = nn.Parameter(t, requires_grad=False)
+        self.device = next(iter(shards.values())).device
+        self._compute = None
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
-        """Draw every parameter from ``generator`` with JAX's init rule."""
-        state = self.state_dict()
+        """Draw every parameter from ``generator`` with JAX's init rule. A
+        split leaf is drawn whole, one leaf at a time, and this rank keeps
+        its shard: the values do not depend on the mesh."""
+        state, psh = self.state_dict(), self.param_shardings()
         for name, spec in self.param_specs().items():
-            spec.materialize_(state[name], generator)
+            if tuple(state[name].shape) == spec.shape:
+                spec.materialize_(state[name], generator)
+                continue
+            full = torch.empty(spec.shape, dtype=state[name].dtype, device=state[name].device)
+            spec.materialize_(full, generator)
+            state[name].copy_(psh[name].shard(full, name))
+            del full
         self._compute = None
 
     @torch.no_grad()
     def load_params(self, state: Mapping[str, torch.Tensor]) -> None:
-        """Copy a full state dict (e.g. from ``convert.params_from_jax``)."""
-        self.load_state_dict(state, strict=True)
+        """Copy whole leaves (e.g. from ``convert.params_from_jax``), each
+        rank its shard."""
+        masters, specs, psh = self.masters(), self.param_specs(), self.param_shardings()
+        if set(state) != set(masters):
+            raise KeyError(f"the state's leaves {sorted(set(state) ^ set(masters))} "
+                           "are not the model's")
+        for name, t in state.items():
+            if tuple(t.shape) != specs[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, not {specs[name].shape}")
+            masters[name].copy_(psh[name].shard(t, name))
         self._compute = None
 
     def compute_params(self) -> Dict:
         """The parameter tree the layers use: the matrices JAX casts in the
         compute dtype (cast once), the rest, and the embeddings, as stored."""
+        if self.ctx.mesh is not None:
+            raise RuntimeError("serving binds no mesh: the model holds shards")
         if self._compute is None:
             cdt = getattr(torch, self.cfg.dtype)
             self._compute = {name: _cast(_tree(getattr(self, name)), cdt)
@@ -140,7 +289,29 @@ class Model(nn.Module):
     # training
     # -------------------------------------------------------------- #
     def init_opt(self) -> OptState:
+        """Zeroed moments in the masters' layout (this rank's shards)."""
         return init_opt_state(self.masters(), self.opt)
+
+    def _step_tree(self, leaves: Dict[str, torch.Tensor]) -> Dict:
+        """The parameter tree a step's layers take, from its leaves: under a
+        mesh each split leaf as a ``Sharded`` (gathered by the layer that
+        uses it), then the compute-dtype casts of ``_cast``."""
+        cdt = getattr(torch, self.cfg.dtype)
+        if self.ctx.mesh is not None:
+            shards = self.data_shards()
+            sizes = mesh_shape(self.ctx.mesh)
+            for name, sh in self.param_shardings().items():
+                others = [a for p in sh.spec if p for a in ((p,) if isinstance(p, str) else p)
+                          if a != "data" and sizes[a] > 1]
+                if others:
+                    raise NotImplementedError(
+                        f"{name} is split over {others}: a model axis above 1 is not ported")
+                d = shards.dims[name]
+                if d is not None:
+                    leaves[name] = Sharded(leaves[name], d, shards.group, shards.n,
+                                           leaves[name].dtype)
+        tree = _unflatten(leaves)
+        return {name: _cast(tree[name], cdt) for name in self.parts}
 
     def _value_and_grad(self, batch: Dict[str, torch.Tensor], group=None):
         """(loss, {name: grad}) of ``loss_fn`` at the current masters. The
@@ -156,8 +327,7 @@ class Model(nn.Module):
             if self.cfg.bf16_grads and leaf.dtype == torch.float32:
                 leaf = leaf.to(cdt)
             leaves[name] = leaf.requires_grad_()
-        tree = _unflatten(leaves)
-        params = {name: _cast(tree[name], cdt) for name in self.parts}
+        params = self._step_tree(dict(leaves))
         loss = loss_fn(params, self.cfg, batch, group)
         # a stub frontend's model never reads its embedding table: its
         # gradient is zeros, as JAX's
@@ -203,7 +373,8 @@ class Model(nn.Module):
         loss, grads = self.value_and_grad(batch, group)
         if reduce is not None:
             loss, grads = reduce(loss, grads)
-        opt_state = apply_updates(self.masters(), grads, opt_state, self.opt)
+        opt_state = apply_updates(self.masters(), grads, opt_state, self.opt,
+                                  self.data_shards())
         return opt_state, {"loss": loss}
 
     @torch.no_grad()
@@ -251,6 +422,7 @@ class Model(nn.Module):
                 for k, (s, dt) in self.cache_specs(shape).items()}
 
 
-def make_model(cfg: ArchConfig, device: Union[str, torch.device] = "cuda",
+def make_model(cfg: ArchConfig, ctx: Optional[ShardingCtx] = None,
+               device: Union[str, torch.device] = "cuda",
                opt: Optional[OptConfig] = None) -> Model:
-    return Model(cfg, device=device, opt=opt)
+    return Model(cfg, ctx, device=device, opt=opt)

@@ -13,7 +13,8 @@ The port of ``repro/models/moe.py``, plain functions on tensors:
 
 ``moe_dense`` runs every expert on every token and combines by the gate
 weights: the oracle of the tests. The JAX layer's sharding constraints
-are no-ops without a mesh and are dropped.
+are hints to GSPMD; where the one on the dispatch buffer splits work over
+"data", ``moe_dispatch`` splits it itself across the data group's ranks.
 
 ``moe_a2a`` is JAX's expert parallelism over an all-to-all (``local_moe``
 in ``repro/models/moe.py``): the pairs are ranked twice, into a send
@@ -34,7 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..parallel.sharding import mesh_shape
+from ..parallel.sharding import all_gather_flat, mesh_shape, reduce_scatter_flat
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -42,16 +43,16 @@ from .layers import ParamSpec, rmsnorm
 def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     e, f, E = cfg.d_model, cfg.expert_ff, cfg.n_experts
     specs = {
-        "router": ParamSpec((e, E), init="small"),
-        "w_up": ParamSpec((E, e, f)),
-        "w_gate": ParamSpec((E, e, f)),
-        "w_down": ParamSpec((E, f, e)),
-        "norm": ParamSpec((e,), init="zeros"),
+        "router": ParamSpec((e, E), (None, None), init="small"),
+        "w_up": ParamSpec((E, e, f), ("expert", "fsdp", None)),
+        "w_gate": ParamSpec((E, e, f), ("expert", "fsdp", None)),
+        "w_down": ParamSpec((E, f, e), ("expert", None, "fsdp")),
+        "norm": ParamSpec((e,), (None,), init="zeros"),
     }
     if cfg.moe_shared:
-        specs["shared_up"] = ParamSpec((e, f * cfg.moe_shared))
-        specs["shared_gate"] = ParamSpec((e, f * cfg.moe_shared))
-        specs["shared_down"] = ParamSpec((f * cfg.moe_shared, e))
+        specs["shared_up"] = ParamSpec((e, f * cfg.moe_shared), ("fsdp", "tp"))
+        specs["shared_gate"] = ParamSpec((e, f * cfg.moe_shared), ("fsdp", "tp"))
+        specs["shared_down"] = ParamSpec((f * cfg.moe_shared, e), ("tp", "fsdp"))
     return specs
 
 
@@ -149,36 +150,93 @@ def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch
     its rows of the batch (in rank order). JAX's dispatch under a mesh is
     partitioned by GSPMD and keeps its global meaning: the capacity comes
     from the global T and the pairs are ranked over every rank's tokens
-    (``repro/models/moe.py:95-114``). So the expert ids are gathered over
-    the group, the global batch's plan is made, and this rank's pairs take
-    their rows of it. A pair's expert output depends on its own token
-    alone, so the rows of the other ranks' pairs stay empty here: each rank
-    runs the experts over the global [E, C, e] buffer (JAX shards its C
-    over "data" instead)."""
+    (``repro/models/moe.py:95-114``), and the [E, C, e] buffer's C is split
+    over "data" (``constrain(..., "expert", "expert_cap", "embed")``). So
+    the expert ids are gathered over the group and the global batch's plan
+    is made; rank r of n owns slots [r C/n, (r+1) C/n) of every expert (C
+    padded up to a multiple of n with empty slots, as GSPMD pads the
+    constraint's split) and runs the experts over its [E, C/n, e] buffer
+    alone. Each kept pair's row travels to the rank that owns its slot and
+    its expert output back, by all-to-alls over the group."""
     b, s, e = x.shape
     cdt = x.dtype
     E, k, T = cfg.n_experts, cfg.top_k, b * s
     xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, e)
     gates, ids = _route(xn, p, cfg)                                     # [T, k]
-    mine = slice(None)
-    if group is not None and dist.get_world_size(group) > 1:
-        r = dist.get_rank(group)
-        ids = _gather_rows(ids, group)                                  # [n T, k]
-        mine = slice(r * T * k, (r + 1) * T * k)
-    plan = dispatch_plan(ids, cfg)
-    C = plan.capacity
-    kept, dest = plan.keep[mine], plan.dest[mine]
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    # each kept pair has a row of its own; the dropped ones add zeros into the dump row
-    buf = torch.zeros((E * C + 1, e), dtype=cdt, device=x.device)
-    buf = buf.index_add(0, dest, xn[tok] * kept.to(cdt)[:, None])
-    yb = _expert_ffn(buf[:E * C].view(E, C, e), p, cfg)                 # [E, C, e]
-    gathered = yb.reshape(E * C, e)[dest.clamp(0, E * C - 1)]
-    gathered = gathered * (gates.reshape(T * k) * kept).to(cdt)[:, None]
-    # each token's k parts summed in a fixed order (JAX scatter-adds them)
-    y = gathered.view(T, k, e).sum(1)
+    if group is not None and dist.get_world_size(group) > 1:
+        y = _dispatch_split(xn, gates, ids, tok, p, cfg, group)
+    else:
+        plan = dispatch_plan(ids, cfg)
+        C, kept, dest = plan.capacity, plan.keep, plan.dest
+        # each kept pair has a row of its own; the dropped ones add zeros into the dump row
+        buf = torch.zeros((E * C + 1, e), dtype=cdt, device=x.device)
+        buf = buf.index_add(0, dest, xn[tok] * kept.to(cdt)[:, None])
+        yb = _expert_ffn(buf[:E * C].view(E, C, e), p, cfg)             # [E, C, e]
+        gathered = yb.reshape(E * C, e)[dest.clamp(0, E * C - 1)]
+        gathered = gathered * (gates.reshape(T * k) * kept).to(cdt)[:, None]
+        # each token's k parts summed in a fixed order (JAX scatter-adds them)
+        y = gathered.view(T, k, e).sum(1)
     y = y + _shared(xn, p, cfg)
     return y.reshape(b, s, e)
+
+
+def _dispatch_split(xn: torch.Tensor, gates: torch.Tensor, ids: torch.Tensor,
+                    tok: torch.Tensor, p: Dict, cfg: ArchConfig, group) -> torch.Tensor:
+    """``moe_dispatch`` with the buffer's capacity split over the n ranks
+    of ``group``: y [T, e] of this rank's tokens before the shared expert."""
+    T, e = xn.shape
+    E, k, cdt = cfg.n_experts, cfg.top_k, xn.dtype
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    fid = _gather_rows(ids, group).reshape(-1)                          # [n T k]
+    plan = dispatch_plan(fid.view(n * T, k), cfg)
+    C = plan.capacity
+    Cl = -(-C // n)                                   # a rank's slots of each expert
+    slot = plan.dest - fid * C                        # the pair's slot in its expert
+    owner = torch.where(plan.keep, slot // Cl, n)     # n: dropped
+    row = fid * Cl + slot - owner * Cl                # its row of the owner's buffer
+    owner, row = owner.view(n, T * k), row.view(n, T * k)
+    # this rank's kept pairs, by the rank that owns their slot (pair order within)
+    mine = torch.argsort(owner[r], stable=True)
+    mine = mine[owner[r][mine] < n]
+    send_counts = torch.bincount(owner[r][mine], minlength=n).tolist()
+    # the rows every rank sends here, by source rank, each in its pair order
+    to_me = owner == r                                                  # [n, T k]
+    recv_counts = to_me.sum(1).tolist()
+    recv_row = row[to_me]
+    recv = _AllToAllRows.apply(xn[tok[mine]], recv_counts, send_counts, group)
+    buf = torch.zeros((E * Cl, e), dtype=cdt, device=xn.device).index_add(0, recv_row, recv)
+    yb = _expert_ffn(buf.view(E, Cl, e), p, cfg)                        # [E, C/n, e]
+    back = _AllToAllRows.apply(yb.reshape(E * Cl, e)[recv_row], send_counts, recv_counts, group)
+    got = torch.zeros((T * k, e), dtype=cdt, device=xn.device).index_add(0, mine, back)
+    got = got * (gates.reshape(T * k) * plan.keep.view(n, T * k)[r]).to(cdt)[:, None]
+    # each token's k parts summed in a fixed order (JAX scatter-adds them)
+    return got.view(T, k, e).sum(1)
+
+
+class _AllToAllRows(torch.autograd.Function):
+    """``all_to_all_single`` of rows over ``group``, ``in_splits`` rows to
+    each rank and ``out_splits`` from each; its backward sends the
+    gradient's rows back with the splits swapped."""
+
+    @staticmethod
+    def forward(ctx, x, out_splits, in_splits, group):
+        ctx.meta = (out_splits, in_splits, group)
+        return _all_to_all_rows(x, out_splits, in_splits, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        out_splits, in_splits, group = ctx.meta
+        return _all_to_all_rows(g, in_splits, out_splits, group), None, None, None
+
+
+def _all_to_all_rows(x: torch.Tensor, out_splits: List[int], in_splits: List[int],
+                     group) -> torch.Tensor:
+    x = x.contiguous()
+    out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=out_splits,
+                           input_split_sizes=in_splits, group=group)
+    return out
 
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
@@ -186,7 +244,7 @@ def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((dist.get_world_size(group) * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, t, group=group)
+    all_gather_flat(out, t, group)
     return out
 
 
@@ -310,8 +368,7 @@ def _gather_data(x: torch.Tensor, group, n: int) -> torch.Tensor:
     at d*C2 (JAX's ``all_gather(axis=1, tiled=True)``)."""
     x = x.contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    all_gather(out, x, group=group)
+    all_gather_flat(out, x, group)
     return out.view((n,) + tuple(x.shape)).movedim(0, 1).reshape(
         x.shape[0], n * x.shape[1], x.shape[2])
 
@@ -323,8 +380,7 @@ def _scatter_data(y: torch.Tensor, group, n: int) -> torch.Tensor:
     e_loc, nc, e = y.shape
     parts = y.reshape(e_loc, n, nc // n, e).movedim(1, 0).reshape(n * e_loc, nc // n, e)
     out = torch.empty((e_loc, nc // n, e), dtype=y.dtype, device=y.device)
-    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-    reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+    reduce_scatter_flat(out, parts, group)
     return out
 
 
@@ -528,7 +584,8 @@ def add_shared(y: torch.Tensor, x: torch.Tensor, p: Dict, cfg: ArchConfig) -> to
 def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch.Tensor:
     """The layer ``cfg.moe_impl`` names. ``group`` is the data-parallel
     group over whose ranks the batch is split: the dispatch ranks its pairs
-    over the global batch (``moe_dispatch``); the dense oracle couples no
+    over the global batch and splits its buffer's capacity over the group
+    (``moe_dispatch``); the dense oracle couples no
     tokens, and ``moe_a2a`` at one model shard ranks a rank's own tokens,
     as JAX's ``shard_map`` body does."""
     if cfg.moe_impl == "dense":

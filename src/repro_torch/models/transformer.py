@@ -18,6 +18,13 @@ step's gradient of each stacked leaf is one stack of its layers' parts).
 ``cfg.remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 
+Under the Zero-3 layout a layer's split leaves arrive as ``Sharded``
+shards and the layer body gathers them first (``gather_tree``), inside
+the checkpointed region: remat gathers them again in the backward, and no
+gathered weight is kept between the forward and the backward. Each
+gather's backward reduce-scatters that use's gradient. The hybrid's
+shared block is gathered at each application.
+
 The audio and vision frontends are stubs, as in JAX: those models take
 precomputed frame or patch embeddings [b, s, e] (``embeds``) in place of
 tokens. qwen2-vl rotates by M-RoPE over [3, b, s] position streams;
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import ShardingCtx, gather_tree
 from .config import ArchConfig
 from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
@@ -114,8 +122,9 @@ def _inputs(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor],
 
 
 def _unstack(blocks: Dict, n: int) -> List[Dict]:
-    """The n per-layer trees of a stacked ``[L, ...]`` tree."""
-    flat = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+    """The n per-layer trees of a stacked ``[L, ...]`` tree (of tensors or
+    ``Sharded`` shards)."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in blocks.items()}
     return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
@@ -173,11 +182,11 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
         blocks = _cast_blocks(blocks, getattr(torch, cfg.dtype))
 
     def block_body(x, bp):
-        return _block(x, bp, cfg, positions, group, want_cache=want_cache)
+        return _block(x, gather_tree(bp), cfg, positions, group, want_cache=want_cache)
 
     if cfg.family in ("ssm", "hybrid"):
         def ssm_body(x, bp):
-            y, st = mamba_layer(x, bp, cfg, want_state=want_cache)
+            y, st = mamba_layer(x, gather_tree(bp), cfg, want_state=want_cache)
             return x + y, st
 
         for i, bp in enumerate(_unstack(blocks, cfg.n_layers)):
@@ -243,6 +252,26 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16
         return cache
     lead = (groups, 2) if _interleaved(cfg) else (cfg.n_layers,)
     return {"k": (lead + kvd, dtype), "v": (lead + kvd, dtype)}
+
+
+def cache_shardings(cfg: ArchConfig, ctx: ShardingCtx):
+    """The layouts of ``init_cache_specs``' buffers (sequence-split KV, the
+    SSM states' heads over "model"); None without a mesh."""
+    if ctx.mesh is None:
+        return None
+    sh = ctx.sharding
+    if cfg.family == "ssm":
+        return {"conv": sh("layers", "batch", None, None),
+                "ssm": sh("layers", "batch", "ssm_heads", None, None)}
+    kv = sh("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    if cfg.family == "hybrid":
+        return {"conv": sh("layers", "batch", None, None),
+                "ssm": sh("layers", "batch", "ssm_heads", None, None),
+                "shared_k": kv, "shared_v": kv}
+    if _interleaved(cfg):
+        kv2 = sh("layers", None, "batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": kv2, "v": kv2}
+    return {"k": kv, "v": kv}
 
 
 def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,

@@ -13,13 +13,21 @@ place, one leaf at a time, and AdamW one slice of at most
 full width the fp32 masters, gradients and both moments already fill most
 of the card, so no temporary may span the whole tree or a whole stacked
 leaf.
+
+Under the Zero-3 layout (``DataShards``) each rank updates its shards of
+the masters and the moments: AdamW is elementwise and needs nothing more;
+the global norm sums each rank's squares of the split leaves over the
+data group (the whole leaves once), and Adafactor sums its means over a
+split dimension there before dividing. The state mirrors the masters'
+layout (``opt_state_specs``, as JAX's).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .schedule import warmup_cosine
 
@@ -45,8 +53,39 @@ class OptConfig:
     total_steps: int = 10_000
 
 
+class DataShards(NamedTuple):
+    """The layout of a tree of leaves over the data group: for each leaf
+    the dimension split over it (None where every rank holds the whole
+    leaf), the group (None in one process) and its size."""
+    dims: Dict[str, Optional[int]]
+    group: Any = None
+    n: int = 1
+
+
 def _factored(shape: Tuple[int, ...]) -> bool:
     return len(shape) >= 2
+
+
+def opt_state_specs(param_specs: Dict, cfg: OptConfig) -> OptState:
+    """The ParamSpecs of the optimizer state for a flat {name: ParamSpec}
+    of the parameters: the moments mirror each parameter's axes; Adafactor's
+    ``row`` takes ``axes[:-1]``, ``col`` ``axes[:-2] + axes[-1:]``."""
+    from ..models.layers import ParamSpec
+
+    def mirror(s):
+        return ParamSpec(s.shape, s.axes, init="zeros", dtype="float32")
+
+    step = ParamSpec((), (), "zeros", "int32")
+    if cfg.kind == "adafactor":
+        def nu_leaf(s):
+            if _factored(s.shape):
+                return {"row": ParamSpec(s.shape[:-1], s.axes[:-1], "zeros", "float32"),
+                        "col": ParamSpec(s.shape[:-2] + s.shape[-1:], s.axes[:-2] + s.axes[-1:],
+                                         "zeros", "float32")}
+            return {"full": mirror(s)}
+        return OptState(step=step, mu={}, nu={n: nu_leaf(s) for n, s in param_specs.items()})
+    return OptState(step=step, mu={n: mirror(s) for n, s in param_specs.items()},
+                    nu={n: mirror(s) for n, s in param_specs.items()})
 
 
 def init_opt_state(params: Dict[str, torch.Tensor], cfg: OptConfig) -> OptState:
@@ -62,10 +101,35 @@ def init_opt_state(params: Dict[str, torch.Tensor], cfg: OptConfig) -> OptState:
                     nu={n: zeros(p.shape, p) for n, p in params.items()})
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    total = sum(torch.sum(torch.square(g.float())) for g in tree.values())
-    return torch.sqrt(total)
+def global_norm(tree: Dict[str, torch.Tensor], shards: Optional[DataShards] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32. With ``shards``
+    the split leaves' squares are summed apart and, over the data group,
+    across its ranks; the whole leaves' are added once. Without, every leaf
+    is whole. In one process the split is kept, so that a group of one is
+    the same arithmetic."""
+    dims = shards.dims if shards is not None else dict.fromkeys(tree)
+    zero = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
+    split = sum((torch.sum(torch.square(g.float())) for n, g in tree.items()
+                 if dims[n] is not None), zero)
+    whole = sum((torch.sum(torch.square(g.float())) for n, g in tree.items()
+                 if dims[n] is None), zero)
+    if shards is not None and shards.group is not None:
+        dist.all_reduce(split, group=shards.group)
+    return torch.sqrt(split + whole)
+
+
+def _mean(t: torch.Tensor, dim: Optional[int], split: bool, shards: Optional[DataShards],
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``t`` over ``dim`` (every element where None); where that
+    dimension (any, for None) is split over the data group, the ranks'
+    sums are summed there and divided by the whole count."""
+    if not split or shards is None or shards.group is None:
+        return torch.mean(t) if dim is None else t.mean(dim=dim, keepdim=keepdim)
+    s = torch.sum(t) if dim is None else t.sum(dim=dim, keepdim=keepdim)
+    dist.all_reduce(s, group=shards.group)
+    count = t.numel() if dim is None else t.shape[dim]
+    return s / (count * shards.n)
 
 
 def _chunks(t: torch.Tensor):
@@ -79,15 +143,18 @@ def _chunks(t: torch.Tensor):
 
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                  state: OptState, cfg: OptConfig) -> OptState:
+                  state: OptState, cfg: OptConfig,
+                  shards: Optional[DataShards] = None) -> OptState:
     """One optimizer step: updates ``params`` (and the moments in
     ``state``) in place and returns the state with its step advanced. The
-    gradients are scaled in place when they are fp32 (they are consumed)."""
+    gradients are scaled in place when they are fp32 (they are consumed).
+    ``shards``: the layout of ``params`` (and of ``grads``) over the data
+    group, when they are this rank's shards."""
     dev = next(iter(params.values())).device
     step = state.step + 1
     stepf = torch.tensor(step, dtype=torch.float32, device=dev)
     lr = warmup_cosine(stepf, cfg.lr, cfg.warmup, cfg.total_steps)
-    gn = global_norm(grads)
+    gn = global_norm(grads, shards)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
     if cfg.kind == "adafactor":
@@ -97,17 +164,22 @@ def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
             g = grads[name].float() * scale
             nu = state.nu[name]
             g2 = g * g + eps2
+            d = None if shards is None else shards.dims[name]
             if _factored(p.shape):
-                nu["row"].copy_(decay * nu["row"] + (1 - decay) * g2.mean(dim=-1))
-                nu["col"].copy_(decay * nu["col"] + (1 - decay) * g2.mean(dim=-2))
-                rmean = nu["row"].mean(dim=-1, keepdim=True)
+                last, rows = p.dim() - 1, p.dim() - 2
+                nu["row"].copy_(decay * nu["row"]
+                                + (1 - decay) * _mean(g2, -1, d == last, shards))
+                nu["col"].copy_(decay * nu["col"]
+                                + (1 - decay) * _mean(g2, -2, d == rows, shards))
+                rmean = _mean(nu["row"], -1, d == rows, shards, keepdim=True)
                 vhat = (nu["row"] / torch.clamp(rmean, min=eps2))[..., None] \
                     * nu["col"][..., None, :]
                 u = g * torch.rsqrt(torch.clamp(vhat, min=eps2))
             else:
                 nu["full"].copy_(decay * nu["full"] + (1 - decay) * g2)
                 u = g * torch.rsqrt(torch.clamp(nu["full"], min=eps2))
-            rms = torch.sqrt(torch.mean(u * u) + eps2)      # the RMS update clip
+            # the RMS update clip
+            rms = torch.sqrt(_mean(u * u, None, d is not None, shards) + eps2)
             u = u / torch.clamp(rms, min=1.0)
             keep = 1 - lr * cfg.weight_decay * float(p.dim() >= 2)
             p.copy_((p.float() * keep - lr * u).to(p.dtype))

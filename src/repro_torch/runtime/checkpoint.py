@@ -13,6 +13,11 @@ port's state dict and optimizer state and JAX's param tree and
 checkpoint written by either package restores into the other. The
 manifest's ``treedef`` is a description only: a restore takes the
 structure from ``like`` and matches the leaves by count and order.
+
+The files hold whole leaves whatever the layout they were saved from
+(the Zero-3 runtime gathers them first, ``ElasticRuntime.full_state``);
+``restore(like, shardings=...)`` slices each onto the current layout, as
+JAX's does with its shardings, so a checkpoint of n ranks restores on m.
 Saves can run on a background thread so the training loop is not
 blocked.
 """
@@ -46,20 +51,30 @@ def _describe(tree: Any) -> str:
     return "*"
 
 
-def _unflatten(like: Any, leaves: List[np.ndarray]) -> Any:
+def _unflatten(like: Any, leaves: List[np.ndarray], shardings: Optional[List[Any]] = None
+               ) -> Any:
     """``like``'s structure with its leaves replaced, in order, by
-    ``leaves`` (consumed from the front): tensors on ``like``'s device and
-    in its dtype, ints as ints."""
+    ``leaves`` (consumed from the front): arrays as tensors on ``like``'s
+    device and in its dtype, tensors as they are, ints as ints.
+    ``shardings``, in the same order (consumed alike), slices each whole
+    leaf to this rank's shard where it is not None."""
     if isinstance(like, OptState):
         step = int(leaves.pop(0))
-        mu = _unflatten(like.mu, leaves)
-        return OptState(step=step, mu=mu, nu=_unflatten(like.nu, leaves))
+        if shardings is not None:
+            shardings.pop(0)
+        mu = _unflatten(like.mu, leaves, shardings)
+        return OptState(step=step, mu=mu, nu=_unflatten(like.nu, leaves, shardings))
     if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: _unflatten(like[k], leaves, shardings) for k in sorted(like)}
     a = leaves.pop(0)
+    sh = None if shardings is None else shardings.pop(0)
+    if sh is not None:
+        a = sh.shard(a)
     if isinstance(like, torch.Tensor):
         if tuple(a.shape) != tuple(like.shape):
             raise ValueError(f"leaf shape {a.shape} != {tuple(like.shape)}")
+        if isinstance(a, torch.Tensor):
+            return a
         return torch.from_numpy(np.ascontiguousarray(a)).to(like.device, like.dtype)
     return type(like)(a)
 
@@ -129,10 +144,13 @@ class CheckpointManager:
             return None
         return int(ckpts[-1].name.split("_")[1])
 
-    def restore(self, like: Dict[str, Any],
+    def restore(self, like: Dict[str, Any], shardings: Optional[Dict[str, Any]] = None,
                 step: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
         """Restore the trees named in ``like``, each onto the structure,
-        devices and dtypes of its tree there; the leaf counts must agree."""
+        devices and dtypes of its tree there; the leaf counts must agree.
+        ``shardings`` (the same structure, e.g. ``Model.param_shardings()``
+        and ``opt_shardings()``) slices each leaf onto the current layout:
+        ``like`` then holds this rank's shards."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -146,5 +164,8 @@ class CheckpointManager:
                     raise ValueError(f"{name}: the checkpoint has {len(data.files)} leaves, "
                                      f"the tree {n}")
                 leaves = [data[f"leaf_{i}"] for i in range(n)]
-            out[name] = _unflatten(tree, leaves)
+            sh = None
+            if shardings is not None and name in shardings:
+                sh = _flatten(shardings[name])
+            out[name] = _unflatten(tree, leaves, sh)
         return step, out

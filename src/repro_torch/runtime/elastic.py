@@ -26,24 +26,35 @@ n and kept, since a mesh's groups live as long as the world. Every rank of
 the world runs the same control plane (the Instance, its queue and
 scheduler are deterministic, so every rank takes the same decisions) and
 calls ``bind`` at every resize; ranks ``[0, n)`` are bound, the others
-skip steps until the next rebind. Ranks that join (on a grow, or the first
-bind) receive the parameters and the optimizer state by broadcast from
-rank 0, which is always bound: the counterpart of JAX's ``device_put``
-onto the new mesh. The state is replicated over the bound ranks (JAX's
-Zero-3 layout, 1/n of it a device, gives the same update and is not
-ported); each bound rank takes its ``global_batch / n`` rows of the step's
-batch (its rows of each of ``grad_accum``'s microbatches), and the
-gradients are all-reduced over "data" and divided by n before the
+hold no state and skip steps until the next rebind.
+
+The state has JAX's Zero-3 layout (``Model.param_shardings`` /
+``opt_shardings``): a bound rank holds 1/n of each split master and
+moment and the small leaves whole. The first bind draws each leaf whole,
+one at a time, and keeps this rank's slice, so the values do not depend
+on n. A rebind from n to m ranks moves one leaf at a time: the old ranks
+gather it over their "data" group, rank 0 broadcasts it to the world when
+ranks join, and each new rank keeps its slice: the counterpart of JAX's
+``device_put(params, psh)`` onto the new mesh. The new shards are
+allocated as the old ones are freed, so a rebind's peak is the larger of
+the two layouts' state plus about one whole leaf. Each bound rank takes its
+``global_batch / n`` rows of the step's batch (its rows of each of
+``grad_accum``'s microbatches); the layers gather each split leaf over
+"data" where they use it and reduce-scatter its gradient, the whole
+leaves' gradients are all-reduced, and both are divided by n before the
 optimizer: JAX's global-batch mean. The MoE dispatch plans the global
-batch, as JAX's does under a mesh (``models/moe.py::moe_dispatch``). The
-reported loss is the mean over the bound ranks.
+batch and splits its capacity over "data", as JAX's does under a mesh
+(``models/moe.py::moe_dispatch``). The reported loss is the mean over the
+bound ranks. ``full_state`` gathers the whole state onto the host of
+rank 0 for a checkpoint.
 
 Without a process group the world is one device (the first CUDA card, or
-the CPU), and a rebind keeps the model and its state where they are (at
-full width a second copy would not fit the card); it still records its
-``rebind`` event and rebuilds the step. JAX's runtime always uses a model
-axis of 1 (``repro/launch/train.py:58``); a model axis above 1, which
-would shard every layer's sequence over "model", is not ported.
+the CPU) holding every leaf whole, and a rebind keeps the model and its
+state where they are (at full width a second copy would not fit the
+card); it still records its ``rebind`` event and rebuilds the step.
+JAX's runtime always uses a model axis of 1
+(``repro/launch/train.py:58``); a model axis above 1, which would shard
+every layer's sequence over "model", is not ported.
 """
 from __future__ import annotations
 
@@ -66,7 +77,8 @@ from ..launch.mesh import make_mesh_for
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.model import Model, make_model
 from ..optim.adamw import OptConfig, OptState
-from ..parallel.compress import _flatten
+from ..parallel.sharding import Rules, ShardingCtx
+from .checkpoint import _flatten, _unflatten
 
 
 @dataclass
@@ -114,8 +126,31 @@ class ElasticRuntime:
 
     @property
     def params(self) -> Optional[Dict[str, torch.Tensor]]:
-        """The fp32 masters, {state_dict name: tensor} (JAX's flatten order)."""
+        """This rank's shards of the fp32 masters, {state_dict name: tensor}
+        (JAX's flatten order); None on a rank that is not bound."""
         return None if self.model is None else self.model.masters()
+
+    @params.setter
+    def params(self, shards: Dict[str, torch.Tensor]) -> None:
+        """Copy this rank's shards into the masters (e.g. a restore through
+        ``shardings=``)."""
+        with torch.no_grad():
+            for name, t in self.model.masters().items():
+                t.copy_(shards[name])
+        self.model._compute = None
+
+    def full_state(self) -> Optional[Dict[str, Any]]:
+        """The whole masters and optimizer state on the host of rank 0, the
+        checkpoint's writer, gathered one leaf at a time: {"params",
+        "opt_state"} as a checkpoint holds them. Every bound rank calls it
+        (the gathers are collectives over "data"); the others take part,
+        keep no host copy and get None, as does a rank that is not bound."""
+        if self.model is None:
+            return None
+        keep = self._rank() == 0
+        params = self.model.full_params(keep)
+        opt_state = self.model.full_opt_state(self.opt_state, keep)
+        return {"params": params, "opt_state": opt_state} if keep else None
 
     # ---------------------------------------------------------------- #
     def chips_allocated(self) -> int:
@@ -179,25 +214,28 @@ class ElasticRuntime:
     def bind(self, generator: Optional[torch.Generator] = None) -> None:
         """(Re)bind the job to the devices its allocation makes usable.
         Every rank of the world calls it. The model and its optimizer state
-        are built on first use (the masters drawn from ``generator``) and
-        kept where they are otherwise; ranks that join the bound set get
-        them from rank 0 by broadcast, ranks that stay keep theirs."""
+        are built on the first bind, each bound rank drawing every master
+        whole from ``generator`` and keeping its shard; a rebind to another
+        mesh moves them onto its layout (``_reshard``), and one to the same
+        mesh keeps them where they are."""
         n = self._usable_devices()
         before = 0 if self.mesh is None else len(self.mesh)
         devices = self._local_devices()[:n]
         dev = self._rank_device()
-        self.device_mesh = self._mesh(n)
-        if self.model is None:
-            self.model = make_model(self.cfg, device=dev, opt=self.opt)
-            if generator is None:
-                generator = torch.Generator(device=dev).manual_seed(0)
-            self.model.init_params(generator)
-            self.opt_state = self.model.init_opt()
-        if self._distributed() and n > max(before, 1):
-            # ranks [before, n) join (all but rank 0 on the first bind)
-            self._broadcast_state()
+        old_mesh, self.device_mesh = self.device_mesh, self._mesh(n)
+        bound = self.device_mesh is None or self._rank() < n
+        if before == 0:
+            if bound:
+                self.model = make_model(self.cfg, ShardingCtx(Rules(), self.device_mesh),
+                                        device=dev, opt=self.opt)
+                if generator is None:
+                    generator = torch.Generator(device=dev).manual_seed(0)
+                self.model.init_params(generator)
+                self.opt_state = self.model.init_opt()
+        elif self.device_mesh is not old_mesh:
+            self._reshard(before, n)
         self.mesh = devices
-        self._train_step = self.model.train_step
+        self._train_step = None if self.model is None else self.model.train_step
         self.events.append(ElasticEvent(
             "rebind", time.time(), before, len(self.mesh),
             f"devices={len(self.mesh)} model_axis={self.model_axis}"))
@@ -209,22 +247,66 @@ class ElasticRuntime:
         if not self._distributed():
             return None
         if n not in self._meshes:
-            self._meshes[n] = make_mesh_for(n, self.model_axis)
+            self._meshes[n] = make_mesh_for(n, self.model_axis, self._rank_device().type)
         return self._meshes[n]
 
-    def _broadcast_state(self) -> None:
-        """Rank 0's masters and optimizer state to every rank of the world
-        (every rank calls it, in ``bind``)."""
-        with torch.no_grad():
-            for t in self.model.masters().values():
-                dist.broadcast(t, src=0)
-            for t in _flatten((self.opt_state.mu, self.opt_state.nu))[0]:
-                dist.broadcast(t, src=0)
-            step = torch.tensor([self.opt_state.step], dtype=torch.int64,
-                                device=self._rank_device())
-            dist.broadcast(step, src=0)
-        self.opt_state = self.opt_state._replace(step=int(step.item()))
-        self.model._compute = None
+    @torch.no_grad()
+    def _reshard(self, before: int, n: int) -> None:
+        """Move the state from the ``before`` ranks of the old mesh onto the
+        layout of the current mesh of n ranks, one leaf at a time (every rank
+        of the world calls it): the old ranks gather the leaf over their
+        "data" group and free their shard of it; when ranks join, rank 0
+        broadcasts it to the world; each new rank copies out its shard. The
+        new model is built on "meta" and takes its shards at the end
+        (``Model.adopt``), so a shard is allocated only once the old shard
+        of its leaf is gone: the peak is the larger of the old and the new
+        state, plus one whole leaf, one new shard and the gather's buffer of
+        one old shard. Ranks that are no longer bound drop their state."""
+        dev = self._rank_device()
+        old, old_state = self.model, self.opt_state
+        new = new_like = None
+        if self._rank() < n:
+            new = make_model(self.cfg, ShardingCtx(Rules(), self.device_mesh),
+                             device="meta", opt=self.opt)
+            new_like = new.init_opt()
+        ref = make_model(self.cfg, device="meta", opt=self.opt)      # shapes only
+        names = list(ref.param_specs())
+        joiners = n > before
+        shapes = list(ref.param_shapes().values()) + _flatten(ref.opt_shapes())[1:]
+        olds, kept = [], []
+        if old is not None:
+            params = dict(old.named_parameters())
+            olds = [params[k] for k in names] + _flatten(old_state)[1:]
+            old_sh = list(old.param_shardings().values()) + _flatten(old.opt_shardings())[1:]
+            del params
+        if new is not None:
+            new_sh = list(new.param_shardings().values()) + _flatten(new.opt_shardings())[1:]
+        for i, (shape, dtype) in enumerate(shapes):
+            full = part = None
+            if old is not None:
+                # a whole leaf is the old tensor itself: the alias keeps its storage
+                full = old.gather(olds[i], old_sh[i]).detach()
+                olds[i].data = torch.empty(0, dtype=dtype, device=dev)     # the old shard goes
+            if joiners:
+                if full is None:
+                    full = torch.empty(shape, dtype=dtype, device=dev)
+                dist.broadcast(full, src=0)
+            if new is not None:
+                part = new_sh[i].shard(full)
+                kept.append(full if part.shape == full.shape
+                            else part.clone(memory_format=torch.contiguous_format))
+            full = part = None       # the whole leaf (``part`` views it) goes before the next
+        step = 0 if old_state is None else old_state.step
+        if joiners:
+            t = torch.tensor([step], dtype=torch.int64, device=dev)
+            dist.broadcast(t, src=0)
+            step = int(t.item())
+        self.model = self.opt_state = None
+        del old, old_state, olds
+        if new is not None:
+            new.adopt(dict(zip(names, kept[:len(names)])))
+            self.opt_state = _unflatten(new_like, [step] + kept[len(names):])
+        self.model = new
 
     # ---------------------------------------------------------------- #
     def allocate(self, chips: int) -> bool:
@@ -345,13 +427,18 @@ class ElasticRuntime:
     def _mean_over_data(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
         """The gradients and the loss summed over the "data" group and
         divided by its size: the global batch's mean, before clipping
-        reads the global norm."""
+        reads the global norm. A split leaf's gradient shard already holds
+        that sum (its gathers' reduce-scatters); the whole leaves' are
+        all-reduced."""
         group = self.device_mesh.get_group("data")
         n = self.device_mesh.shape[0]
-        for g in grads.values():
-            dist.all_reduce(g, group=group)
+        dims = self.model.data_shards().dims
+        for name, g in grads.items():
+            if dims[name] is None:
+                dist.all_reduce(g, group=group)
             g.div_(n)
         loss = loss.clone()
         dist.all_reduce(loss, group=group)
         return loss / n, grads
+
 

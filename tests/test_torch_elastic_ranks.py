@@ -6,7 +6,8 @@ the losses and parameters equal the one-process port's run on the same
 batches within 1e-6 of the largest |p|. At 4 ranks one step equals JAX's
 ``train_step`` under a (4, 1) mesh with Auto axes (a subprocess with 4
 host devices) on JAX's weights, and a checkpoint saved on 4 ranks restores
-onto 2. Rebinding again and again reuses the meshes: the world's count of
+onto 2 through ``shardings=``. The state has JAX's Zero-3 layout, so
+the parameters compared are the bound ranks' shards gathered whole. Rebinding again and again reuses the meshes: the world's count of
 process groups stays put. Reduced qwen3-moe on the capacity dispatch at
 capacity factor 1.0, where pairs drop, steps on 2 ranks as JAX's
 ``train_step`` under a (2, 1) mesh (the capacity and the pairs' ranks of
@@ -141,29 +142,38 @@ def _elastic_stages(rt, batches):
         ok = act()
         loss = float(rt.step(batch)["loss"])
         out.append(dict(ok=ok, bound=len(rt.mesh), me=rt.bound, loss=loss,
-                        params={k: v.numpy().copy() for k, v in rt.params.items()}))
+                        params=_gathered(rt)))
     return out
+
+
+def _gathered(rt):
+    """The masters gathered whole (every bound rank calls it), None on a
+    rank that is not bound."""
+    if rt.model is None:
+        return None
+    return {k: v.numpy().copy() for k, v in rt.model.full_params().items()}
 
 
 def _load(rt, state):
     import torch
-    rt.model.load_params({k: torch.from_numpy(v) for k, v in state.items()})
-    rt.opt_state = rt.model.init_opt()
+    if rt.model is not None:
+        rt.model.load_params({k: torch.from_numpy(v) for k, v in state.items()})
+        rt.opt_state = rt.model.init_opt()
 
 
 def _captured_step(rt, batch):
     """One step: the bound ranks, the loss, the mean gradient the
-    optimizer is given, and the parameters after it."""
+    optimizer is given and the parameters after it, gathered whole."""
     grads, reduce = {}, rt._mean_over_data
 
     def capture(loss, g):
         loss, g = reduce(loss, g)
-        grads.update({k: v.numpy().copy() for k, v in g.items()})
+        psh = rt.model.param_shardings()
+        grads.update({k: rt.model.gather(v, psh[k]).numpy().copy() for k, v in g.items()})
         return loss, g
     rt._mean_over_data = capture
     loss = float(rt.step(batch)["loss"])
-    return dict(bound=len(rt.mesh), loss=loss, grads=grads,
-                params={k: v.numpy().copy() for k, v in rt.params.items()})
+    return dict(bound=len(rt.mesh), loss=loss, grads=grads, params=_gathered(rt))
 
 
 def _group_count():
@@ -194,22 +204,27 @@ def _port_world(rank, world, inputs, ckpt_dir):
     rt.bind()
     _load(rt, inputs["jax_params"])
     out["jax_step"] = _captured_step(rt, inputs["jax_batch"])
+    state = rt.full_state()
     if rank == 0:
-        CheckpointManager(ckpt_dir).save(1, {"params": rt.params, "opt_state": rt.opt_state})
+        CheckpointManager(ckpt_dir).save(1, state)
     dist.barrier()
-    # every rank restores onto a runtime of 2 bound ranks and steps once
+    # the 2 bound ranks of a new runtime restore their shards and step once
     rt2 = _runtime(cfg, shape)
     rt2.allocate(2)
     rt2.bind()
-    step, state = CheckpointManager(ckpt_dir).restore(
-        {"params": rt2.params, "opt_state": rt2.opt_state})
-    rt2.model.load_params(state["params"])
-    rt2.opt_state = state["opt_state"]
-    restored = {k: v.numpy().copy() for k, v in rt2.params.items()}
+    step = opt_step = restored = None
+    if rt2.bound:
+        step, state = CheckpointManager(ckpt_dir).restore(
+            {"params": rt2.params, "opt_state": rt2.opt_state},
+            shardings={"params": rt2.model.param_shardings(),
+                       "opt_state": rt2.model.opt_shardings()})
+        rt2.params, rt2.opt_state = state["params"], state["opt_state"]
+    restored = _gathered(rt2)
     loss = float(rt2.step(inputs["batches"][0])["loss"])
-    out["restore"] = dict(step=step, bound=len(rt2.mesh), opt_step=rt2.opt_state.step,
-                          restored=restored, loss=loss,
-                          params={k: v.numpy().copy() for k, v in rt2.params.items()})
+    if rt2.bound:
+        opt_step = rt2.opt_state.step
+    out["restore"] = dict(step=step, bound=len(rt2.mesh), opt_step=opt_step,
+                          restored=restored, loss=loss, params=_gathered(rt2))
 
     # reduced qwen3-moe's dispatch at 2 ranks on JAX's weights
     for accum in ACCUM:
@@ -318,7 +333,7 @@ def test_stage_matches_one_process(i, results, single):
             continue
         assert abs(st["loss"] - single["loss"]) <= TOL * abs(single["loss"])
         _close_params(st["params"], single["params"])
-        for k, v in st["params"].items():           # replicated: equal on every bound rank
+        for k, v in st["params"].items():           # gathered: equal on every bound rank
             np.testing.assert_array_equal(v, ranks[0]["stages"][i]["params"][k])
 
 
@@ -400,16 +415,20 @@ def test_moe_dispatch_at_two_matches_one_process(accum, results, moe_single):
 
 
 def test_checkpoint_from_four_restores_onto_two(results):
-    """Rank 0's checkpoint of the 4-rank step restores on every rank of a
-    2-rank binding bit for bit, and the next step there equals the same
-    step in one process from the same checkpoint."""
+    """Rank 0's checkpoint of the 4-rank step (the leaves gathered whole)
+    restores through ``shardings=`` onto the 2 bound ranks of a new binding
+    bit for bit, and the next step there equals the same step in one
+    process from the same checkpoint; the ranks outside hold no state."""
     from repro_torch.models.config import ShapeConfig
     from repro_torch.runtime.checkpoint import CheckpointManager
     inputs, _, ranks = results
     for r, res in enumerate(ranks):
         st = res["restore"]
-        assert st["step"] == 1 and st["bound"] == 2
-        assert st["opt_step"] == (2 if r < 2 else 1)      # the unbound ranks skipped the step
+        assert st["bound"] == 2
+        if r >= 2:
+            assert st["step"] is None and st["restored"] is None and st["params"] is None
+            continue
+        assert st["step"] == 1 and st["opt_step"] == 2
         for k, v in st["restored"].items():
             np.testing.assert_array_equal(v, ranks[0]["jax_step"]["params"][k])
     rt = _runtime(_llama_cfg(), ShapeConfig("smoke_train", SEQ, BATCH, "train"))
