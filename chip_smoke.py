@@ -302,7 +302,8 @@ DECODE_CASES = [
 DECODE_INSTANTIATIONS = 75
 # flash_attention cases timed: the llama3.2-3b, zamba2-2.7b, qwen3-moe, qwen2-vl-72b,
 # musicgen-medium and nemotron-4-15b prefill shapes
-FA_TIMED = ("serve", "zamba2", "qwen3", "vlm", "audio", "nemotron")
+FA_TIMED = ("serve", "zamba2", "qwen3", "vlm", "audio", "nemotron", "seq_shard",
+            "seq_shard_llama")
 FEASIBILITY_INSTANTIATIONS = 1     # feasible_kernel
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # full-width depths, checked against each config before its run
@@ -440,6 +441,16 @@ def compare(out, ref, dtype: str, tol: float = None) -> float:
 # ---------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------- #
+def library_causal(sq: int, skv: int) -> dict:
+    """``scaled_dot_product_attention``'s causal mask with the query rows
+    aligned to the end of the keys, as the port's kernels align them:
+    ``is_causal`` where sq = skv, else the lower-right causal bias."""
+    if sq == skv:
+        return {"is_causal": True}
+    from torch.nn.attention.bias import causal_lower_right
+    return {"attn_mask": causal_lower_right(sq, skv)}
+
+
 def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
@@ -479,6 +490,13 @@ def phase_kernels(dev) -> dict:
         ("phi3", 8, 40, 10, 512, 512, 128, 0, "bfloat16", "bshd"),      # phi3-medium: group 4
         # phi3-medium as zero3_rank trains it: one row of 1024 a rank
         ("phi3_train", 1, 40, 10, 1024, 1024, 128, 0, "bfloat16", "bshd"),
+        # a model rank's shapes over a model axis of 2 (model_axis_rank): its
+        # 512 query rows against the 1024 keys of the prefix it attends
+        # (rank 1), phi3-medium's and llama3.2-3b's heads; rank 0's 512 keys
+        # as the prefix view of the gathered [2, b, 1024, kvh, d] buffer
+        ("seq_shard", 2, 40, 10, 512, 1024, 128, 0, "bfloat16", "bshd"),
+        ("seq_shard_llama", 2, 24, 8, 512, 1024, 128, 0, "bfloat16", "bshd"),
+        ("seq_shard_rank0", 2, 40, 10, 512, 512, 128, 0, "bfloat16", "kv_prefix"),
     ]
     fa = {}
     for name, b, h, kvh, sq, skv, d, window, dtype, layout in cases:
@@ -486,6 +504,10 @@ def phase_kernels(dev) -> dict:
             q = randn(b, sq, h, d, dtype=dtype).permute(0, 2, 1, 3)
             k = randn(b, skv, kvh, d, dtype=dtype).permute(0, 2, 1, 3)
             v = randn(b, skv, kvh, d, dtype=dtype).permute(0, 2, 1, 3)
+        elif layout == "kv_prefix":
+            q = randn(b, sq, h, d, dtype=dtype).permute(0, 2, 1, 3)
+            kv = randn(2, b, 2 * skv, kvh, d, dtype=dtype)[:, :, :skv]
+            k, v = kv[0].permute(0, 2, 1, 3), kv[1].permute(0, 2, 1, 3)
         else:
             q = randn(b, h, sq, d, dtype=dtype)
             k = randn(b, kvh, skv, d, dtype=dtype)
@@ -503,8 +525,9 @@ def phase_kernels(dev) -> dict:
             g = h // kvh
             ke, ve = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, ke, ve, is_causal=True), iters=20)
-            pairs = sq * (sq + 1) // 2                    # causal (q, k) pairs per head
+                q, ke, ve, **library_causal(sq, skv)), iters=20)
+            # causal (q, k) pairs per head, query rows aligned to the keys' end
+            pairs = sq * (skv - sq) + sq * (sq + 1) // 2
             flops = 4.0 * d * pairs * b * h
             nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
             t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
@@ -815,8 +838,11 @@ SSD_CASES = [  # name, (b, s, H, P, G, N, chunk), strided; timed at the serving 
     ("narrow", (2, 128, 8, 12, 2, 12, 32), True),          # N, P below one mma tile
     ("state10", (1, 64, 4, 8, 1, 10, 16), True),           # 4-byte copies of B and C
     ("chunk1", (1, 16, 4, 16, 1, 8, 1), False),
+    # mamba2-2.7b's scan as a model rank runs it over a model axis of 2
+    # (model_axis_rank): its 40 of 80 heads over the whole sequence
+    ("heads40", (2, 1024, 40, 64, 1, 128, 256), False),
 ]
-SSD_TIMED = ("mamba2", "zamba2")
+SSD_TIMED = ("mamba2", "zamba2", "heads40")
 SSD_SEEDS = range(100, 108)   # further draws at the timed shapes, for the margin
 SSD_KERNELS = ("ssd_scores_kernel", "ssd_chunk_kernel")   # the launches of one call
 SSD_SCAN = (2, 200, 16, 64, 1, 128, 64)         # ragged: 200 = 3 chunks of 64 + 8
@@ -938,8 +964,8 @@ def phase_ssm_kernels(dev) -> dict:
     emit("ssm_kernels", kernel="ssd_scan_op", case="ragged_init", shape=[b, s, H, P, G, N, Q],
          max_abs_err={"y": compare(y, ry, "float32", SSD_TOL),
                       "final_state": compare(h, rh, "float32", SSD_TOL)}, tol=SSD_TOL)
-    # the table's row is the mamba2 shape's, with zamba2's beside it
-    return dict(timed["mamba2"], zamba2=timed["zamba2"])
+    # the table's row is the mamba2 shape's, with zamba2's and heads40's beside it
+    return dict(timed["mamba2"], zamba2=timed["zamba2"], heads40=timed["heads40"])
 
 
 def ssd_bytes(b, s, H, P, G, N, Q) -> float:
@@ -1343,10 +1369,15 @@ BWD_CASES = [
     ("audio_train", (2, 24, 24, 1024, 1024, 64), 0, "bfloat16", "bshd"),
     # phi3-medium-14b's (40 heads, group 4) as zero3_rank trains it, one row a rank
     ("phi3_train", (1, 40, 10, 1024, 1024, 128), 0, "bfloat16", "bshd"),
+    # a model rank's attention over a model axis of 2 (model_axis_rank, rank
+    # 1): 512 query rows against the 1024-key prefix, phi3-medium's and
+    # llama3.2-3b's heads
+    ("seq_shard", (2, 40, 10, 512, 1024, 128), 0, "bfloat16", "bshd"),
+    ("seq_shard_llama", (2, 24, 8, 512, 1024, 128), 0, "bfloat16", "bshd"),
 ]
 # the cases timed beside their bounds (bwd_timing): llama's row goes into the
 # kernel table, the others are printed beside it
-BWD_TIMED = ("train", "qwen3_train", "vlm_train", "audio_train")
+BWD_TIMED = ("train", "qwen3_train", "vlm_train", "audio_train", "seq_shard", "seq_shard_llama")
 # of the largest |grad| of each output: in bf16 dq, dk and dv are rounded to
 # bf16 (as are o and dO, which both sides read); in fp32 only the order of
 # the sums differs (the plain version's einsums against the kernel's tiles)
@@ -1432,7 +1463,7 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
     bwd_rows = bwd_ptxas(ptxas)
     emit("train_kernels", ptxas=bwd_rows)
     gen = torch.Generator(device=dev).manual_seed(5)
-    timed = {}
+    timed, shards = {}, {}
     for name, (b, h, kvh, sq, skv, d), window, dtype, layout in BWD_CASES:
         q, k, v, dO = bwd_inputs(gen, dev, b, h, kvh, sq, skv, d, dtype, layout)
         o, lse = flash_attention(q, k, v, window=window, return_lse=True)
@@ -1481,6 +1512,8 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
                             if f"Li{d}E" in r["kernel"] and "mma" in r["kernel"]})
             if name == "train":
                 timed = row
+            elif name.startswith("seq_shard"):
+                shards[name] = row
         del q, k, v, dO, o, lse, grads, refs
 
     # the autograd path: attention_op on leaves that want a gradient runs
@@ -1504,7 +1537,7 @@ def phase_train_kernels(dev, ptxas: list) -> dict:
         errs.append(err)
     emit("train_kernels", kernel="attention_op", case="autograd_bf16_vs_plain_fp32",
          shape=[b, h, kvh, sq, skv, d], max_abs_err=errs, tol_of_largest=BWD_TOL["bfloat16"])
-    return timed
+    return dict(timed, **shards)
 
 
 def bwd_timing(q, k, v, o, lse, dO, err_share: float, case: str = "train") -> dict:
@@ -1528,7 +1561,8 @@ def bwd_timing(q, k, v, o, lse, dO, err_share: float, case: str = "train") -> di
     lq = q.detach().requires_grad_()
     lk = k.repeat_interleave(g, dim=1).detach().requires_grad_()
     lv = v.repeat_interleave(g, dim=1).detach().requires_grad_()
-    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv,
+                                                          **library_causal(sq, skv))
     lib_ms = device_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), dO, retain_graph=True),
                        iters=10)
     bound_ms, by, gflop, mbytes = bwd_bound(b, h, kvh, sq, skv, d, q.element_size())
@@ -1743,8 +1777,10 @@ SSD_BWD_CASES = [
     ("strided", SSD_BWD_TRAIN, True),
     ("state10", (1, 64, 4, 8, 1, 10, 16), True),
     ("chunk1", (1, 16, 4, 16, 1, 8, 1), False),
+    # a model rank's heads of mamba2-2.7b over a model axis of 2
+    ("heads40", (2, 1024, 40, 64, 1, 128, 256), False),
 ]
-SSD_BWD_TIMED = ("mamba2", "zamba2")
+SSD_BWD_TIMED = ("mamba2", "zamba2", "heads40")
 # what one ssd_chunk_bwd call launches
 SSD_BWD_KERNELS = ("ssd_scores_kernel", "ssd_bwd_head_kernel", "ssd_bwd_state_kernel",
                    "ssd_bwd_pair_kernel", "ssd_bwd_group_kernel", "ssd_bwd_gA_kernel")
@@ -1903,8 +1939,8 @@ def phase_ssm_train_kernels(dev, ptxas: list) -> dict:
               f"largest |value| from the recurrence's")
     emit("ssm_train_kernels", kernel="ssd_scan_op", case="autograd_vs_recurrence",
          shape=[b, s, H, P, G, N, Q], err_of_largest=errs, tol_of_largest=SSD_TOL)
-    # the table's row is the mamba2 training shape's, with zamba2's beside it
-    return dict(timed["mamba2"], zamba2=timed["zamba2"])
+    # the table's row is the mamba2 training shape's, with zamba2's and heads40's beside it
+    return dict(timed["mamba2"], zamba2=timed["zamba2"], heads40=timed["heads40"])
 
 
 def ssd_bwd_timing(inputs, outs, Q) -> dict:
@@ -2790,7 +2826,7 @@ def world1_checks(dev, t0: float) -> dict:
     kw = dict(smoke=False, shape=shape, steps=WORLD1_TRAIN["steps"],
               n_layers=WORLD1_TRAIN["n_layers"], device=dev, log_every=10 ** 9)
     cut = cut_config(ARCH, WORLD1_TRAIN["n_layers"])
-    want = {k: n * WORLD1_TRAIN["steps"] for k, n in per_step_collectives(cut).items()}
+    want = {k: n * WORLD1_TRAIN["steps"] for k, n in per_step_collectives(cut, (1, 1)).items()}
     torch.cuda.empty_cache()
     reset_launches()
     reset_collectives()
@@ -2800,7 +2836,7 @@ def world1_checks(dev, t0: float) -> dict:
     check(rt.device_mesh is not None and list(rt.device_mesh.shape) == [1, 1],
           "dist_world1: the runtime did not bind the process group's mesh")
     out.update(collectives=collectives, expected_collectives=want,
-               collectives_per_step=per_step_collectives(cut))
+               collectives_per_step=per_step_collectives(cut, (1, 1)))
     check(collectives == want, f"dist_world1: collectives {collectives}, expected {want}")
     with_pg = {n: t.cpu() for n, t in rt.params.items()}
     losses_pg = r["losses"]
@@ -2828,20 +2864,46 @@ def cut_config(arch: str, n_layers: int):
     return cut_depth(full_config(arch), n_layers)
 
 
-def per_step_collectives(cfg) -> dict:
-    """The Zero-3 gathers and reduce-scatters of one training step of a
-    dense model: each layer body gathers its attention's four matrices and
-    its MLP's two or three (the norms are whole), once in the forward and
-    once more when remat recomputes it; the embedding (or the tied table
-    twice) and the LM head are gathered where they are used, outside the
-    remat region; each gather of the forward is reduce-scattered once in
-    the backward. Times ``grad_accum``'s microbatches."""
-    check(cfg.family == "dense", f"{cfg.name}: collectives are counted for dense models")
-    per_layer = 4 + (3 if cfg.mlp_act == "swiglu" else 2)
-    fwd = cfg.n_layers * per_layer + 2
+def per_step_collectives(cfg, mesh=(1, 1)) -> dict:
+    """The collectives of one training step on a rank of a (data, model)
+    ``mesh``, reckoned from the specs and the layers (``COLLECTIVES``'
+    keys): each layer body gathers each of its leaves once for each
+    dimension the leaf's spec splits over axes of more than one rank, once
+    in the forward and once more when remat recomputes it; the embedding
+    and the LM head are gathered where they are used, outside the remat
+    region; each gather of the forward is reduce-scattered once in the
+    backward. With a model axis above 1, each attention gathers K and V
+    (one sequence gather) and each Mamba2 block B and C (one more), its
+    conv's halo (one) and three all-to-alls (x and dt to the heads, y
+    back), each again under remat, and each transposed once in the
+    backward. Times ``grad_accum``'s microbatches. Dense and Mamba2
+    models (the MoE layer's collectives depend on its routing)."""
+    from repro_torch.models.model import make_model
+    from repro_torch.models.transformer import _group_layout
+    from repro_torch.parallel.sharding import spec_axes
+
+    check(not cfg.is_moe, f"{cfg.name}: collectives are counted for dense and Mamba2 models")
+    sizes = dict(zip(("data", "model"), mesh))
+    model = make_model(cfg, device="meta")
+    psh = model.param_shardings()
+
+    def gathers(prefix):
+        return sum(sum(any(sizes.get(a, 1) > 1 for a in spec_axes(sh.spec, d))
+                       for d in range(len(sh.spec)))
+                   for n, sh in psh.items() if n.startswith(prefix))
+
+    groups, _ = _group_layout(cfg)
+    blocks = gathers("blocks.") * cfg.n_layers + gathers("shared.") * groups
+    outer = gathers("embed.")
+    r = 2 if cfg.remat else 1
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = {"ssm": 0, "hybrid": groups}.get(cfg.family, cfg.n_layers)
+    seq = attn + mamba if sizes["model"] > 1 else 0
+    halo = mamba if sizes["model"] > 1 else 0
     k = max(cfg.grad_accum, 1)
-    return {"gather": k * (fwd + (cfg.n_layers * per_layer if cfg.remat else 0)),
-            "reduce_scatter": k * fwd}
+    return {"gather": k * (r * blocks + outer), "reduce_scatter": k * (blocks + outer),
+            "seq_gather": k * r * seq, "seq_reduce_scatter": k * seq,
+            "halo": k * r * halo, "halo_grad": k * halo, "all_to_all": k * 3 * (r + 1) * halo}
 
 
 ZERO3_ARCH = "phi3-medium-14b"
@@ -2868,20 +2930,135 @@ def phase_zero3_rank(dev) -> dict:
         dist.destroy_process_group()
 
 
+# each model as one rank of a ("data", "model") world under the fake process
+# group: phi3-medium-14b at model coordinate 1 of (4, 2), so its attention
+# takes 512 query rows against a 1024-key prefix, three AdamW steps of 8 x
+# 1024; mamba2-2.7b at model coordinate 1 of (1, 2): the conv's halo, the
+# all-to-alls and the SSD kernels on 40 of 80 heads, two steps of 2 x 1024
+MODEL_AXIS = {"phi3-medium-14b": dict(world=8, model_axis=2, rank=1, seq=1024, batch=8,
+                                      steps=3),
+              "mamba2-2.7b": dict(world=2, model_axis=2, rank=1, seq=1024, batch=2, steps=2)}
+
+
+def phase_model_axis_rank(dev) -> dict:
+    """Each ``MODEL_AXIS`` model as one rank of a ("data", "model") mesh
+    with a model axis of 2, under the fake process group (``FakeStore``,
+    backend "fake": collectives that move nothing), every rank's device the
+    one card: ``ElasticRuntime(model_axis=2)`` binds the world and holds the
+    model at full width and depth in JAX's layout over both axes; its steps
+    run every layer on the rank's block of the sequence. Returns each run's
+    launch counts, by path."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    torch.cuda.set_device(dev.index or 0)
+    paths = {}
+    for arch, run in MODEL_AXIS.items():
+        dist.init_process_group("fake", store=FakeStore(), rank=run["rank"],
+                                world_size=run["world"])
+        try:
+            paths[f"train {arch} model axis rank"] = model_axis_checks(dev, arch, run)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def specs_held(model, mesh) -> int:
+    """The bytes of masters and both moments (fp32) a rank of a (data,
+    model) ``mesh`` holds by the specs: each leaf over the product of the
+    sizes of the axes its spec names."""
+    from repro_torch.parallel.sharding import spec_axes
+    sizes = dict(zip(("data", "model"), mesh))
+    psh = model.param_shardings()
+    return sum(3 * 4 * math.prod(shape) // math.prod(sizes.get(a, 1)
+                                                     for a in spec_axes(psh[name].spec))
+               for name, (shape, _) in model.param_shapes().items())
+
+
+def model_axis_checks(dev, arch: str, run: dict) -> dict:
+    """The body of ``phase_model_axis_rank`` for one model under its
+    process group: the bind, the bytes held, the steps, their collectives
+    and launches, the peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.graph import build_tpu_fleet
+    from repro_torch.core.scheduler import SchedulerInstance
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import COLLECTIVES, reset_collectives
+    from repro_torch.runtime.elastic import ElasticRuntime
+
+    t0 = time.perf_counter()
+    cfg = full_config(arch)
+    check(cfg.remat and cfg.optimizer == "adamw", f"{arch}: remat and AdamW")
+    world, m, seq, batch, steps = (run[k] for k in ("world", "model_axis", "seq", "batch",
+                                                    "steps"))
+    mesh_shape = [world // m, m]
+    fleet = build_tpu_fleet(pods=1, racks_per_pod=1, nodes_per_rack=max(world // 4, 1),
+                            chips_per_node=min(world, 4), device=dev)
+    rt = ElasticRuntime(SchedulerInstance("top", fleet), cfg,
+                        ShapeConfig("model_axis_rank", seq, batch, "train"), chip_type="chip",
+                        model_axis=m, opt=OptConfig(kind="adamw", warmup=5, total_steps=10),
+                        device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    check(rt.allocate(world), f"model_axis_rank: MATCHALLOCATE of {world} chips")
+    rt.bind(torch.Generator(device=dev).manual_seed(0))
+    mesh = rt.device_mesh
+    coord = [run["rank"] // m, run["rank"] % m]
+    check(mesh is not None and list(mesh.shape) == mesh_shape and rt.bound
+          and list(mesh.get_coordinate()) == coord,
+          f"model_axis_rank {arch}: bound mesh {None if mesh is None else list(mesh.shape)}")
+    held, expect = zero3_held(rt), specs_held(rt.model, mesh_shape)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, (batch, seq)),
+                "labels": rng.integers(0, cfg.vocab, (batch, seq))} for _ in range(steps)]
+    want = per_step_collectives(cfg, tuple(mesh_shape))
+    per_step = {k: v for k, v in per_step_launches(cfg).items() if v}
+    step_ms, collectives, launches = [], [], []
+    for b in batches:
+        reset_collectives()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rt.step(b)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        collectives.append(dict(COLLECTIVES))
+        launches.append({k: v for k, v in LAUNCHES.items() if v})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("model_axis_rank", arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=cfg.n_params(), mesh=mesh_shape, coordinate=coord, backend=dist.get_backend(),
+         seq_len=seq, global_batch=batch, block=[batch // mesh_shape[0], seq // m],
+         steps=steps, held_bytes=held, held_bytes_from_specs=expect, held_gb=held / 1e9,
+         peak_mem_gb=peak_gb, step_ms=step_ms, step_ms_median=statistics.median(step_ms[1:]),
+         collectives_per_step=collectives, expected_collectives=want,
+         launches_per_step=launches, expected_launches=per_step, init_s=init_s,
+         wall_s=time.perf_counter() - t0,
+         note="fake process group: the step time has no communication in it and the "
+              "values are not checked (the collectives write nothing)")
+    check(held == expect, f"model_axis_rank {arch}: holds {held} bytes, the specs give {expect}")
+    check(peak_gb < 80.0, f"model_axis_rank {arch}: peak memory {peak_gb} GB")
+    check(all(c == want for c in collectives),
+          f"model_axis_rank {arch}: collectives {collectives}, expected {want} a step")
+    check(all(n == per_step for n in launches),
+          f"model_axis_rank {arch}: launches {launches}, expected {per_step} a step")
+    del rt
+    torch.cuda.empty_cache()
+    return {k: v * steps for k, v in per_step.items()}
+
+
 def zero3_held(rt) -> int:
     """The bytes of masters and moments this rank holds."""
     leaves = list(rt.params.values()) + list(rt.opt_state.mu.values()) \
         + list(rt.opt_state.nu.values())
     return sum(t.numel() * t.element_size() for t in leaves)
-
-
-def zero3_expected(model, n: int) -> int:
-    """The bytes reckoned from the specs: masters and both moments fp32,
-    1/n of each leaf split over "data"."""
-    from repro_torch.parallel.sharding import data_dim
-    psh = model.param_shardings()
-    return sum(3 * 4 * (math.prod(shape) // (n if data_dim(psh[name].spec) is not None else 1))
-               for name, (shape, _) in model.param_shapes().items())
 
 
 def zero3_checks(dev) -> dict:
@@ -2915,13 +3092,13 @@ def zero3_checks(dev) -> dict:
     mesh = rt.device_mesh
     check(mesh is not None and list(mesh.shape) == [n, 1] and rt.bound,
           f"zero3_rank: bound mesh {None if mesh is None else list(mesh.shape)}")
-    held, expect = zero3_held(rt), zero3_expected(rt.model, n)
+    held, expect = zero3_held(rt), specs_held(rt.model, (n, 1))
     whole = 16 * cfg.n_params()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     batches = [{"tokens": rng.integers(0, cfg.vocab, (batch, seq)),
                 "labels": rng.integers(0, cfg.vocab, (batch, seq))} for _ in range(steps + 1)]
-    want = per_step_collectives(cfg)
+    want = per_step_collectives(cfg, (n, 1))
 
     def timed_step(b):
         reset_collectives()
@@ -2951,7 +3128,7 @@ def zero3_checks(dev) -> dict:
         ok = act()
         torch.cuda.synchronize()
         row = dict(rebind=name, ok=ok, mesh=list(rt.device_mesh.shape), s=time.perf_counter() - t,
-                   held_bytes=zero3_held(rt), held_bytes_from_specs=zero3_expected(rt.model, m),
+                   held_bytes=zero3_held(rt), held_bytes_from_specs=specs_held(rt.model, (m, 1)),
                    allocated_before_gb=before_gb,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
@@ -3184,6 +3361,7 @@ def drive(dev, smi: str, ptxas: list) -> None:
     torch.cuda.empty_cache()
     paths[f"train {ZERO3_ARCH} zero3 rank"] = phase_zero3_rank(dev)
     torch.cuda.empty_cache()
+    paths.update(phase_model_axis_rank(dev))
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

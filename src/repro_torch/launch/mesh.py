@@ -31,7 +31,9 @@ def make_mesh_for(n_devices: int, model_axis: int = 1, device_type: Optional[str
     ``[0, n_devices)`` gets the mesh back with no coordinate
     (``mesh.get_coordinate()`` is None). The groups live until the world
     is destroyed, so a caller that rebinds keeps one mesh for each n (as
-    ``ElasticRuntime`` does). ``device_type`` defaults to the default
+    ``ElasticRuntime`` does). Where both axes have more than one rank the
+    mesh also carries ``flat_group``, the group of its n ranks in rank
+    order (``parallel.sharding.axis_group``), built here alike. ``device_type`` defaults to the default
     group's: "cuda" under NCCL, "cpu" otherwise."""
     if not dist.is_available() or not dist.is_initialized():
         if n_devices != 1:
@@ -45,4 +47,10 @@ def make_mesh_for(n_devices: int, model_axis: int = 1, device_type: Optional[str
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     ranks = torch.arange(n_devices).reshape(n_devices // model_axis, model_axis)
-    return DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
+    mesh = DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
+    if 1 < model_axis < n_devices:
+        # the flattened ("data", "model") group, for a dimension split over
+        # both axes: its rank i is world rank i, coordinate (i // m, i % m),
+        # so its rank order is JAX's block order coord_data * m + coord_model
+        mesh.flat_group = dist.new_group(list(range(n_devices)))
+    return mesh

@@ -5,7 +5,9 @@ The port of ``repro/models/layers.py``. The JAX layers take a
 ``ShardingCtx`` for their activation constraints, hints to GSPMD that
 change no value; the port has no GSPMD and drops them. The parameters'
 specs keep JAX's logical axes, from which the model lays them out over a
-mesh (``models/model.py``). Attention goes through the port's kernels
+mesh (``models/model.py``). Where the sequence is split over "model"
+(``sp``), attention is the one layer that needs other ranks' positions:
+it gathers K and V (``gather_seq``). Attention goes through the port's kernels
 (``kernels/ops.py``): prefill through ``flash_attention``, cached decode
 through ``flash_decode``.
 """
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import attention_op, decode_attention_op
-from ..parallel.sharding import gathered
+from ..parallel.sharding import SeqShards, gather_seq, gathered
 from .config import ArchConfig
 
 
@@ -129,11 +131,17 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
               cache: Optional[Dict] = None,
               cache_index: Optional[int] = None,
               window: int = 0,
-              want_cache: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+              want_cache: bool = False,
+              sp: Optional[SeqShards] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.
 
     Prefill: ``x`` is [b, s, e], cache is None; with ``want_cache`` the
-    fresh k/v [b, s, kvh, d] come back as the cache.
+    fresh k/v [b, s, kvh, d] come back as the cache. Under a sequence
+    split ``sp`` x is model rank r's block of s positions (r s onward):
+    K and V are gathered over "model" (the backward reduce-scatters their
+    gradients) and the rank attends the prefix [0, (r+1) s), whose last s
+    keys are its own, so the kernel's causal mask, aligned to the end of
+    the keys, is the mask at positions r s + i.
     Decode: ``x`` is [b, 1, e]; ``cache`` holds this layer's k/v
     [b, S, kvh, d] (bf16), which the new k/v are written into IN PLACE
     at ``cache_index``. Row i attends cache positions <= positions[i, 0]
@@ -175,6 +183,9 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     else:
         if want_cache:
             new_cache = {"k": k, "v": v}
+        if sp is not None:
+            kv = gather_seq(torch.stack([k, v]), 2, sp)[:, :, :(sp.rank + 1) * s]
+            k, v = kv[0], kv[1]
         o = attention_op(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
                          v.permute(0, 2, 1, 3), causal=True, window=window)
     o = o.permute(0, 2, 1, 3).reshape(b, s, h * d)

@@ -12,6 +12,15 @@ calls its pure-jnp ``ssd_chunked`` and XLA differentiates it; decode is
 the O(1) recurrent step. The JAX layer's sharding constraints are no-ops without
 a mesh and are dropped.
 
+Where the sequence is split over "model" (``sp``: m ranks, each a block of
+s/m positions) the block does explicitly what JAX's constraints make
+GSPMD do (``repro/models/mamba2.py:167-202``): the conv takes the K - 1
+positions before the block from the previous rank (``halo_prev``); x and
+dt go by all-to-all to every position of the rank's H/m heads (its slice
+of ``A_log``, ``D``), B and C (JAX's compact G-form) are gathered whole,
+the scan runs there, and y comes back to the rank's positions by the
+inverse all-to-all; the gate and ``out_norm`` act on the whole d_inner.
+
 Layout: x [b, s, H, P] (heads H = d_inner / headdim, P = headdim),
 B/C [b, s, G, N] (G groups, N = ssm_state), dt/A per head.
 """
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import ssd_scan_op
+from ..parallel.sharding import SeqShards, gather_seq, halo_prev, heads_to_seq, seq_to_heads
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -52,10 +62,12 @@ def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
     return zxbcdt.split([di, di, G * N, G * N, cfg.ssm_heads], dim=-1)
 
 
-def _conv1d(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over seq: u [b, s, c], w [K, c]."""
+def _conv1d(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+            halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv over seq: u [b, s, c], w [K, c]; ``halo`` [b,
+    K-1, c], the positions before u's first (zeros where None)."""
     K, s = w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, K - 1, 0))
+    pad = F.pad(u, (0, 0, K - 1, 0)) if halo is None else torch.cat([halo, u], dim=1)
     out = torch.zeros_like(u)
     for i in range(K):
         out = out + pad[:, i:i + s, :] * w[i]
@@ -74,14 +86,42 @@ def _split_conv(conv: torch.Tensor, cfg: ArchConfig):
     return conv[..., :di], conv[..., di:di + GN], conv[..., di + GN:]
 
 
+def _head_groups(H: int, G: int, sp: SeqShards) -> slice:
+    """The groups of B and C that model rank r's heads [r H/m, (r+1) H/m)
+    read (head h reads group h // (H / G))."""
+    Hl, rep = H // sp.n, H // G
+    if Hl % rep and rep % Hl:
+        raise ValueError(f"{H} heads over {sp.n} model ranks split groups of {rep} heads")
+    first = sp.rank * Hl // rep
+    return slice(first, first + max(Hl // rep, 1))
+
+
+def _scan_heads(xh: torch.Tensor, dtp: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                BC: torch.Tensor, cfg: ArchConfig, sp: SeqShards) -> torch.Tensor:
+    """The SSD scan and the D residual of the rank's positions xh [b, s/m,
+    H, P], dtp [b, s/m, H] and BC [b, s/m, 2 G N] (B, then C), run on the
+    rank's heads over the whole sequence; y [b, s/m, H, P] fp32."""
+    b, sl = xh.shape[:2]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    heads = slice(sp.rank * H // sp.n, (sp.rank + 1) * H // sp.n)
+    groups = _head_groups(H, G, sp)
+    xs, dts = seq_to_heads(xh, sp), seq_to_heads(dtp, sp)       # [b, s, H/m, ...]
+    BCs = gather_seq(BC, 1, sp).view(b, sl * sp.n, 2, G, N)[:, :, :, groups]
+    y = ssd_scan_op(xs, dts, A[heads], BCs[:, :, 0], BCs[:, :, 1], cfg.ssm_chunk)
+    y = y + xs * D[heads][None, None, :, None]
+    return heads_to_seq(y, sp)
+
+
 def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
                 state: Optional[Dict] = None,
-                want_state: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+                want_state: bool = False,
+                sp: Optional[SeqShards] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One Mamba2 block. Prefill when ``state is None`` (``want_state``
     returns the final recurrent state); otherwise a single-token recurrent
     decode step (x: [b, 1, e]) from ``state`` {"conv" [b, K-1, conv_dim],
     "ssm" [b, H, P, N]}, returning the new state in the dtypes of the old
-    (fp32 in the model's cache)."""
+    (fp32 in the model's cache). ``sp``: the sequence split of a training
+    step, x being this rank's block of positions (no state then)."""
     b, s, _ = x.shape
     cdt = x.dtype
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
@@ -94,7 +134,15 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     D = p["D"].float()
 
     new_state = None
-    if state is None:
+    if state is None and sp is not None:
+        if want_state:
+            raise ValueError("a prefill state binds no mesh: serving runs on one device")
+        conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
+                       halo_prev(conv_in, CONV_K - 1, sp))
+        xh = conv[..., :cfg.d_inner].reshape(b, s, H, P).float()
+        y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp)
+        y = y.reshape(b, s, cfg.d_inner).to(cdt)
+    elif state is None:
         conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
         xc, Bc, Cc = _split_conv(conv, cfg)
         xh = xc.reshape(b, s, H, P).float()

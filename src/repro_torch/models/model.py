@@ -23,12 +23,17 @@ a cached cast would be detached from the graph and stale after the
 update. The optimizer (``optim/adamw.py``) updates the masters in place.
 
 Under a mesh (``ctx``) the model holds JAX's Zero-3 layout: each leaf is
-this rank's shard (``param_shardings``: "fsdp" over "data"; the norms,
-the router, the conv weights, ``A_log``, ``D`` and ``dt_bias`` whole),
-and the optimizer state mirrors it (``opt_shardings``). A training step
+this rank's shard (``param_shardings``: "fsdp" over "data", "tp",
+"vocab" and "expert" over "model", "fsdp2d" over both; the norms, the
+router, the conv weights, ``A_log``, ``D`` and ``dt_bias`` whole), and
+the optimizer state mirrors it (``opt_shardings``). A training step
 hands the layers each split leaf as a ``Sharded``, which the layer body
-gathers where it uses it (``models/transformer.py``); the gradients come
-back as shards, summed over "data" by the gathers' reduce-scatters.
+gathers where it uses it (``models/transformer.py``; the experts of
+``moe_a2a`` keep their split over "model", each rank running its own);
+the gradients come back as shards, summed over the gathers' axes by
+their reduce-scatters. The step's batch is this rank's block of the
+global one: its rows over "data" and, where the "model" axis has more
+than one rank, its positions over "model" (``input_shardings``).
 Serving binds no mesh, as JAX's ``run_serving``.
 """
 from __future__ import annotations
@@ -39,12 +44,13 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..optim.adamw import (DataShards, OptConfig, OptState, apply_updates, init_opt_state,
+from ..optim.adamw import (LeafShards, OptConfig, OptState, apply_updates, init_opt_state,
                            opt_state_specs)
-from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, data_dim, gather_full,
-                                 mesh_shape, shard_shape)
+from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, gather_splits, shard_shape,
+                                 splits_of)
 from .config import ArchConfig, ShapeConfig
 from .layers import ParamSpec
+from .moe import a2a_shards
 from .transformer import (cache_shardings, decode_step, forward, init_cache_specs, init_specs,
                           loss_fn)
 
@@ -176,24 +182,16 @@ class Model(nn.Module):
         """The decode cache's layout, None without a mesh."""
         return cache_shardings(self.cfg, self.ctx)
 
-    def data_shards(self) -> DataShards:
-        """The masters' layout over "data": each leaf's split dimension and,
-        under a mesh, the group and its size."""
-        dims = {n: data_dim(sh.spec) for n, sh in self.param_shardings().items()}
-        mesh = self.ctx.mesh
-        if mesh is None:
-            return DataShards(dims)
-        return DataShards(dims, mesh.get_group("data"), mesh_shape(mesh)["data"])
+    def shards(self) -> LeafShards:
+        """The masters' layout over the mesh: each leaf's spec and the mesh."""
+        return LeafShards({n: sh.spec for n, sh in self.param_shardings().items()},
+                          self.ctx.mesh)
 
     def gather(self, t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
-        """The whole leaf from this rank's shard ``t`` (a collective over
-        "data" where the leaf is split there), built in place with a
-        buffer of one shard's size (``gather_full``'s ``pieces``)."""
-        d = data_dim(sharding.spec)
-        if sharding.mesh is None or d is None:
-            return t
-        n = mesh_shape(sharding.mesh)["data"]
-        return gather_full(t, d, sharding.mesh.get_group("data"), n, pieces=n)
+        """The whole leaf from this rank's shard ``t`` (a collective over the
+        axes of each split dimension), built in place with a buffer of one
+        shard's size (``gather_full``'s ``pieces``)."""
+        return gather_splits(t, splits_of(sharding.spec, sharding.mesh), pieces=True)
 
     def full_params(self, keep: bool = True) -> Optional[Dict[str, torch.Tensor]]:
         """A copy of the whole masters on the host, gathered one leaf at a
@@ -295,31 +293,31 @@ class Model(nn.Module):
     def _step_tree(self, leaves: Dict[str, torch.Tensor]) -> Dict:
         """The parameter tree a step's layers take, from its leaves: under a
         mesh each split leaf as a ``Sharded`` (gathered by the layer that
-        uses it), then the compute-dtype casts of ``_cast``."""
+        uses it), then the compute-dtype casts of ``_cast``. The experts of
+        ``moe_a2a`` keep their split over "model" (``moe.a2a_shards``)."""
         cdt = getattr(torch, self.cfg.dtype)
-        if self.ctx.mesh is not None:
-            shards = self.data_shards()
-            sizes = mesh_shape(self.ctx.mesh)
+        mesh = self.ctx.mesh
+        if mesh is not None:
+            keep_model = a2a_shards(self.cfg, mesh) > 1
+            specs = self.param_specs()
             for name, sh in self.param_shardings().items():
-                others = [a for p in sh.spec if p for a in ((p,) if isinstance(p, str) else p)
-                          if a != "data" and sizes[a] > 1]
-                if others:
-                    raise NotImplementedError(
-                        f"{name} is split over {others}: a model axis above 1 is not ported")
-                d = shards.dims[name]
-                if d is not None:
-                    leaves[name] = Sharded(leaves[name], d, shards.group, shards.n,
-                                           leaves[name].dtype)
+                splits = splits_of(sh.spec, mesh)
+                if keep_model and "expert" in specs[name].axes:
+                    splits = tuple(s for s in splits if s.axes != ("model",))
+                if splits:
+                    leaves[name] = Sharded(leaves[name], splits, leaves[name].dtype)
         tree = _unflatten(leaves)
         return {name: _cast(tree[name], cdt) for name in self.parts}
 
-    def _value_and_grad(self, batch: Dict[str, torch.Tensor], group=None):
+    def _value_and_grad(self, batch: Dict[str, torch.Tensor]):
         """(loss, {name: grad}) of ``loss_fn`` at the current masters. The
         leaves are the masters themselves (detached aliases), or with
         ``cfg.bf16_grads`` copies of the fp32 ones in the compute dtype,
         whose gradients come back in that dtype (JAX's
         ``_value_and_grad``). The compute-dtype casts of the weight
-        matrices are made inside the graph, from those leaves."""
+        matrices are made inside the graph, from those leaves. Under a mesh
+        the loss and the gradients are this rank's parts (``loss_fn``),
+        which the caller sums over the mesh."""
         cdt = getattr(torch, self.cfg.dtype)
         leaves = {}
         for name, p in self.masters().items():
@@ -328,27 +326,26 @@ class Model(nn.Module):
                 leaf = leaf.to(cdt)
             leaves[name] = leaf.requires_grad_()
         params = self._step_tree(dict(leaves))
-        loss = loss_fn(params, self.cfg, batch, group)
+        loss = loss_fn(params, self.cfg, batch, self.ctx)
         # a stub frontend's model never reads its embedding table: its
         # gradient is zeros, as JAX's
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         return loss.detach(), {name: torch.zeros_like(leaf) if g is None else g
                                for (name, leaf), g in zip(leaves.items(), grads)}
 
-    def value_and_grad(self, batch: Dict[str, torch.Tensor], group=None):
+    def value_and_grad(self, batch: Dict[str, torch.Tensor]):
         """(loss, {name: grad}) of a step's batch. With ``cfg.grad_accum``
         k > 1 the batch is split into k microbatches whose gradients are
         summed in fp32 and divided by k, and the loss is their mean (JAX's
-        ``train_step``). ``group``: the data-parallel group when the batch
-        is this rank's rows of a global one, microbatch i its rows of the
-        global microbatch i (``loss_fn``)."""
+        ``train_step``). Under a mesh the batch is this rank's block of a
+        global one, microbatch i its rows of the global microbatch i."""
         k = self.cfg.grad_accum
         if k <= 1:
-            return self._value_and_grad(batch, group)
+            return self._value_and_grad(batch)
         micro = {n: t.reshape((k, t.shape[0] // k) + t.shape[1:]) for n, t in batch.items()}
         grads, losses = {}, []
         for i in range(k):
-            loss, g = self._value_and_grad({n: t[i] for n, t in micro.items()}, group)
+            loss, g = self._value_and_grad({n: t[i] for n, t in micro.items()})
             losses.append(loss)
             for name, gi in g.items():
                 if name in grads:
@@ -361,20 +358,19 @@ class Model(nn.Module):
         return torch.stack(losses).mean(), grads
 
     def train_step(self, opt_state: OptState, batch: Dict[str, torch.Tensor],
-                   reduce: Optional[Callable] = None, group=None):
+                   reduce: Optional[Callable] = None):
         """One optimizer step on ``batch`` ({"tokens", "labels"} [b, s] on
         the model's device; a stub frontend's {"embeds" [b, s, e],
         "labels"}): updates the masters and the moments in place
         and returns (opt_state, {"loss": loss}). ``reduce(loss, grads)``,
         if given, returns the (loss, grads) the optimizer takes: across
-        ranks, their mean over the data-parallel group ``group``, over
-        which the batch is split (``value_and_grad``)."""
+        ranks, this rank's parts summed over the mesh into the global
+        batch's mean (``ElasticRuntime._mean_over_data``)."""
         self._compute = None                 # the serving cast is stale after the step
-        loss, grads = self.value_and_grad(batch, group)
+        loss, grads = self.value_and_grad(batch)
         if reduce is not None:
             loss, grads = reduce(loss, grads)
-        opt_state = apply_updates(self.masters(), grads, opt_state, self.opt,
-                                  self.data_shards())
+        opt_state = apply_updates(self.masters(), grads, opt_state, self.opt, self.shards())
         return opt_state, {"loss": loss}
 
     @torch.no_grad()

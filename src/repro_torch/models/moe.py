@@ -26,6 +26,14 @@ collectives (``group_exchange``, each rank holding one shard), the
 identity at one shard without a mesh (JAX's runtime always binds a mesh,
 so on one device it runs this body), or ``loopback_exchange``, which runs
 n_sh shards in one process.
+
+Inside the model (``moe``) each rank holds its block of the batch, rows
+over "data" and positions over "model": ``moe_a2a`` runs there over the
+"model" group with the rank's own experts; where JAX falls back to the
+dispatch (E % n_sh nonzero, or ``moe_impl="dispatch"``) the dispatch
+plans the tokens of the whole mesh in their global order, as GSPMD's
+partitioned ``moe_dispatch`` does, and splits its capacity over the
+mesh's ranks.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..parallel.sharding import all_gather_flat, mesh_shape, reduce_scatter_flat
+from ..parallel.sharding import all_gather_flat, axis_group, mesh_shape, reduce_scatter_flat
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -143,17 +151,22 @@ def moe_dense(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     return y.reshape(b, s, e)
 
 
-def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch.Tensor:
+def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None,
+                 seq_ranks: int = 1) -> torch.Tensor:
     """Capacity-based scatter dispatch (see the module docstring).
 
-    ``group``: the data-parallel process group when each of its ranks holds
-    its rows of the batch (in rank order). JAX's dispatch under a mesh is
+    ``group``: the process group over whose ranks the batch is split, each
+    holding its block: rows over the group's ranks in order, and with
+    ``seq_ranks`` m > 1 the sequence over each m consecutive ranks too
+    (rank i holds rows block i // m, positions block i % m: a ("data",
+    "model") mesh's flattened group). JAX's dispatch under a mesh is
     partitioned by GSPMD and keeps its global meaning: the capacity comes
     from the global T and the pairs are ranked over every rank's tokens
     (``repro/models/moe.py:95-114``), and the [E, C, e] buffer's C is split
     over "data" (``constrain(..., "expert", "expert_cap", "embed")``). So
     the expert ids are gathered over the group and the global batch's plan
-    is made; rank r of n owns slots [r C/n, (r+1) C/n) of every expert (C
+    is made, over the tokens in their global (row, position) order; rank r
+    of n owns slots [r C/n, (r+1) C/n) of every expert (C
     padded up to a multiple of n with empty slots, as GSPMD pads the
     constraint's split) and runs the experts over its [E, C/n, e] buffer
     alone. Each kept pair's row travels to the rank that owns its slot and
@@ -165,7 +178,7 @@ def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch
     gates, ids = _route(xn, p, cfg)                                     # [T, k]
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     if group is not None and dist.get_world_size(group) > 1:
-        y = _dispatch_split(xn, gates, ids, tok, p, cfg, group)
+        y = _dispatch_split(xn, gates, ids, tok, p, cfg, group, (b, s, seq_ranks))
     else:
         plan = dispatch_plan(ids, cfg)
         C, kept, dest = plan.capacity, plan.keep, plan.dest
@@ -181,15 +194,32 @@ def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch
     return y.reshape(b, s, e)
 
 
+def _global_order(n: int, block: Tuple[int, int, int], device) -> torch.Tensor:
+    """The index, in the ranks' concatenated tokens, of each token of the
+    global batch in (row, position) order, for n ranks each holding a block
+    (b, s, m) of b rows and s positions, m ranks to a sequence."""
+    b, s, m = block
+    return torch.arange(n * b * s, device=device).view(n // m, m, b, s).transpose(1, 2).reshape(-1)
+
+
 def _dispatch_split(xn: torch.Tensor, gates: torch.Tensor, ids: torch.Tensor,
-                    tok: torch.Tensor, p: Dict, cfg: ArchConfig, group) -> torch.Tensor:
+                    tok: torch.Tensor, p: Dict, cfg: ArchConfig, group,
+                    block: Tuple[int, int, int]) -> torch.Tensor:
     """``moe_dispatch`` with the buffer's capacity split over the n ranks
-    of ``group``: y [T, e] of this rank's tokens before the shared expert."""
+    of ``group``, each holding a ``block`` (b, s, m) of the batch
+    (``_global_order``): y [T, e] of this rank's tokens before the shared
+    expert."""
     T, e = xn.shape
     E, k, cdt = cfg.n_experts, cfg.top_k, xn.dtype
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    fid = _gather_rows(ids, group).reshape(-1)                          # [n T k]
-    plan = dispatch_plan(fid.view(n * T, k), cfg)
+    fid = _gather_rows(ids, group).reshape(-1)                          # [n T k], by rank
+    order = _global_order(n, block, ids.device)
+    plan = dispatch_plan(fid.view(n * T, k)[order], cfg)
+    # the plan of the global order, back in the ranks' order
+    keep, dest = torch.empty_like(plan.keep), torch.empty_like(plan.dest)
+    keep.view(n * T, k)[order] = plan.keep.view(n * T, k)
+    dest.view(n * T, k)[order] = plan.dest.view(n * T, k)
+    plan = DispatchPlan(keep, dest, plan.capacity)
     C = plan.capacity
     Cl = -(-C // n)                                   # a rank's slots of each expert
     slot = plan.dest - fid * C                        # the pair's slot in its expert
@@ -521,22 +551,18 @@ def moe_shard_params(p: Dict, cfg: ArchConfig, model: Tuple[int, int],
     return out
 
 
-def _check_shards(s: int, cfg: ArchConfig, n_sh: int, sizes) -> None:
-    if not n_sh or s % n_sh or cfg.n_experts % n_sh:
-        raise NotImplementedError(
-            f"moe_a2a under a mesh {sizes} at s {s}, {cfg.n_experts} experts: JAX falls back "
-            "to the GSPMD-sharded moe_dispatch there (repro/models/moe.py:165-174), which is "
-            "not ported")
-
-
 def moe_shard_input(x: torch.Tensor, cfg: ArchConfig, model: Tuple[int, int],
                     data: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Rank (d, m)'s slice of x [b, s, e] (JAX's ``x_spec``): its batch rows
-    over "data", its sequence positions over "model". Raises where JAX
-    falls back to the dispatch (s % n_sh or E % n_sh nonzero)."""
+    over "data", its sequence positions over "model". Where s % n_sh is
+    nonzero GSPMD splits the sequence unevenly, which the port's blocks do
+    not: it raises there."""
     b, s, _ = x.shape
     (m, n_sh), (d, D) = model, data
-    _check_shards(s, cfg, n_sh, {"data": D, "model": n_sh})
+    if s % n_sh:
+        raise NotImplementedError(
+            f"a sequence of {s} over {n_sh} model shards: JAX's GSPMD splits it unevenly "
+            "(repro/models/moe.py:165-174), the port's equal blocks do not")
     if b % D:
         raise ValueError(f"batch {b} does not split over {D} data ranks")
     return x[d * b // D:(d + 1) * b // D, m * s // n_sh:(m + 1) * s // n_sh]
@@ -557,14 +583,16 @@ def moe_a2a(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None) -> torch.Tensor
     exchanges are the mesh's collectives; under ``moe_ep2d`` the buffers
     are also gathered and reduce-scattered over "data". Where JAX falls
     back to ``moe_dispatch`` under a mesh (``repro/models/moe.py:165-174``:
-    no "model" axis, s % n_sh or E % n_sh nonzero) GSPMD shards the
-    dispatch, which the port does not have: it raises there."""
+    no "model" axis, or E % n_sh nonzero) p holds every expert and the
+    dispatch plans the mesh's tokens (``moe_dispatch`` over the mesh's
+    flattened group), as GSPMD's partitioned dispatch does."""
     n_sh, exchange, data = 1, _identity, None
     mesh = None if ctx is None else ctx.mesh
     if mesh is not None:
         sizes = mesh_shape(mesh)
         n_sh = sizes.get("model", 0)
-        _check_shards(x.shape[1] * n_sh, cfg, n_sh, sizes)
+        if not n_sh or cfg.n_experts % n_sh:
+            return moe_dispatch(x, p, cfg, *_token_group(mesh))
         exchange = group_exchange(mesh.get_group("model"))
         if cfg.moe_ep2d and "data" in sizes:
             data = (mesh.get_group("data"), sizes["data"])
@@ -581,15 +609,53 @@ def add_shared(y: torch.Tensor, x: torch.Tensor, p: Dict, cfg: ArchConfig) -> to
     return y + _shared(xn, p, cfg).view(b, s, e)
 
 
-def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None) -> torch.Tensor:
-    """The layer ``cfg.moe_impl`` names. ``group`` is the data-parallel
-    group over whose ranks the batch is split: the dispatch ranks its pairs
-    over the global batch and splits its buffer's capacity over the group
-    (``moe_dispatch``); the dense oracle couples no
-    tokens, and ``moe_a2a`` at one model shard ranks a rank's own tokens,
-    as JAX's ``shard_map`` body does."""
+def _token_group(mesh) -> Tuple[object, int]:
+    """(the group over which a mesh splits the batch, the ranks to a
+    sequence): the flattened ("data", "model") group, whose consecutive
+    "model" ranks hold one sequence's blocks."""
+    group, _ = axis_group(mesh, ("data", "model"))
+    return group, mesh_shape(mesh).get("model", 1)
+
+
+def a2a_shards(cfg: ArchConfig, mesh) -> int:
+    """The model shards ``moe`` runs ``moe_a2a`` over under ``mesh``: its
+    "model" axis's size where the layer is ``"a2a"`` and E divides by it
+    (each rank then runs its own E / n_sh experts, whose split over "model"
+    the model keeps), else 1."""
+    m = 1 if mesh is None else mesh_shape(mesh).get("model", 1)
+    return m if cfg.moe_impl == "a2a" and m > 1 and cfg.n_experts % m == 0 else 1
+
+
+def _f_slice(p: Dict, cfg: ArchConfig, mesh) -> Dict:
+    """Under ``moe_ep2d``, data rank d's slice of each expert's f (JAX's
+    ``wu_spec`` / ``wd_spec``) from the rank's experts whole over "data"."""
+    sizes = mesh_shape(mesh)
+    D = sizes.get("data", 1)
+    if not cfg.moe_ep2d or D == 1:
+        return p
+    d = mesh.get_coordinate()[list(mesh.mesh_dim_names).index("data")]
+    f = slice(d * cfg.expert_ff // D, (d + 1) * cfg.expert_ff // D)
+    return {**p, "w_up": p["w_up"][:, :, f], "w_gate": p["w_gate"][:, :, f],
+            "w_down": p["w_down"][:, f]}
+
+
+def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None) -> torch.Tensor:
+    """The layer ``cfg.moe_impl`` names, on this rank's block of the batch
+    under ``ctx``'s mesh. The dense oracle couples no tokens. ``moe_a2a``
+    runs over the "model" group where the mesh's "model" axis has n_sh > 1
+    ranks and E divides by it (p then holds the rank's E / n_sh experts,
+    ``a2a_shards``; under ``moe_ep2d`` their f is sliced over "data" here),
+    and at one model shard on the rank's own tokens, as JAX's ``shard_map``
+    body does. The dispatch, and ``moe_a2a`` where JAX falls back to it,
+    ranks its pairs over the mesh's tokens in their global order and splits
+    its buffer's capacity over the mesh (``moe_dispatch``)."""
     if cfg.moe_impl == "dense":
         return moe_dense(x, p, cfg)
-    if cfg.moe_impl == "a2a":
+    mesh = None if ctx is None else ctx.mesh
+    if cfg.moe_impl == "a2a" and a2a_shards(cfg, mesh) > 1:
+        return moe_a2a(x, _f_slice(p, cfg, mesh), cfg, ctx)
+    if cfg.moe_impl == "a2a" and (mesh is None or mesh_shape(mesh).get("model", 1) == 1):
         return moe_a2a(x, p, cfg)
-    return moe_dispatch(x, p, cfg, group)
+    if mesh is None:
+        return moe_dispatch(x, p, cfg)
+    return moe_dispatch(x, p, cfg, *_token_group(mesh))

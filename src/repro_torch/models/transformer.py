@@ -25,6 +25,15 @@ gathered weight is kept between the forward and the backward. Each
 gather's backward reduce-scatters that use's gradient. The hybrid's
 shared block is gathered at each application.
 
+Under a mesh whose "model" axis has m > 1 ranks (``ctx``), each rank's
+residual stream is its rows and its block of m of the sequence, [b/data,
+s/m, e], at every layer (JAX's ``constrain(x, "batch", "seq",
+"embed")``): positions start at r s/m on model rank r, attention gathers
+K and V over "model", the Mamba2 block takes its conv's halo from rank r
+- 1 and runs the SSD scan on its heads over the whole sequence, the MoE
+layer runs on the mesh (``moe.moe``), and the loss is this rank's part of
+the global token mean.
+
 The audio and vision frontends are stubs, as in JAX: those models take
 precomputed frame or patch embeddings [b, s, e] (``embeds``) in place of
 tokens. qwen2-vl rotates by M-RoPE over [3, b, s] position streams;
@@ -39,7 +48,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import ShardingCtx, gather_tree
+from ..parallel.sharding import SeqShards, ShardingCtx, gather_tree, seq_shards
 from .config import ArchConfig
 from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
@@ -105,16 +114,19 @@ def _sinusoid(positions: torch.Tensor, e: int, dtype: torch.dtype) -> torch.Tens
 
 
 def _inputs(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor],
-            embeds: Optional[torch.Tensor], offset: int = 0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            embeds: Optional[torch.Tensor], offset: int = 0,
+            sp: Optional[SeqShards] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The first layer's input and the positions: embeds [b, s, e] cast to
     the compute dtype, or tokens [b, s] looked up in the embedding; then,
-    for ``abs_sin``, the sinusoid added in that dtype."""
+    for ``abs_sin``, the sinusoid added in that dtype. Under a sequence
+    split ``sp`` the s positions are the rank's block, from r s."""
     if embeds is not None:
         x = embeds.to(getattr(torch, cfg.dtype))
     else:
         x = embed_tokens(tokens, params["embed"], cfg)
     b, s = x.shape[:2]
+    if sp is not None:
+        offset += sp.rank * s
     positions = make_positions(cfg, b, s, offset=offset, device=x.device)
     if cfg.rope == "abs_sin":
         x = x + _sinusoid(positions, cfg.d_model, x.dtype)
@@ -137,14 +149,15 @@ def _cast_blocks(blocks: Dict, dtype: torch.dtype) -> Dict:
 
 
 def _block(x: torch.Tensor, bp: Dict, cfg: ArchConfig,
-           positions: torch.Tensor, group=None, **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
+           positions: torch.Tensor, ctx: Optional[ShardingCtx] = None,
+           **attn_kw) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Attention then the feed-forward: the MoE layer where ``bp`` has one
     ("ffn"), else the MLP. A dense or MoE layer, or the hybrid's shared
-    block (the same weights at every application). ``group``: the
-    data-parallel group the batch is split over (``moe.moe``)."""
-    a, kv = attention(x, bp["attn"], cfg, positions, **attn_kw)
+    block (the same weights at every application). ``ctx``: the mesh the
+    batch is split over (attention's sequence split, ``moe.moe``)."""
+    a, kv = attention(x, bp["attn"], cfg, positions, sp=seq_shards(ctx), **attn_kw)
     x = x + a
-    ffn = moe(x, bp["ffn"], cfg, group) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
+    ffn = moe(x, bp["ffn"], cfg, ctx) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
     return x + ffn, kv
 
 
@@ -152,16 +165,19 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
             want_cache: bool = False,
             logits_positions: str = "all", *,
             embeds: Optional[torch.Tensor] = None,
-            group=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+            ctx: Optional[ShardingCtx] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence forward over tokens [b, s], or over ``embeds`` [b, s, e]
-    for the stub frontends; ``group`` is the data-parallel group when the
-    batch is this rank's rows of a global one (the MoE dispatch plans the
-    global batch). Returns (logits, cache or None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
+    for the stub frontends; under ``ctx``'s mesh the batch is this rank's
+    block of a global one (its rows over "data", its positions over
+    "model"), and so are the logits. Returns (logits, cache or None). The cache is, by family: dense and moe {"k", "v"} [L, b, s, kvh,
     d] in the compute dtype (interleaved moe [groups, 2, b, s, kvh, d]:
     each group's dense layer, then its MoE layer); ssm {"conv" [L, b, K-1,
     conv_dim], "ssm" [L, b, H, P, N]} in fp32; hybrid the ssm states plus
     {"shared_k", "shared_v"} [groups, b, s, kvh, d]."""
-    x, positions = _inputs(params, cfg, tokens, embeds)
+    sp = seq_shards(ctx)
+    if sp is not None and want_cache:
+        raise ValueError("a prefill cache binds no mesh: serving runs on one device")
+    x, positions = _inputs(params, cfg, tokens, embeds, sp=sp)
     _, per = _group_layout(cfg)
     cache: Dict[str, list] = {}
 
@@ -182,11 +198,11 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
         blocks = _cast_blocks(blocks, getattr(torch, cfg.dtype))
 
     def block_body(x, bp):
-        return _block(x, gather_tree(bp), cfg, positions, group, want_cache=want_cache)
+        return _block(x, gather_tree(bp), cfg, positions, ctx, want_cache=want_cache)
 
     if cfg.family in ("ssm", "hybrid"):
         def ssm_body(x, bp):
-            y, st = mamba_layer(x, gather_tree(bp), cfg, want_state=want_cache)
+            y, st = mamba_layer(x, gather_tree(bp), cfg, want_state=want_cache, sp=sp)
             return x + y, st
 
         for i, bp in enumerate(_unstack(blocks, cfg.n_layers)):
@@ -226,13 +242,18 @@ def _pack_cache(cfg: ArchConfig, cache: Dict[str, list]) -> Dict[str, torch.Tens
 
 
 def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            group=None) -> torch.Tensor:
+            ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
     [b, s], or {"embeds" [b, s, e], "labels"} for the stub frontends), as
-    ``repro/models/transformer.py::loss_fn``; ``group`` as in ``forward``."""
-    logits, _ = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
-                        group=group)
-    return cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
+    ``repro/models/transformer.py::loss_fn``. Under ``ctx``'s mesh the batch
+    is this rank's block (``forward``) and the loss its part of its data
+    rank's mean: the sum of its tokens' losses over its rows' b s tokens,
+    which the "model" ranks' parts sum to (the caller sums the parts over
+    the mesh and divides by the data size)."""
+    logits, _ = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"), ctx=ctx)
+    loss = cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
+    sp = seq_shards(ctx)
+    return loss if sp is None else loss / sp.n
 
 
 def init_cache_specs(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16

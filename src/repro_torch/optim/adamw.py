@@ -14,12 +14,12 @@ full width the fp32 masters, gradients and both moments already fill most
 of the card, so no temporary may span the whole tree or a whole stacked
 leaf.
 
-Under the Zero-3 layout (``DataShards``) each rank updates its shards of
+Under the Zero-3 layout (``LeafShards``) each rank updates its shards of
 the masters and the moments: AdamW is elementwise and needs nothing more;
-the global norm sums each rank's squares of the split leaves over the
-data group (the whole leaves once), and Adafactor sums its means over a
-split dimension there before dividing. The state mirrors the masters'
-layout (``opt_state_specs``, as JAX's).
+the global norm sums each rank's squares of a split leaf over the mesh
+axes the leaf is split over (the whole leaves once), and Adafactor sums
+its means over the axes a dimension is split over before dividing. The
+state mirrors the masters' layout (``opt_state_specs``, as JAX's).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..parallel.sharding import PartitionSpec, axis_group, spec_axes
 from .schedule import warmup_cosine
 
 CHUNK_ELEMENTS = 1 << 26        # 256 MB of fp32 per temporary
@@ -53,13 +54,21 @@ class OptConfig:
     total_steps: int = 10_000
 
 
-class DataShards(NamedTuple):
-    """The layout of a tree of leaves over the data group: for each leaf
-    the dimension split over it (None where every rank holds the whole
-    leaf), the group (None in one process) and its size."""
-    dims: Dict[str, Optional[int]]
-    group: Any = None
-    n: int = 1
+class LeafShards(NamedTuple):
+    """The layout of a tree of leaves over a mesh: each leaf's spec (the
+    mesh axes each dimension is split over) and the mesh (None in one
+    process, where every leaf is whole)."""
+    specs: Dict[str, PartitionSpec]
+    mesh: Any = None
+
+    def axes(self, name: str, dim: Optional[int] = None) -> Tuple[str, ...]:
+        """The mesh axes leaf ``name`` is split over, on ``dim`` or (None)
+        on any dimension."""
+        return spec_axes(self.specs[name], dim)
+
+    def group(self, axes: Tuple[str, ...]) -> Tuple[Any, int]:
+        """(group, size) over ``axes``' ranks; (None, 1) without a mesh."""
+        return axis_group(self.mesh, axes)
 
 
 def _factored(shape: Tuple[int, ...]) -> bool:
@@ -101,35 +110,42 @@ def init_opt_state(params: Dict[str, torch.Tensor], cfg: OptConfig) -> OptState:
                     nu={n: zeros(p.shape, p) for n, p in params.items()})
 
 
-def global_norm(tree: Dict[str, torch.Tensor], shards: Optional[DataShards] = None
+def global_norm(tree: Dict[str, torch.Tensor], shards: Optional[LeafShards] = None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32. With ``shards``
-    the split leaves' squares are summed apart and, over the data group,
-    across its ranks; the whole leaves' are added once. Without, every leaf
-    is whole. In one process the split is kept, so that a group of one is
-    the same arithmetic."""
-    dims = shards.dims if shards is not None else dict.fromkeys(tree)
+    the leaves split over the same mesh axes have their squares summed
+    together and, across the ranks of those axes, over their group; the
+    whole leaves' are added once. Without, every leaf is whole. In one
+    process the partition is kept, so that groups of one are the same
+    arithmetic."""
     zero = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
-    split = sum((torch.sum(torch.square(g.float())) for n, g in tree.items()
-                 if dims[n] is not None), zero)
-    whole = sum((torch.sum(torch.square(g.float())) for n, g in tree.items()
-                 if dims[n] is None), zero)
-    if shards is not None and shards.group is not None:
-        dist.all_reduce(split, group=shards.group)
+    sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for n, g in tree.items():
+        key = () if shards is None else tuple(sorted(set(shards.axes(n))))
+        sums[key] = sums.get(key, zero) + torch.sum(torch.square(g.float()))
+    whole = sums.pop((), zero)
+    split = zero
+    for key in sorted(sums):
+        group, _ = (None, 1) if shards is None else shards.group(key)
+        if group is not None:
+            dist.all_reduce(sums[key], group=group)
+        split = split + sums[key]
     return torch.sqrt(split + whole)
 
 
-def _mean(t: torch.Tensor, dim: Optional[int], split: bool, shards: Optional[DataShards],
-          keepdim: bool = False) -> torch.Tensor:
+def _mean(t: torch.Tensor, dim: Optional[int], axes: Tuple[str, ...],
+          shards: Optional[LeafShards], keepdim: bool = False) -> torch.Tensor:
     """The mean of ``t`` over ``dim`` (every element where None); where that
-    dimension (any, for None) is split over the data group, the ranks'
-    sums are summed there and divided by the whole count."""
-    if not split or shards is None or shards.group is None:
+    dimension (any, for None) is split over the mesh ``axes``, the ranks'
+    sums are summed over their group and divided by the whole count."""
+    group, n = (None, 1) if shards is None else shards.group(axes)
+    if shards is None or shards.mesh is None or not axes:
         return torch.mean(t) if dim is None else t.mean(dim=dim, keepdim=keepdim)
     s = torch.sum(t) if dim is None else t.sum(dim=dim, keepdim=keepdim)
-    dist.all_reduce(s, group=shards.group)
+    if group is not None:
+        dist.all_reduce(s, group=group)
     count = t.numel() if dim is None else t.shape[dim]
-    return s / (count * shards.n)
+    return s / (count * n)
 
 
 def _chunks(t: torch.Tensor):
@@ -144,12 +160,12 @@ def _chunks(t: torch.Tensor):
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                   state: OptState, cfg: OptConfig,
-                  shards: Optional[DataShards] = None) -> OptState:
+                  shards: Optional[LeafShards] = None) -> OptState:
     """One optimizer step: updates ``params`` (and the moments in
     ``state``) in place and returns the state with its step advanced. The
     gradients are scaled in place when they are fp32 (they are consumed).
-    ``shards``: the layout of ``params`` (and of ``grads``) over the data
-    group, when they are this rank's shards."""
+    ``shards``: the layout of ``params`` (and of ``grads``) over the mesh,
+    when they are this rank's shards."""
     dev = next(iter(params.values())).device
     step = state.step + 1
     stepf = torch.tensor(step, dtype=torch.float32, device=dev)
@@ -164,14 +180,15 @@ def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
             g = grads[name].float() * scale
             nu = state.nu[name]
             g2 = g * g + eps2
-            d = None if shards is None else shards.dims[name]
+            def axes(dim=None):
+                return () if shards is None else shards.axes(name, dim)
             if _factored(p.shape):
                 last, rows = p.dim() - 1, p.dim() - 2
                 nu["row"].copy_(decay * nu["row"]
-                                + (1 - decay) * _mean(g2, -1, d == last, shards))
+                                + (1 - decay) * _mean(g2, -1, axes(last), shards))
                 nu["col"].copy_(decay * nu["col"]
-                                + (1 - decay) * _mean(g2, -2, d == rows, shards))
-                rmean = _mean(nu["row"], -1, d == rows, shards, keepdim=True)
+                                + (1 - decay) * _mean(g2, -2, axes(rows), shards))
+                rmean = _mean(nu["row"], -1, axes(rows), shards, keepdim=True)
                 vhat = (nu["row"] / torch.clamp(rmean, min=eps2))[..., None] \
                     * nu["col"][..., None, :]
                 u = g * torch.rsqrt(torch.clamp(vhat, min=eps2))
@@ -179,7 +196,7 @@ def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
                 nu["full"].copy_(decay * nu["full"] + (1 - decay) * g2)
                 u = g * torch.rsqrt(torch.clamp(nu["full"], min=eps2))
             # the RMS update clip
-            rms = torch.sqrt(_mean(u * u, None, d is not None, shards) + eps2)
+            rms = torch.sqrt(_mean(u * u, None, axes(), shards) + eps2)
             u = u / torch.clamp(rms, min=1.0)
             keep = 1 - lr * cfg.weight_decay * float(p.dim() >= 2)
             p.copy_((p.float() * keep - lr * u).to(p.dtype))

@@ -27,10 +27,22 @@ mesh's groups (``models/moe.py``'s ``moe_a2a``, ``parallel/compress.py``).
 The Zero-3 layout that GSPMD derives from JAX's parameter shardings is
 explicit here. A rank holds plain tensors, its shards (``local_shard``:
 the slice a mesh coordinate owns, in JAX's order of the spec's axes); a
-leaf sharded over "data" travels through the model as a ``Sharded``,
-which the layer that uses it gathers (``Sharded.full``: an all-gather
-over "data" whose backward is the reduce-scatter of the gradient), and
-``gather_full`` rebuilds a whole leaf from its shards over a group.
+split leaf travels through the model as a ``Sharded``, which the layer
+that uses it gathers (``Sharded.full``: one all-gather for each
+dimension the spec splits, over that dimension's mesh axes, whose
+backward is the reduce-scatter of the gradient), and ``gather_full``
+rebuilds a whole leaf from its shards over a group. A dimension split
+over ("data", "model") is gathered over the mesh's flattened group,
+whose rank order is JAX's block order ``coord_data * m + coord_model``
+(``launch/mesh.py::make_mesh_for`` keeps one for each mesh).
+
+The activations' collectives of a model axis above 1 (``SeqShards``:
+each rank holds one block of every sequence) are here too: the
+sequence gather (``gather_seq``, attention's K and V, the SSD scan's B
+and C), the conv's halo from the previous block (``halo_prev``) and the
+all-to-alls between sequence blocks and head blocks (``seq_to_heads``,
+``heads_to_seq``), each an autograd function whose backward is its
+transpose.
 """
 from __future__ import annotations
 
@@ -232,17 +244,74 @@ def local_shard(full, spec: PartitionSpec, mesh, name: str = ""):
     return full[tuple(index)]
 
 
-def data_dim(spec: PartitionSpec) -> Optional[int]:
-    """The dimension a spec splits over "data", or None."""
+def spec_axes(spec: PartitionSpec, dim: Optional[int] = None) -> Tuple[str, ...]:
+    """The mesh axes a spec names, on dimension ``dim`` or (None) on any."""
+    parts = spec if dim is None else (spec[dim],)
+    return tuple(a for p in parts for a in _axes(p))
+
+
+def axis_group(mesh, axes: Sequence[str]) -> Tuple[Any, int]:
+    """The process group over the mesh axes ``axes`` that have more than
+    one rank, and its size: one axis's group; for "data" and "model"
+    together the mesh's flattened group (its ranks in the order ``coord_data
+    * m + coord_model``, as ``make_mesh_for`` builds it). (None, 1) where
+    no such axis is left."""
+    if mesh is None:
+        return None, 1
+    sizes = mesh_shape(mesh)
+    axes = tuple(a for a in mesh.mesh_dim_names if a in axes and sizes[a] > 1)
+    if not axes:
+        return None, 1
+    if len(axes) == 1:
+        return mesh.get_group(axes[0]), sizes[axes[0]]
+    flat = getattr(mesh, "flat_group", None)
+    if flat is None:
+        raise ValueError(f"the mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} has no "
+                         "flattened group: build it with launch.mesh.make_mesh_for")
+    return flat, math.prod(sizes[a] for a in axes)
+
+
+class Split(NamedTuple):
+    """One dimension of a leaf split over mesh axes: the dimension, the
+    axes (JAX's order), their process group and its size."""
+    dim: int
+    axes: Tuple[str, ...]
+    group: Any
+    n: int
+
+
+def splits_of(spec: PartitionSpec, mesh) -> Tuple[Split, ...]:
+    """The dimensions ``spec`` splits over axes of more than one rank, in
+    order. Raises where a dimension names several axes against the mesh's
+    order (its blocks are then not the flattened group's ranks)."""
+    if mesh is None:
+        return ()
+    sizes, names = mesh_shape(mesh), list(mesh.mesh_dim_names)
+    out = []
     for d, p in enumerate(spec):
-        if "data" in _axes(p):
-            return d
-    return None
+        axes = tuple(a for a in _axes(p) if sizes.get(a, 1) > 1)
+        if not axes:
+            continue
+        if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
+            raise NotImplementedError(f"dimension {d} is split over {axes}, against the "
+                                      f"mesh's order {tuple(names)}")
+        out.append(Split(d, axes, *axis_group(mesh, axes)))
+    return tuple(out)
 
 
-# the collectives of the Zero-3 layout's gathers, counted where they are
-# issued (``Sharded.full``'s forward and backward)
-COLLECTIVES = {"gather": 0, "reduce_scatter": 0}
+def gather_splits(t: torch.Tensor, splits: Sequence[Split], pieces: bool = False) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``t``: one ``gather_full`` for
+    each split dimension (with ``pieces``, through a buffer of one shard's
+    size)."""
+    for s in splits:
+        t = gather_full(t, s.dim, s.group, s.n, pieces=s.n if pieces else 1)
+    return t
+
+
+# the collectives of the Zero-3 layout's gathers and of the sequence split,
+# counted where they are issued, one a call of a collective
+COLLECTIVES = {"gather": 0, "reduce_scatter": 0, "seq_gather": 0, "seq_reduce_scatter": 0,
+               "halo": 0, "halo_grad": 0, "all_to_all": 0}
 
 
 def reset_collectives() -> None:
@@ -304,49 +373,54 @@ def scatter_sum(full: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out
 
 
-class _GatherShard(torch.autograd.Function):
-    """A shard cast to ``dtype``, then gathered over the group; the backward
-    takes the whole gradient back to the shard's dtype and reduce-scatters
-    it. A cast acts elementwise, so casting before the gather is the cast of
-    the gathered array, and the gather moves the cast's bytes; the
-    gradient is summed in the shard's dtype, as the cast's backward would
-    hand it to an all-reduce."""
+class _Gather(torch.autograd.Function):
+    """``x`` cast to ``dtype``, then gathered along each of ``splits`` in
+    turn; the backward takes the whole gradient back to x's dtype and
+    reduce-scatters it along them in reverse. A cast acts elementwise, so
+    casting before the gather is the cast of the gathered array, and the
+    gather moves the cast's bytes; the gradient is summed in x's dtype, as
+    the cast's backward would hand it to an all-reduce. ``kind`` names the
+    counters: "" a leaf's gathers, "seq_" the sequence gathers."""
 
     @staticmethod
-    def forward(ctx, shard, dtype, dim, group, n):
-        ctx.layout, ctx.shard_dtype = (dim, group, n), shard.dtype
-        COLLECTIVES["gather"] += 1
-        return gather_full(shard.to(dtype), dim, group, n)
+    def forward(ctx, x, dtype, splits, kind):
+        ctx.splits, ctx.kind, ctx.x_dtype = splits, kind, x.dtype
+        x = x.to(dtype)
+        for s in splits:
+            COLLECTIVES[kind + "gather"] += 1
+            x = gather_full(x, s.dim, s.group, s.n)
+        return x
 
     @staticmethod
     def backward(ctx, g):
-        dim, group, n = ctx.layout
-        COLLECTIVES["reduce_scatter"] += 1
-        return scatter_sum(g.to(ctx.shard_dtype), dim, group, n), None, None, None, None
+        g = g.to(ctx.x_dtype)
+        for s in reversed(ctx.splits):
+            COLLECTIVES[ctx.kind + "reduce_scatter"] += 1
+            g = scatter_sum(g, s.dim, s.group, s.n)
+        return g, None, None, None
 
 
 @dataclass(frozen=True)
 class Sharded:
-    """A leaf held as this rank's ``shard``, split along ``dim`` over the
-    n ranks of ``group`` ("data"), and used in ``dtype``: ``to`` sets the
+    """A leaf held as this rank's ``shard``, split along ``splits`` (each
+    dimension over its mesh axes), and used in ``dtype``: ``to`` sets the
     dtype (the cast happens at the gather), ``unbind`` gives each layer's
     shard of a stacked ``[L, ...]`` leaf, ``full`` gathers it."""
     shard: torch.Tensor
-    dim: int
-    group: Any
-    n: int
+    splits: Tuple[Split, ...]
     dtype: torch.dtype
 
     def to(self, dtype: torch.dtype) -> "Sharded":
         return replace(self, dtype=dtype)
 
     def unbind(self, dim: int = 0) -> List["Sharded"]:
-        if dim != 0 or self.dim == 0:
+        if dim != 0 or any(s.dim == 0 for s in self.splits):
             raise ValueError("only a stacked leaf's layer axis, which is whole, unbinds")
-        return [replace(self, shard=t, dim=self.dim - 1) for t in self.shard.unbind(0)]
+        splits = tuple(s._replace(dim=s.dim - 1) for s in self.splits)
+        return [replace(self, shard=t, splits=splits) for t in self.shard.unbind(0)]
 
     def full(self) -> torch.Tensor:
-        return _GatherShard.apply(self.shard, self.dtype, self.dim, self.group, self.n)
+        return _Gather.apply(self.shard, self.dtype, self.splits, "")
 
 
 def gathered(x):
@@ -357,6 +431,134 @@ def gathered(x):
 def gather_tree(tree: Dict) -> Dict:
     """Every ``Sharded`` leaf of a tree gathered."""
     return {k: gather_tree(v) if isinstance(v, dict) else gathered(v) for k, v in tree.items()}
+
+
+class SeqShards(NamedTuple):
+    """The "model" axis of a mesh, over which each rank holds one block of
+    every sequence: its process group, its size n and this rank's block r
+    (positions [r s/n, (r+1) s/n) of a sequence of s)."""
+    group: Any
+    n: int
+    rank: int
+
+
+def seq_shards(ctx: Optional["ShardingCtx"]) -> Optional[SeqShards]:
+    """The sequence split of ``ctx``'s mesh, None without one or where its
+    "model" axis has one rank."""
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is None or mesh_shape(mesh).get("model", 1) == 1:
+        return None
+    names = list(mesh.mesh_dim_names)
+    return SeqShards(mesh.get_group("model"), mesh_shape(mesh)["model"],
+                     mesh.get_coordinate()[names.index("model")])
+
+
+def gather_seq(x: torch.Tensor, dim: int, sp: SeqShards) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim`` (the sequence), in rank
+    order; the backward reduce-scatters the gradient: each rank gets its
+    block's gradient summed over the ranks that used it."""
+    return _Gather.apply(x, x.dtype, (Split(dim, ("model",), sp.group, sp.n),), "seq_")
+
+
+class _Halo(torch.autograd.Function):
+    """The last k positions of the previous rank's block of u [b, s, c]
+    (zeros on rank 0): an all-gather of every rank's tail. The backward
+    hands each tail's gradient back to its rank (a reduce-scatter in which
+    rank r contributes only to rank r - 1's block). Rank 0's zeros are
+    this function's output too, so that its backward joins the
+    reduce-scatter that the other ranks' backwards issue."""
+
+    @staticmethod
+    def forward(ctx, u, k, group, n, r):
+        ctx.meta = (u.shape, k, group, n, r)
+        COLLECTIVES["halo"] += 1
+        tail = u[:, -k:].contiguous()
+        tails = torch.empty((n * tail.shape[0],) + tuple(tail.shape[1:]), dtype=u.dtype,
+                            device=u.device)
+        all_gather_flat(tails, tail, group)
+        if r == 0:
+            return torch.zeros_like(tail)
+        return tails.view((n,) + tuple(tail.shape))[r - 1].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, k, group, n, r = ctx.meta
+        COLLECTIVES["halo_grad"] += 1
+        parts = g.new_zeros((n,) + tuple(g.shape))
+        if r > 0:
+            parts[r - 1] = g
+        mine = torch.empty_like(g)
+        reduce_scatter_flat(mine, parts.view((n * g.shape[0],) + tuple(g.shape[1:])), group)
+        gu = g.new_zeros(shape)
+        gu[:, -k:] = mine
+        return gu, None, None, None, None
+
+
+def halo_prev(u: torch.Tensor, k: int, sp: SeqShards) -> torch.Tensor:
+    """The k positions before this rank's block of u [b, s_block, c]: the
+    previous rank's last k (zeros on the first rank, the causal pad)."""
+    return _Halo.apply(u, k, sp.group, sp.n, sp.rank)
+
+
+def _to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    b, sl, H = x.shape[:3]
+    rest = tuple(x.shape[3:])
+    send = x.reshape((b, sl, n, H // n) + rest).movedim(2, 0).contiguous()
+    recv = torch.empty_like(send)
+    COLLECTIVES["all_to_all"] += 1
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.movedim(0, 1).reshape((b, n * sl, H // n) + rest)
+
+
+def _to_seq(y: torch.Tensor, group, n: int) -> torch.Tensor:
+    b, s, Hl = y.shape[:3]
+    rest = tuple(y.shape[3:])
+    send = y.reshape((b, n, s // n, Hl) + rest).movedim(1, 0).contiguous()
+    recv = torch.empty_like(send)
+    COLLECTIVES["all_to_all"] += 1
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.movedim(0, 2).reshape((b, s // n, n * Hl) + rest)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    """[b, s/n, H, ...] (this rank's positions, every head) -> [b, s, H/n,
+    ...] (every position, this rank's heads): an all-to-all; the backward
+    is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.meta = (group, n)
+        return _to_heads(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_seq(g, *ctx.meta), None, None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    """The inverse of ``_SeqToHeads``."""
+
+    @staticmethod
+    def forward(ctx, y, group, n):
+        ctx.meta = (group, n)
+        return _to_seq(y, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_heads(g, *ctx.meta), None, None
+
+
+def seq_to_heads(x: torch.Tensor, sp: SeqShards) -> torch.Tensor:
+    """x [b, s/n, H, ...] -> [b, s, H/n, ...]: rank r's heads [r H/n, (r+1)
+    H/n) over every position (JAX's constraint to "ssm_heads")."""
+    if x.shape[2] % sp.n:
+        raise ValueError(f"{x.shape[2]} heads do not split over {sp.n} model ranks")
+    return _SeqToHeads.apply(x, sp.group, sp.n)
+
+
+def heads_to_seq(y: torch.Tensor, sp: SeqShards) -> torch.Tensor:
+    """y [b, s, H/n, ...] -> [b, s/n, H, ...], the inverse of ``seq_to_heads``."""
+    return _HeadsToSeq.apply(y, sp.group, sp.n)
 
 
 def constrain(x: torch.Tensor, ctx: ShardingCtx, *logical: Optional[str]) -> torch.Tensor:

@@ -15,9 +15,11 @@ manifest's ``treedef`` is a description only: a restore takes the
 structure from ``like`` and matches the leaves by count and order.
 
 The files hold whole leaves whatever the layout they were saved from
-(the Zero-3 runtime gathers them first, ``ElasticRuntime.full_state``);
-``restore(like, shardings=...)`` slices each onto the current layout, as
-JAX's does with its shardings, so a checkpoint of n ranks restores on m.
+(the Zero-3 runtime gathers them over every mesh axis they are split
+over first, ``ElasticRuntime.full_state``); ``restore(like,
+shardings=...)`` slices each onto the current layout, as JAX's does with
+its shardings, so a checkpoint of an (n, m) mesh restores on any other
+(data, model) mesh.
 Saves can run on a background thread so the training loop is not
 blocked.
 """

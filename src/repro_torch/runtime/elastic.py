@@ -33,28 +33,31 @@ The state has JAX's Zero-3 layout (``Model.param_shardings`` /
 moment and the small leaves whole. The first bind draws each leaf whole,
 one at a time, and keeps this rank's slice, so the values do not depend
 on n. A rebind from n to m ranks moves one leaf at a time: the old ranks
-gather it over their "data" group, rank 0 broadcasts it to the world when
+gather it over its axes, rank 0 broadcasts it to the world when
 ranks join, and each new rank keeps its slice: the counterpart of JAX's
 ``device_put(params, psh)`` onto the new mesh. The new shards are
 allocated as the old ones are freed, so a rebind's peak is the larger of
-the two layouts' state plus about one whole leaf. Each bound rank takes its
-``global_batch / n`` rows of the step's batch (its rows of each of
-``grad_accum``'s microbatches); the layers gather each split leaf over
-"data" where they use it and reduce-scatter its gradient, the whole
-leaves' gradients are all-reduced, and both are divided by n before the
-optimizer: JAX's global-batch mean. The MoE dispatch plans the global
-batch and splits its capacity over "data", as JAX's does under a mesh
-(``models/moe.py::moe_dispatch``). The reported loss is the mean over the
-bound ranks. ``full_state`` gathers the whole state onto the host of
-rank 0 for a checkpoint.
+the two layouts' state plus about one whole leaf. The mesh is (n / m, m) for
+a model axis of m (``model_axis``, as JAX's ``make_mesh_for(n,
+model_axis)``; the usable count stays a multiple of m). A bound rank of
+coordinate (d, r) takes its rows [d B/(n/m), (d+1) B/(n/m)) of the
+step's batch of B (its rows of each of ``grad_accum``'s microbatches)
+and its positions [r S/m, (r+1) S/m): the model ranks split one sequence,
+the data ranks the batch. The layers gather each split leaf over its axes
+where they use it and reduce-scatter its gradient, attention gathers K
+and V over "model", the Mamba2 scan runs head-split, the MoE layer runs
+on the mesh (``models/transformer.py``); the gradients are summed over
+the mesh and divided by the data size before the optimizer: JAX's
+global-batch mean (``_mean_over_data``). The reported loss is that mean
+too. ``full_state`` gathers the whole state onto the host of rank 0 for
+a checkpoint.
 
 Without a process group the world is one device (the first CUDA card, or
 the CPU) holding every leaf whole, and a rebind keeps the model and its
 state where they are (at full width a second copy would not fit the
 card); it still records its ``rebind`` event and rebuilds the step.
-JAX's runtime always uses a model axis of 1
-(``repro/launch/train.py:58``); a model axis above 1, which would shard
-every layer's sequence over "model", is not ported.
+JAX's ``run_training`` always uses a model axis of 1
+(``repro/launch/train.py:58``), and so does the port's.
 """
 from __future__ import annotations
 
@@ -77,7 +80,7 @@ from ..launch.mesh import make_mesh_for
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.model import Model, make_model
 from ..optim.adamw import OptConfig, OptState
-from ..parallel.sharding import Rules, ShardingCtx
+from ..parallel.sharding import Rules, ShardingCtx, axis_group, mesh_shape
 from .checkpoint import _flatten, _unflatten
 
 
@@ -111,10 +114,6 @@ class ElasticRuntime:
         self.model_axis = model_axis
         self.chip_type = chip_type
         self.opt = opt
-        if model_axis != 1:
-            raise NotImplementedError(
-                "a model axis above 1 (every layer's sequence sharded over 'model') is not "
-                "ported; JAX's run_training uses 1 (repro/launch/train.py:58)")
         self.device = resolve_device(device)
         self.events: List[ElasticEvent] = []
         self.mesh: Optional[List[torch.device]] = None     # the bound devices
@@ -143,7 +142,7 @@ class ElasticRuntime:
         """The whole masters and optimizer state on the host of rank 0, the
         checkpoint's writer, gathered one leaf at a time: {"params",
         "opt_state"} as a checkpoint holds them. Every bound rank calls it
-        (the gathers are collectives over "data"); the others take part,
+        (the gathers are collectives over the mesh); the others take part,
         keep no host copy and get None, as does a rank that is not bound."""
         if self.model is None:
             return None
@@ -254,8 +253,8 @@ class ElasticRuntime:
     def _reshard(self, before: int, n: int) -> None:
         """Move the state from the ``before`` ranks of the old mesh onto the
         layout of the current mesh of n ranks, one leaf at a time (every rank
-        of the world calls it): the old ranks gather the leaf over their
-        "data" group and free their shard of it; when ranks join, rank 0
+        of the world calls it): the old ranks gather the leaf over its axes
+        and free their shard of it; when ranks join, rank 0
         broadcasts it to the world; each new rank copies out its shard. The
         new model is built on "meta" and takes its shards at the end
         (``Model.adopt``), so a shard is allocated only once the old shard
@@ -395,50 +394,59 @@ class ElasticRuntime:
         """One training step on a numpy batch ({"tokens", "labels"}, or a
         stub frontend's {"embeds", "labels"}): integer arrays as int64,
         embeddings in their own dtype. Across ranks, every rank passes the
-        same global batch; a bound rank of data coordinate r trains on its
-        rows [r B/n, (r+1) B/n) (with ``grad_accum`` k, on its rows
-        [i B/k + r B/(k n), i B/k + (r+1) B/(k n)) of each microbatch i, so
-        that microbatch i holds the global microbatch's rows, as in JAX), and
-        a rank that is not bound skips the step (its loss is NaN)."""
+        same global batch [B, S, ...]; a bound rank of mesh coordinate (d,
+        r) on an (n, m) mesh trains on its rows [d B/n, (d+1) B/n) (with
+        ``grad_accum`` k, on its rows [i B/k + d B/(k n), i B/k + (d+1)
+        B/(k n)) of each microbatch i, so that microbatch i holds the global
+        microbatch's rows, as in JAX) and its positions [r S/m, (r+1) S/m),
+        and a rank that is not bound skips the step (its loss is NaN)."""
         dev = self._rank_device()
-        reduce = group = None
-        if self.device_mesh is None:
-            rows = slice(None)
-        elif not self.bound:
-            return {"loss": torch.tensor(float("nan"))}
-        else:
-            n = self.device_mesh.shape[0]
-            r = self.device_mesh.get_coordinate()[0]
+        reduce = None
+        rows = cols = slice(None)
+        if self.device_mesh is not None:
+            if not self.bound:
+                return {"loss": torch.tensor(float("nan"))}
+            (n, m), (d, r) = self.device_mesh.shape, self.device_mesh.get_coordinate()
             k = max(self.cfg.grad_accum, 1)
-            B = self.shape.global_batch
+            B, S = self.shape.global_batch, self.shape.seq_len
             if B % (k * n):
                 raise ValueError(f"global batch {B} does not split into {k} microbatches "
                                  f"over {n} data ranks")
-            rows = np.arange(B).reshape(k, n, B // (k * n))[:, r].reshape(-1)
-            reduce, group = self._mean_over_data, self.device_mesh.get_group("data")
+            if S % m:
+                raise ValueError(f"sequence {S} does not split over {m} model ranks")
+            rows = np.arange(B).reshape(k, n, B // (k * n))[:, d].reshape(-1)
+            cols = slice(r * S // m, (r + 1) * S // m)
+            reduce = self._mean_over_data
         on_dev = {}
         for key, v in batch.items():
-            t = torch.from_numpy(np.asarray(v)[rows])
+            t = torch.from_numpy(np.ascontiguousarray(np.asarray(v)[rows][:, cols]))
             on_dev[key] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
-        self.opt_state, metrics = self._train_step(self.opt_state, on_dev, reduce=reduce,
-                                                   group=group)
+        self.opt_state, metrics = self._train_step(self.opt_state, on_dev, reduce=reduce)
         return metrics
 
     def _mean_over_data(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
-        """The gradients and the loss summed over the "data" group and
-        divided by its size: the global batch's mean, before clipping
-        reads the global norm. A split leaf's gradient shard already holds
-        that sum (its gathers' reduce-scatters); the whole leaves' are
-        all-reduced."""
-        group = self.device_mesh.get_group("data")
-        n = self.device_mesh.shape[0]
-        dims = self.model.data_shards().dims
+        """This rank's loss and gradients, its parts of the global batch's,
+        summed over the mesh and divided by the data size: after it, each
+        rank's gradient shard is its block of JAX's global-batch-mean
+        gradient, and the loss is the global mean, before clipping reads
+        the global norm. The data ranks split the batch and the model ranks
+        one sequence (``loss_fn``'s part is over the data rank's tokens),
+        so only the data size divides. A leaf's gradient shard already
+        holds its sum over the axes the leaf is split over (its gathers'
+        reduce-scatters; a shard that a layer uses unsplit, as ``moe_a2a``
+        uses its experts, holds every use of it); it is all-reduced over the
+        mesh's other axes, a whole leaf's over the whole mesh."""
+        mesh = self.device_mesh
+        sizes = mesh_shape(mesh)
+        shards = self.model.shards()
         for name, g in grads.items():
-            if dims[name] is None:
+            rest = tuple(a for a in mesh.mesh_dim_names if a not in shards.axes(name))
+            group, _ = axis_group(mesh, rest)
+            if group is not None:
                 dist.all_reduce(g, group=group)
-            g.div_(n)
+            g.div_(sizes["data"])
         loss = loss.clone()
-        dist.all_reduce(loss, group=group)
-        return loss / n, grads
-
-
+        group, _ = axis_group(mesh, mesh.mesh_dim_names)
+        if group is not None:
+            dist.all_reduce(loss, group=group)
+        return loss / sizes["data"], grads

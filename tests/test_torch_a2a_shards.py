@@ -10,7 +10,11 @@ gradient leaf of sum(y^2) within 1e-5 of its largest |g|: the expert
 leaves shard by shard (summed over the data ranks that hold the same
 experts; under ``moe_ep2d`` each rank's f slice alone), the router, norm
 and shared expert summed over the ranks. The loopback exchange (all
-shards in one process) equals the gloo world bit for bit at n_sh 2 and 4."""
+shards in one process) equals the gloo world bit for bit at n_sh 2 and 4.
+Where E % n_sh is nonzero JAX falls back to its GSPMD-partitioned
+``moe_dispatch``; the port's ranks, each holding every expert, run the
+dispatch over the mesh's tokens, held against JAX's at (1, 4) with 6
+experts and (2, 2) with 3."""
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -26,6 +30,8 @@ CASES = {"cf16": ((2, 2), 16.0, False), "cf1": ((2, 2), 1.0, False),
          "cf125": ((2, 2), 1.25, False), "cf16_ep2d": ((2, 2), 16.0, True),
          "cf1_ep2d": ((2, 2), 1.0, True), "cf125_ep2d": ((2, 2), 1.25, True),
          "cf1_m4": ((1, 4), 1.0, False)}
+# where JAX falls back to the dispatch: tag: (mesh, experts)
+FALLBACK = {"odd_m4": ((1, 4), 6), "odd_22": ((2, 2), 3)}
 LEAVES = ("norm", "router", "shared_down", "shared_gate", "shared_up", "w_down", "w_gate",
           "w_up")
 EXPERT = ("w_down", "w_gate", "w_up")
@@ -55,6 +61,15 @@ for tag, (shape, cf, ep2d) in {CASES!r}.items():
     with mesh:
         (_, y), g = jax.jit(jax.value_and_grad(lambda p: loss(p, cfg, ctx), has_aux=True))(p)
     save(**{{f"y_{{tag}}": y}}, **{{f"g_{{tag}}_{{k}}": v for k, v in g.items()}})
+for tag, (shape, E) in {FALLBACK!r}.items():
+    cfg = dataclasses.replace(base, n_experts=E, capacity_factor=1.0)
+    po = materialize_tree(moe_specs(cfg), jax.random.key(2))
+    mesh = auto_mesh(tuple(shape), ("data", "model"))
+    ctx = ShardingCtx(Rules(), mesh)
+    with mesh:
+        (_, y), g = jax.jit(jax.value_and_grad(lambda p: loss(p, cfg, ctx), has_aux=True))(po)
+    save(**{{f"y_{{tag}}": y}}, **{{f"g_{{tag}}_{{k}}": v for k, v in g.items()}},
+         **{{f"p_{{tag}}_{{k}}": v for k, v in po.items()}})
 cfg = dataclasses.replace(base, capacity_factor=16.0)
 save(x=x)
 save(y_dense=moe_dense(x, p, cfg, ShardingCtx()),
@@ -76,21 +91,21 @@ def _grads(xl, leaves):
     return {"x": xl.grad.numpy(), **{k: leaves[k].grad.numpy() for k in LEAVES}}
 
 
-def _port_a2a(rank, world, arrays):
+def _port_a2a(rank, world, arrays, fallback):
     """Every case on its mesh of the gloo world; rank 0 also runs the
     loopback exchange over data slice 0's shards of each case without
-    ``moe_ep2d``, and every rank checks that E % n_sh raises."""
+    ``moe_ep2d``; then the fallback cases, every rank holding every expert
+    of JAX's weights ``fallback``."""
     import dataclasses
     import torch
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import moe
     from repro_torch.models.config import ArchConfig
     from repro_torch.parallel.sharding import Rules, ShardingCtx
     x = torch.from_numpy(arrays["x"])
     p = {k[2:]: torch.from_numpy(v) for k, v in arrays.items() if k.startswith("p_")}
     base = ArchConfig(**BASE)
-    meshes = {shape: DeviceMesh("cpu", torch.arange(4).reshape(shape),
-                                mesh_dim_names=("data", "model"))
+    meshes = {shape: make_mesh_for(4, shape[1])
               for shape in sorted({c[0] for c in CASES.values()})}
     out = {}
     for tag, (shape, cf, ep2d) in CASES.items():
@@ -110,14 +125,16 @@ def _port_a2a(rank, world, arrays):
             res["loopback"] = [{"y": yj.detach().numpy(), "g": _grads(*s)}
                                for yj, s in zip(ys, shards)]
         out[tag] = res
-    odd = dataclasses.replace(base, n_experts=6)
-    mesh = meshes[(1, 4)]
-    try:
-        moe.moe_a2a(x[:, :4], moe.moe_shard_params(p, base, (0, 4)), odd,
-                    ShardingCtx(Rules(), mesh))
-        out["raised"] = False
-    except NotImplementedError:
-        out["raised"] = True
+    for tag, (shape, E) in FALLBACK.items():
+        cfg = dataclasses.replace(base, n_experts=E, capacity_factor=1.0)
+        mesh = meshes[shape]
+        (D, n_sh), (d, m) = shape, mesh.get_coordinate()
+        xl = moe.moe_shard_input(x, cfg, (m, n_sh), (d, D)).clone().requires_grad_()
+        leaves = {k: torch.from_numpy(v).clone().requires_grad_()
+                  for k, v in fallback[tag].items()}
+        y = moe.moe_a2a(xl, leaves, cfg, ShardingCtx(Rules(), mesh))
+        (y ** 2).sum().backward()
+        out[tag] = {"y": y.detach().numpy(), "g": _grads(xl, leaves)}
     return out
 
 
@@ -132,17 +149,26 @@ def results(tmp_path_factory):
     p = materialize_tree(moe_specs(JaxArchConfig(**BASE)), jax.random.key(0))
     inputs = {"x": np.array(jax.random.normal(jax.random.key(1), (4, 16, BASE["d_model"]))),
               **{"p_" + k: np.array(v) for k, v in p.items()}}
+    fallback = {}
+    for tag, (_, E) in FALLBACK.items():
+        po = materialize_tree(moe_specs(JaxArchConfig(**{**BASE, "n_experts": E})),
+                              jax.random.key(2))
+        fallback[tag] = {k: np.array(v) for k, v in po.items()}
     with ThreadPoolExecutor(1) as pool:
         oracle = pool.submit(run_jax_oracle, ORACLE, tmp_path_factory.mktemp("a2a"))
-        ranks = run_world(_port_a2a, 4, tmp_path_factory.mktemp("world"), args=(inputs,))
+        ranks = run_world(_port_a2a, 4, tmp_path_factory.mktemp("world"),
+                          args=(inputs, fallback))
         oracle = oracle.result()
+    for tag in FALLBACK:
+        for k, v in fallback[tag].items():
+            np.testing.assert_array_equal(oracle[f"p_{tag}_{k}"], v)
     np.testing.assert_array_equal(oracle["x"], inputs["x"])
     return oracle, ranks
 
 
 def _assemble_y(ranks, tag):
     """The ranks' local y [b/D, s/n_sh, e] put back into [b, s, e]."""
-    (D, n_sh), _, _ = CASES[tag]
+    (D, n_sh) = CASES[tag][0] if tag in CASES else FALLBACK[tag][0]
     rows = [np.concatenate([ranks[d * n_sh + m][tag]["y"] for m in range(n_sh)], axis=1)
             for d in range(D)]
     return np.concatenate(rows, axis=0)
@@ -227,14 +253,29 @@ def test_loopback_equals_world_bitwise(tag, results):
             np.testing.assert_array_equal(g, ranks[m][tag]["g"][leaf])
 
 
-def test_unsupported_shards_raise(results):
-    """Where JAX falls back to the GSPMD dispatch under a mesh: E % n_sh
-    nonzero raises on every rank, and so does s % n_sh when the input is
-    split."""
+@pytest.mark.parametrize("tag", list(FALLBACK))
+def test_unsupported_shards_raise(tag, results):
+    """Where JAX falls back to the GSPMD dispatch under a mesh (E % n_sh
+    nonzero: 6 experts over 4 model shards, 3 over 2) the port computes as
+    JAX does: every rank holds every expert and its block of x, the
+    dispatch ranks the mesh's pairs in the tokens' global order; y within
+    2e-5 of max(1, largest |y|) of JAX's, x's gradient block by block and
+    every leaf's gradient summed over the ranks within 1e-5 of its largest
+    |g|. A sequence that does not split over the model shards still raises
+    in ``moe_shard_input``: the port's blocks are equal, GSPMD's need not
+    be."""
     import torch
     from repro_torch.models import moe
     from repro_torch.models.config import ArchConfig
-    _, ranks = results
-    assert all(r["raised"] for r in ranks)
+    oracle, ranks = results
+    want = oracle[f"y_{tag}"]
+    np.testing.assert_allclose(_assemble_y(ranks, tag), want,
+                               atol=Y_TOL * max(1.0, np.abs(want).max()), rtol=0)
+    for leaf in LEAVES:
+        _close(sum(r[tag]["g"][leaf] for r in ranks), oracle[f"g_{tag}_{leaf}"], G_TOL)
+    (D, n_sh), _ = FALLBACK[tag]
+    gx = np.concatenate([np.concatenate([ranks[d * n_sh + m][tag]["g"]["x"]
+                                         for m in range(n_sh)], axis=1) for d in range(D)])
+    assert np.abs(gx).max() > 0
     with pytest.raises(NotImplementedError):
         moe.moe_shard_input(torch.zeros(2, 6, 32), ArchConfig(**BASE), (0, 4))

@@ -355,10 +355,10 @@ def _gather_world(rank, world):
     gradient of sum(full * w_rank) with respect to the shard."""
     import torch
     import torch.distributed as dist
-    from repro_torch.parallel.sharding import Sharded
+    from repro_torch.parallel.sharding import Sharded, Split
     shard = torch.from_numpy(np.random.default_rng(rank).standard_normal((3, 2))).requires_grad_()
     w = torch.from_numpy(np.random.default_rng(100 + rank).standard_normal((3, 2 * world)))
-    full = Sharded(shard, 1, dist.group.WORLD, world, torch.float64).full()
+    full = Sharded(shard, (Split(1, ("data",), dist.group.WORLD, world),), torch.float64).full()
     (g,) = torch.autograd.grad((full * w).sum(), shard)
     return dict(full=full.detach().numpy(), grad=g.numpy())
 
