@@ -300,6 +300,20 @@ DECODE_CASES = [
 ]
 # the decode kernel's instantiations: 3 dtype pairs x 5 head dims x G 1, 2, 3, 4, 8
 DECODE_INSTANTIATIONS = 75
+# flash_decode over a piece of the cache (starts <= t < lengths) with the
+# logsumexp, as a rank of the production mesh calls it (an fp32 q over its
+# bf16 block of a sequence-split cache): name, (b, h, kvh, S, d), window,
+# empty rows, timed. zamba2-2.7b's long_500k rank: its 32,768-position block
+# of the shared attention's cache, the 4096-position window at its end;
+# llama3.2-3b's and qwen3-moe's decode_32k rank: 8 rows, a 2048-position
+# block; a batch of which half the rows attend nothing (a rank whose block
+# lies wholly before a window, or past the position)
+DECODE_RANGE_CASES = [
+    ("zamba2_window", (1, 32, 32, 32768, 80), 4096, 0, True),
+    ("llama_block", (8, 24, 8, 2048, 128), 0, 0, True),
+    ("qwen3_block", (8, 32, 4, 2048, 128), 0, 0, True),
+    ("empty_rows", (8, 24, 8, 2048, 128), 512, 4, False),
+]
 # flash_attention cases timed: the llama3.2-3b, zamba2-2.7b, qwen3-moe, qwen2-vl-72b,
 # musicgen-medium and nemotron-4-15b prefill shapes
 FA_TIMED = ("serve", "zamba2", "qwen3", "vlm", "audio", "nemotron", "seq_shard",
@@ -591,7 +605,72 @@ def phase_kernels(dev) -> dict:
         else:
             fd[name] = row
         del expanded
+    for name, shape, window, empty, timed in DECODE_RANGE_CASES:
+        row = decode_range_case(dev, gen, name, shape, window, empty, timed)
+        if row:
+            fd[name] = row
     return {"flash_attention": fa, "flash_decode": fd}
+
+
+def decode_range_case(dev, gen, name: str, shape: tuple, window: int, empty: int,
+                      timed: bool) -> dict:
+    """``flash_decode(q, k, v, lengths, starts, lse=True)`` with an fp32 q
+    over a bf16 cache, as a rank's decode calls it, against ``ref_decode``:
+    the output at the fp32 tolerance, the logsumexp likewise, the first
+    ``empty`` rows attending nothing (0 and -inf, no NaN). Timed (kernel,
+    plain version, SDPA over the expanded cache with the range as a mask),
+    its bound the bytes of the attended ranges of K and V (each read once)
+    plus q and the output, or their products at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import decode_plan, flash_decode
+    from repro_torch.kernels.ref import ref_decode
+    b, h, kvh, S, d = shape
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).permute(0, 2, 1, 3)
+    ck, cv = (torch.randn((b, S, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+              .permute(0, 2, 1, 3) for _ in range(2))
+    lengths = torch.full((b,), S, dtype=torch.int32, device=dev)
+    if b > 1:
+        lengths[1::2] = torch.randint(1, S, (b // 2,), generator=gen, device=dev,
+                                      dtype=torch.int32)
+    starts = (lengths - window).clamp_min(0) if window else torch.zeros_like(lengths)
+    starts[:empty] = lengths[:empty]
+    out, lse = flash_decode(q, ck, cv, lengths, starts, lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = ref_decode(q, ck, cv, lengths, starts, lse=True)
+    err = compare(out, ref, "float32")
+    live = slice(empty, None)
+    lse_err = compare(lse[live], ref_lse[live], "float32")
+    check(not torch.isnan(out).any() and not torch.isnan(lse).any()
+          and not out[:empty].any() and bool(torch.isneginf(lse[:empty]).all()),
+          f"flash_decode {name}: an empty row is not 0 with a logsumexp of -inf")
+    plan = decode_plan(b, kvh, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    emit("kernels", kernel="flash_decode", case=name, shape=list(shape), dtype="float32",
+         cache_dtype="bfloat16", window=window, empty_rows=empty, split_plan=plan,
+         lengths=lengths.tolist(), starts=starts.tolist(), max_abs_err=err, lse_max_abs_err=lse_err,
+         tol=TOL["float32"])
+    if not timed:
+        return {}
+    ms = device_ms(lambda: flash_decode(q, ck, cv, lengths, starts, lse=True))
+    event_ms = time_ms(lambda: flash_decode(q, ck, cv, lengths, starts, lse=True))
+    plain_ms = device_ms(lambda: ref_decode(q, ck, cv, lengths, starts, lse=True), iters=10)
+    g = h // kvh
+    ke, ve = ck.repeat_interleave(g, dim=1), cv.repeat_interleave(g, dim=1)
+    t = torch.arange(S, device=dev)[None, :]
+    mask = ((t >= starts[:, None]) & (t < lengths[:, None]))[:, None, None, :]
+    qb = q.to(torch.bfloat16)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qb, ke, ve, attn_mask=mask))
+    keys = int((lengths - starts).clamp_min(0).sum().item())     # positions attended
+    nbytes = 2.0 * 2 * kvh * keys * d + 4.0 * 2 * q.numel() + 4 * b * h + 8 * b
+    flops = 4.0 * h * d * keys
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    row = dict(max_abs_err=err, lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes", event_ms=event_ms)
+    emit("kernels", kernel="flash_decode", case=name, ms=ms, event_ms=event_ms,
+         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=row["bound_ms"],
+         bound_by=row["bound_by"], keys_attended=keys, gbps=nbytes / ms / 1e6)
+    return row
 
 
 # ---------------------------------------------------------------------- #
@@ -2009,7 +2088,7 @@ class MoeRecorder:
 
         self._mod, self._orig = transformer, transformer.moe
 
-        def recording(x, p, cfg, group=None):
+        def recording(x, p, cfg, ctx=None, **kw):
             T = x.shape[0] * x.shape[1]
             xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, -1)
             ids = moe_mod._route(xn, p, cfg)[1]
@@ -2022,7 +2101,7 @@ class MoeRecorder:
                 plan = moe_mod.dispatch_plan(ids, cfg)
                 call = MoeCall(T, plan.capacity, plan.keep, (plan.keep,))
             self.calls.append(call)
-            return self._orig(x, p, cfg, group)
+            return self._orig(x, p, cfg, ctx, **kw)
         transformer.moe = recording
         return self
 
@@ -3171,6 +3250,69 @@ def zero3_checks(dev) -> dict:
     return launches
 
 
+# the production cells run as one rank of the fake world on the card
+# (launch/dryrun.py): arch, shape, multi-pod, with the arch's §Perf patch,
+# and the kernels its step must launch
+DRYRUN_CELLS = [
+    ("llama3.2-3b", "train_4k", False, False, ("flash_attention", "flash_attention_bwd")),
+    ("qwen3-moe-30b-a3b", "decode_32k", False, True, ("flash_decode",)),
+    ("zamba2-2.7b", "long_500k", False, False, ("flash_decode",)),
+    ("qwen2-vl-72b", "prefill_32k", True, False, ("flash_attention",)),
+]
+# reduced twins (launch/dryrun.py --reduced) whose tally must be the same on
+# the card as on the CPU, exactly: no MoE, whose routing (and so its buffers'
+# shapes) follows the random values, which the two devices draw differently
+DRYRUN_TWINS = [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k")]
+TALLY_KEYS = ("dot_flops_per_device", "collectives", "collective_counts",
+              "collective_bytes_ag2d", "collective_bytes_other2d", "collective_bytes_hi",
+              "result_bytes_per_device")
+
+
+def phase_dryrun(dev) -> dict:
+    """Each ``DRYRUN_CELLS`` cell as the dry-run's rank of the production
+    mesh (``run_cell``: a fake world of 256 or 512, data 0 and the last model
+    coordinate), one step on the card at the production shard shapes:
+    ``ok``, the argument bytes the rank holds against the specs' reckoning,
+    the peak, the FLOPs and collective bytes a rank, and the kernels it
+    launched. Then each reduced twin on the card and on the CPU: the same
+    tally. Returns each cell's launch counts, by path."""
+    import torch
+    from repro_torch.configs.registry import perf_patch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import run_cell
+
+    paths = {}
+    for arch, shape, multi_pod, optimized, kernels in DRYRUN_CELLS:
+        torch.cuda.empty_cache()
+        reset_launches()
+        rec = run_cell(arch, shape, multi_pod=multi_pod,
+                       tag="optimized" if optimized else "baseline",
+                       cfg_patch=perf_patch(arch) if optimized else None, device=dev,
+                       verbose=False)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        mem = rec.get("memory_analysis", {})
+        emit("dryrun", **{k: v for k, v in rec.items() if k != "device"}, launches=launches)
+        check(rec["ok"], f"dryrun {arch} {shape}: {rec.get('error')}")
+        check(mem["argument_bytes_held"] == mem["argument_size_in_bytes"],
+              f"dryrun {arch} {shape}: holds {mem['argument_bytes_held']} argument bytes, "
+              f"the specs give {mem['argument_size_in_bytes']}")
+        check(mem["peak_allocated_bytes"] < 80e9, f"dryrun {arch} {shape}: peak {mem}")
+        check(all(launches.get(k) for k in kernels),
+              f"dryrun {arch} {shape}: launched {launches}, not every one of {kernels}")
+        paths[f"dryrun {arch} {shape}"] = launches
+    for arch, shape in DRYRUN_TWINS:
+        card = run_cell(arch, shape, device=dev, reduced=True, tag="twin", verbose=False)
+        cpu = run_cell(arch, shape, device="cpu", reduced=True, tag="twin_cpu", verbose=False)
+        same = {k: card.get(k) == cpu.get(k) for k in TALLY_KEYS}
+        emit("dryrun_twin", arch=arch, shape=shape, ok=[card["ok"], cpu["ok"]],
+             card={k: card.get(k) for k in TALLY_KEYS}, cpu={k: cpu.get(k) for k in TALLY_KEYS},
+             same=same)
+        check(card["ok"] and cpu["ok"] and all(same.values()),
+              f"dryrun twin {arch} {shape}: the tally differs between card and CPU: {same} "
+              f"{card.get('error')} {cpu.get('error')}")
+    return paths
+
+
 def kernel_classes(rows) -> dict:
     """Device ms of profiler rows by kind: the attention and SSD kernels,
     matrix products (cuBLAS and CUTLASS), the index, sort, gather and
@@ -3362,6 +3504,8 @@ def drive(dev, smi: str, ptxas: list) -> None:
     paths[f"train {ZERO3_ARCH} zero3 rank"] = phase_zero3_rank(dev)
     torch.cuda.empty_cache()
     paths.update(phase_model_axis_rank(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_dryrun(dev))
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = {"flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:87"),

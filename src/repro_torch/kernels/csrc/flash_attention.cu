@@ -52,7 +52,11 @@
 //   - one block per (row, kv head, split) serves all g = h/kvh query heads
 //     of that kv head: each K/V element is read from device memory once,
 //     through the strides given (the model's [b, S, kvh, d] cache in place),
-//     and keys at or past lengths[b] are never read;
+//     and keys before starts[b] (a sliding window, or a rank's block of a
+//     sequence-split cache) or at or past lengths[b] are never read: a split
+//     whose range lies wholly outside [starts, lengths) issues no loads, and
+//     a row with no key gives 0 (its logsumexp, written on request from the
+//     join's m and l, is -inf);
 //   - every K/V read is one 16-byte cp.async (8 bf16 or 4 fp32 dims of a key
 //     row) into a 4-stage ring in shared memory, 16 KB a stage, 3 stages in
 //     flight: 48 KB a block, and an SM holds 3 blocks (64 KB each);
@@ -604,7 +608,8 @@ template <typename TQ, typename TKV, int D, int G>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, const int* __restrict__ lengths,
-                    TQ* __restrict__ o, int h, int kvh, int S, int split_len, int n_splits,
+                    const int* __restrict__ starts, TQ* __restrict__ o,
+                    float* __restrict__ lse, int h, int kvh, int S, int split_len, int n_splits,
                     long long qsb, long long qsh,
                     long long ksb, long long ksh, long long kss,
                     long long vsb, long long vsh, long long vss,
@@ -629,9 +634,12 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int row = lane / LPR;        // this lane's row of the warp (RPW: sits out)
   const bool active = row < RPW;
   const int grp = warp * RPW + row;
+  // the row attends [start, len): this split its part of it, none where the
+  // split's range lies wholly outside (no loads, m = -inf, l = 0)
   const int len = min(lengths[bb], S);
-  const int s0 = split * split_len;
-  const int s1 = min(s0 + split_len, len);
+  const int start = starts == nullptr ? 0 : max(starts[bb], 0);
+  const int s0 = max(split * split_len, start);
+  const int s1 = min(split * split_len + split_len, len);
   const int n_steps = s1 > s0 ? (s1 - s0 + STEP - 1) / STEP : 0;
 
   const TKV* kb = k + bb * ksb + kh * ksh + sub * VEC;
@@ -794,7 +802,10 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       a = fmaf(a, c, w * as);
       M = m_new;
     }
+    // an empty row (L = 0) gives 0 and a logsumexp of -inf
     store_f(o + bb * osb + (long long)(kh * g + gi) * osh + dd, a / fmaxf(L, 1e-30f));
+    if (lse != nullptr && dd == 0)
+      lse[(long long)bb * h + kh * g + gi] = L > 0.f ? (M + log2f(L)) * kLn2 : -INFINITY;
   }
   cluster.sync();                     // no block leaves while its partial is read
 }
@@ -858,8 +869,9 @@ int launch_fwd_d(int d, const void* q, const void* k, const void* v, void* o, fl
 
 struct DecodeArgs {
   const void *q, *k, *v;
-  const int* lengths;
+  const int *lengths, *starts;
   void* o;
+  float* lse;
   int b, h, kvh, S, split_len, n_splits;
   const long long* st;
   float scale;
@@ -894,7 +906,8 @@ int launch_decode(const DecodeArgs& a) {
   cfg.numAttrs = 1;
   const long long* st = a.st;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
-                           static_cast<const TKV*>(a.v), a.lengths, static_cast<TQ*>(a.o), a.h,
+                           static_cast<const TKV*>(a.v), a.lengths, a.starts,
+                           static_cast<TQ*>(a.o), a.lse, a.h,
                            a.kvh, a.S, a.split_len, a.n_splits, st[0], st[1], st[2], st[3],
                            st[4], st[5], st[6], st[7], st[8], st[9], a.scale * kLog2e);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1828,12 +1841,15 @@ int flash_attention_fwd(int dtype, int d, const void* q, const void* k, const vo
 // q (b, h), k (b, kvh, s), v (b, kvh, s), o (b, h). K and V are read 16 bytes
 // at a time: both pointers 16-byte aligned, their strides multiples of 16
 // bytes (the wrapper checks). 1 <= n_splits <= 8, splits of split_len keys.
+// Row i attends cache positions starts[i] <= t < lengths[i] (starts may be
+// null: 0); lse, if not null, gets each (row, head)'s logsumexp of the scaled
+// scores, fp32 [b, h] contiguous (-inf for an empty row, whose output is 0).
 int flash_decode_fwd(int q_dtype, int kv_dtype, int d, const void* q, const void* k,
-                     const void* v, const int* lengths, void* o, int b, int h, int kvh,
-                     int S, int split_len, int n_splits, const long long* strides,
-                     float scale, void* stream) {
-  const DecodeArgs a{q, k, v, lengths, o, b, h, kvh, S, split_len, n_splits, strides,
-                     scale, static_cast<cudaStream_t>(stream)};
+                     const void* v, const int* lengths, const int* starts, void* o, float* lse,
+                     int b, int h, int kvh, int S, int split_len, int n_splits,
+                     const long long* strides, float scale, void* stream) {
+  const DecodeArgs a{q, k, v, lengths, starts, o, lse, b, h, kvh, S, split_len, n_splits,
+                     strides, scale, static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && kv_dtype == 0) return launch_decode_d<float, float>(d, a);
   if (q_dtype == 1 && kv_dtype == 1) return launch_decode_d<__nv_bfloat16, __nv_bfloat16>(d, a);
   if (q_dtype == 0 && kv_dtype == 1) return launch_decode_d<float, __nv_bfloat16>(d, a);

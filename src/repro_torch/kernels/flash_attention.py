@@ -16,12 +16,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
 from . import build
 from .build import LAUNCHES
-from .ref import ref_attention, ref_attention_bwd
+from ..launch.tally import counts_as
+from .ref import ref_attention, ref_attention_bwd, ref_decode
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 # decode keeps q and the accumulators of all g heads of a kv head in each
@@ -43,7 +45,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
                                         F, I, I, P]
     lib.flash_attention_bwd.restype = I
-    lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, F, P]
+    lib.flash_decode_fwd.argtypes = [I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P, F, P]
     lib.flash_decode_fwd.restype = I
     return lib
 
@@ -95,6 +97,7 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+@counts_as(ref_attention)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, return_lse: bool = False):
     """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] -> [b, h, sq, d] (and, with
@@ -134,6 +137,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+@counts_as(ref_attention_bwd)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, dO: torch.Tensor, causal: bool = True,
                         window: int = 0):
@@ -231,16 +235,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@counts_as(ref_decode)
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
-    """Single-token attention over a KV cache.
+                 lengths: torch.Tensor, starts: Optional[torch.Tensor] = None,
+                 lse: bool = False):
+    """Single-token attention over a KV cache, or over a piece of it.
 
     q: [b, h, 1, d]; k, v: [b, kvh, S, d] with any strides whose rows
     start on 16-byte boundaries (the model passes a permuted view of its
-    [b, S, kvh, d] cache); lengths: int32 [b], each at least 1 (cache
-    position t of row i is attended when t < lengths[i]). The cache may be
-    bf16 under an fp32 q (the model's cache is always bf16). Returns
-    [b, h, 1, d] in q's dtype."""
+    [b, S, kvh, d] cache); lengths, and ``starts`` if given: int32 [b].
+    Cache position t of row i is attended when ``starts[i] <= t <
+    lengths[i]`` (``starts`` defaults to zeros): a sliding window, or a
+    rank's block of a sequence-split cache. A row may attend no position:
+    its output is 0 and its logsumexp -inf. The cache may be bf16 under an
+    fp32 q (the model's cache is always bf16). Returns [b, h, 1, d] in q's
+    dtype; with ``lse`` also each (row, head)'s logsumexp of the scaled
+    scores, fp32 [b, h, 1], from the kernel's own running max and sum."""
     if (q.dtype, k.dtype) == (torch.bfloat16, torch.float32):
         raise ValueError("an fp32 cache needs an fp32 q")
     _check_common(q, k, v)
@@ -250,20 +260,23 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode takes one query per row, got {one}")
     if h // kvh > MAX_GQA_GROUP:
         raise ValueError(f"GQA group {h // kvh} > {MAX_GQA_GROUP}")
-    if lengths.dtype != torch.int32 or lengths.shape != (b,) or \
-            lengths.device != q.device or not lengths.is_contiguous():
-        raise ValueError("lengths must be a contiguous int32 [b] tensor on q's device")
+    for name, t in (("lengths", lengths), ("starts", starts)):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (b,)
+                              or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 [b] tensor on q's device")
     split_len, n_splits = decode_plan(b, kvh, S, _sm_count(q.device.index))
     _check_16b_rows("flash_decode", k=k, v=v)
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    out_lse = torch.empty((b, h, 1), dtype=torch.float32, device=q.device) if lse else None
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 10)(
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1))
         rc = _lib().flash_decode_fwd(
             _DTYPES[q.dtype], _DTYPES[k.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, h, kvh, S, split_len, n_splits, strides,
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+            lengths.data_ptr(), None if starts is None else starts.data_ptr(), out.data_ptr(),
+            None if out_lse is None else out_lse.data_ptr(), b, h, kvh, S, split_len, n_splits,
+            strides, 1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     _check(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
-    return out
+    return (out, out_lse) if lse else out

@@ -7,7 +7,7 @@ a kernel that fails to build or launch raises.
 No gradient stops silently at a kernel. Attention carries gradients
 through ``FlashAttention`` and the SSD scan through ``SsdChunk`` (each a
 forward kernel and a backward kernel on the card, the plain pair on the
-CPU). The decode kernel has no backward: decode only serves, so on CUDA
+CPU, so a step does the same products on both: ``launch/tally.py``). The decode kernel has no backward: decode only serves, so on CUDA
 tensors that want a gradient it raises. On the CPU the plain decode is
 differentiated by autograd.
 """
@@ -43,25 +43,32 @@ def _no_backward(kernel: str, why: str) -> NotImplementedError:
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d]. On the card a gradient
-    goes through ``FlashAttention`` (the forward then saves each row's
-    logsumexp); without one the forward kernel runs alone."""
-    if _on_cuda(q):
-        if _wants_grad(q, k, v):
-            return FlashAttention.apply(q, k, v, causal, window)
+    """q: [b, h, sq, d]; k, v: [b, kvh, skv, d]. A gradient goes through
+    ``FlashAttention`` (the forward saves each row's logsumexp; the
+    backward is the kernel on the card, ``ref_attention_bwd`` on the CPU),
+    so both devices run the same pair of functions; without one the
+    forward kernel, or its plain version, runs alone."""
+    on_card = _on_cuda(q)
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
+    if on_card:
         return flash_attention(q, k, v, causal=causal, window=window)
     return ref_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        lengths: torch.Tensor) -> torch.Tensor:
-    """q: [b, h, 1, d]; k, v: [b, kvh, S, d] (any strides); lengths [b]."""
+                        lengths: torch.Tensor, starts: Optional[torch.Tensor] = None,
+                        lse: bool = False):
+    """q: [b, h, 1, d]; k, v: [b, kvh, S, d] (any strides); row i attends
+    positions ``starts[i] <= t < lengths[i]`` (int32 [b]; ``starts``
+    defaults to zeros); with ``lse`` also the (row, head) logsumexps, fp32
+    [b, h, 1] (the ``flash_decode`` contract)."""
     if _on_cuda(q):
         if _wants_grad(q, k, v):
             raise _no_backward("flash_decode",
                                "decode serves; training runs the full-sequence path")
-        return flash_decode(q, k, v, lengths)
-    return ref_decode(q, k, v, lengths)
+        return flash_decode(q, k, v, lengths, starts, lse)
+    return ref_decode(q, k, v, lengths, starts, lse)
 
 
 def batched_feasible_op(vtype: torch.Tensor, vok: torch.Tensor, vsize: torch.Tensor,

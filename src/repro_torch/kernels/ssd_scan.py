@@ -30,6 +30,7 @@ import torch
 
 from . import build
 from .build import LAUNCHES
+from ..launch.tally import counts_as
 from .ref import ref_ssd_chunk, ref_ssd_chunk_bwd
 
 MAX_CHUNK = 256          # kMaxQ: the chunk's dt, seg and weights sit in shared memory
@@ -104,6 +105,7 @@ def _strides(x, dt, B, C):
         B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2))
 
 
+@counts_as(ref_ssd_chunk)
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
               C: torch.Tensor, chunk: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -137,6 +139,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tenso
     return y, states, decay
 
 
+@counts_as(ref_ssd_chunk_bwd)
 def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                   C: torch.Tensor, chunk: int, gy: torch.Tensor, gstates: torch.Tensor,
                   gdecay: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +33,7 @@ from ..configs.registry import ARCH_IDS, get_config
 from ..device import resolve_device
 from ..models.config import ShapeConfig
 from ..models.model import Model, make_model
+from ..parallel.sharding import ShardingCtx, gather_seq, seq_shards
 
 
 def _sync(dev: torch.device) -> None:
@@ -40,13 +41,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def splice_cache(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor]) -> None:
+def splice_cache(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor],
+                 ctx: Optional[ShardingCtx] = None) -> None:
     """Copy a prefill cache into the max_len decode buffers, in place and
     in each buffer's dtype. KV caches are shorter on their sequence axis
     and land at its start; SSM states match their buffers and are copied
-    whole (``splice`` in repro/launch/serve.py)."""
+    whole (``splice`` in repro/launch/serve.py). Under ``ctx``'s mesh both
+    are this rank's blocks: the prompt's KV blocks are gathered over
+    "model" and the rank keeps the part that falls in its block of the
+    buffer (JAX's reshard of the prefill cache into the decode layout)."""
+    sp = seq_shards(ctx)
     for name, buf in cache.items():
         part = pcache[name]
+        if sp is not None and name.endswith(("k", "v")):
+            ax = buf.dim() - 3                          # [..., b, S, kvh, d]
+            whole = gather_seq(part.contiguous(), ax, sp)
+            first, S = sp.rank * buf.shape[ax], buf.shape[ax]
+            n = max(0, min(whole.shape[ax] - first, S))
+            buf.narrow(ax, 0, n).copy_(whole.narrow(ax, min(first, whole.shape[ax]), n))
+            continue
         buf[tuple(slice(0, n) for n in part.shape)].copy_(part)
 
 

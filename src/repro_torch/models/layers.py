@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import attention_op, decode_attention_op
-from ..parallel.sharding import SeqShards, gather_seq, gathered
+from ..parallel.sharding import SeqShards, all_reduce, gather_seq, gathered, gathered_but_model
 from .config import ArchConfig
 
 
@@ -145,7 +145,9 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     Decode: ``x`` is [b, 1, e]; ``cache`` holds this layer's k/v
     [b, S, kvh, d] (bf16), which the new k/v are written into IN PLACE
     at ``cache_index``. Row i attends cache positions <= positions[i, 0]
-    (under M-RoPE, the temporal stream's: positions[0, i, 0]).
+    (under M-RoPE, the temporal stream's: positions[0, i, 0]), within the
+    window if there is one. Under ``sp`` x is whole on every model rank
+    and the cache is the rank's block of the sequence (``_decode``).
     """
     b, s, e = x.shape
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -167,19 +169,10 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     if cache is not None:
         if s != 1:
             raise ValueError(f"decode takes one token per row, got {s}")
-        if window:
-            raise NotImplementedError("sliding-window decode")
         ck, cv = cache["k"], cache["v"]
-        # the cache keeps its dtype (bf16): new k/v are rounded to it
-        ck[:, cache_index:cache_index + 1] = k.to(ck.dtype)
-        cv[:, cache_index:cache_index + 1] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
         ppos = positions if positions.dim() == 2 else positions[0]    # mrope: t
-        lengths = (ppos[:, 0] + 1).to(torch.int32)
-        # the kernel reads the [b, S, kvh, d] cache in place through a
-        # [b, kvh, S, d] view, and attends it in fp32
-        o = decode_attention_op(q.permute(0, 2, 1, 3), ck.permute(0, 2, 1, 3),
-                                cv.permute(0, 2, 1, 3), lengths)
+        o = _decode(q, k, v, ck, cv, ppos[:, 0], cache_index, window, sp)
     else:
         if want_cache:
             new_cache = {"k": k, "v": v}
@@ -190,6 +183,44 @@ def attention(x: torch.Tensor, p: Dict, cfg: ArchConfig,
                          v.permute(0, 2, 1, 3), causal=True, window=window)
     o = o.permute(0, 2, 1, 3).reshape(b, s, h * d)
     return o @ p["wo"].to(cdt), new_cache
+
+
+def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ck: torch.Tensor,
+            cv: torch.Tensor, pos: torch.Tensor, cache_index: int, window: int,
+            sp: Optional[SeqShards]) -> torch.Tensor:
+    """One query row a head (q [b, 1, h, d]) against the cache [b, S, kvh,
+    d], after writing the new k/v [b, 1, kvh, d] into it at
+    ``cache_index``; row i attends positions t <= pos[i] (with a window,
+    t > pos[i] - window, as JAX's mask). Under a sequence split ``sp`` the
+    cache is model rank r's block of S positions [r S, (r+1) S): only the
+    block that holds ``cache_index`` writes, the rank attends its own
+    positions of that range (lengths = clamp(pos + 1 - r S, 0, S), starts =
+    clamp(pos + 1 - window - r S, 0, S): a rank may attend none), and the
+    ranks' (output, logsumexp) pairs, gathered over "model", combine into
+    the softmax over every position. Returns [b, h, 1, d]."""
+    S = ck.shape[1]
+    first = 0 if sp is None else sp.rank * S
+    if first <= cache_index < first + S:
+        # the cache keeps its dtype (bf16): new k/v are rounded to it
+        ck[:, cache_index - first:cache_index - first + 1] = k.to(ck.dtype)
+        cv[:, cache_index - first:cache_index - first + 1] = v.to(cv.dtype)
+    lengths = (pos + 1 - first).clamp(0, S).to(torch.int32)
+    starts = (pos + 1 - window - first).clamp(0, S).to(torch.int32) if window else None
+    # the kernel reads the [b, S, kvh, d] cache in place through a [b, kvh,
+    # S, d] view, and attends it in fp32
+    qh, kh, vh = q.permute(0, 2, 1, 3), ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3)
+    if sp is None:
+        return decode_attention_op(qh, kh, vh, lengths, starts)
+    # each rank's partial softmax in fp32 (an fp32 q over the bf16 cache),
+    # then o = sum_r exp(lse_r - lse) o_r with lse = logsumexp_r lse_r
+    o, lse = decode_attention_op(qh.float(), kh, vh, lengths, starts, lse=True)
+    parts = gather_seq(torch.cat([o[:, :, 0], lse], dim=-1)[None], 0, sp)   # [m, b, h, d+1]
+    o_r, lse_r = parts[..., :-1], parts[..., -1:]
+    top = lse_r.amax(0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse_r - top)                               # 0 where a rank attended nothing
+    o = (w * o_r).sum(0) / w.sum(0).clamp_min(torch.finfo(torch.float32).tiny)
+    return o[:, :, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------- #
@@ -207,7 +238,19 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSpe
     return specs
 
 
-def mlp(x: torch.Tensor, p: Dict, cfg: ArchConfig, normed: bool = False) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: Dict, cfg: ArchConfig, normed: bool = False,
+        sp: Optional[SeqShards] = None) -> torch.Tensor:
+    """The MLP of x [b, s, e]. With ``sp`` (decode on a mesh, x whole on
+    every model rank) it is tensor-parallel over the "model" ranks, as
+    GSPMD partitions JAX's decode: p's weights may be ``Sharded`` leaves,
+    gathered over every axis but "model" (``gathered_but_model``), so that
+    the rank holds its block of f (columns of w_up and w_gate, rows of
+    w_down), and the partial outputs are summed over the model group."""
+    if sp is not None:
+        p = {k: gathered_but_model(v) for k, v in p.items()}
+        y = mlp(x, p, cfg, normed)
+        all_reduce(y, sp.group)
+        return y
     cdt = x.dtype
     xn = x if normed else rmsnorm(x, p["norm"], cfg.norm_eps)
     up = xn @ p["w_up"].to(cdt)

@@ -96,20 +96,28 @@ def _head_groups(H: int, G: int, sp: SeqShards) -> slice:
     return slice(first, first + max(Hl // rep, 1))
 
 
+def _rank_heads(H: int, sp: SeqShards) -> slice:
+    """Model rank r's heads [r H/m, (r+1) H/m) ("ssm_heads" over "model")."""
+    return slice(sp.rank * H // sp.n, (sp.rank + 1) * H // sp.n)
+
+
 def _scan_heads(xh: torch.Tensor, dtp: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                BC: torch.Tensor, cfg: ArchConfig, sp: SeqShards) -> torch.Tensor:
+                BC: torch.Tensor, cfg: ArchConfig, sp: SeqShards, want_state: bool = False):
     """The SSD scan and the D residual of the rank's positions xh [b, s/m,
     H, P], dtp [b, s/m, H] and BC [b, s/m, 2 G N] (B, then C), run on the
-    rank's heads over the whole sequence; y [b, s/m, H, P] fp32."""
+    rank's heads over the whole sequence; y [b, s/m, H, P] fp32 (and, with
+    ``want_state``, the rank's heads' final state [b, H/m, P, N])."""
     b, sl = xh.shape[:2]
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    heads = slice(sp.rank * H // sp.n, (sp.rank + 1) * H // sp.n)
+    heads = _rank_heads(H, sp)
     groups = _head_groups(H, G, sp)
     xs, dts = seq_to_heads(xh, sp), seq_to_heads(dtp, sp)       # [b, s, H/m, ...]
     BCs = gather_seq(BC, 1, sp).view(b, sl * sp.n, 2, G, N)[:, :, :, groups]
-    y = ssd_scan_op(xs, dts, A[heads], BCs[:, :, 0], BCs[:, :, 1], cfg.ssm_chunk)
-    y = y + xs * D[heads][None, None, :, None]
-    return heads_to_seq(y, sp)
+    out = ssd_scan_op(xs, dts, A[heads], BCs[:, :, 0], BCs[:, :, 1], cfg.ssm_chunk,
+                      return_state=want_state)
+    y, final = out if want_state else (out, None)
+    y = heads_to_seq(y + xs * D[heads][None, None, :, None], sp)
+    return (y, final) if want_state else y
 
 
 def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
@@ -120,8 +128,11 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     returns the final recurrent state); otherwise a single-token recurrent
     decode step (x: [b, 1, e]) from ``state`` {"conv" [b, K-1, conv_dim],
     "ssm" [b, H, P, N]}, returning the new state in the dtypes of the old
-    (fp32 in the model's cache). ``sp``: the sequence split of a training
-    step, x being this rank's block of positions (no state then)."""
+    (fp32 in the model's cache). ``sp``: the mesh's "model" axis. In
+    prefill x is this rank's block of positions and the state it returns
+    the conv's last K - 1 positions (whole) and its heads' SSM state; in
+    decode x is whole on every model rank and ``state["ssm"]`` holds the
+    rank's H/m heads, which it steps, gathering y's heads over "model"."""
     b, s, _ = x.shape
     cdt = x.dtype
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
@@ -135,12 +146,16 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
 
     new_state = None
     if state is None and sp is not None:
-        if want_state:
-            raise ValueError("a prefill state binds no mesh: serving runs on one device")
         conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
                        halo_prev(conv_in, CONV_K - 1, sp))
         xh = conv[..., :cfg.d_inner].reshape(b, s, H, P).float()
-        y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp)
+        y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp, want_state)
+        if want_state:
+            # the conv state is the sequence's last K - 1 positions (the last
+            # rank's), whole on every rank; the SSM state the rank's heads'
+            y, final = y
+            tail = gather_seq(conv_in[:, -(CONV_K - 1):], 1, sp)[:, -(CONV_K - 1):]
+            new_state = {"conv": tail.float(), "ssm": final.float()}
         y = y.reshape(b, s, cfg.d_inner).to(cdt)
     elif state is None:
         conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
@@ -167,10 +182,17 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
         xh = xc.reshape(b, H, P).float()
         Bh = Bc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
         Ch = Cc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
+        if sp is not None:
+            # the state holds the rank's heads: step them, gather y's heads
+            heads = _rank_heads(H, sp)
+            xh, Bh, Ch, dtp, A, D = xh[:, heads], Bh[:, heads], Ch[:, heads], \
+                dtp[:, heads], A[heads], D[heads]
         da = torch.exp(dtp * A[None, :])                               # [b, H]
         h = h * da[:, :, None, None] + torch.einsum("bhp,bhn,bh->bhpn", xh, Bh, dtp)
         y = torch.einsum("bhpn,bhn->bhp", h, Ch)
         y = y + xh * D[None, :, None]
+        if sp is not None:
+            y = gather_seq(y, 1, sp)                                   # [b, H, P]
         y = y.reshape(b, 1, cfg.d_inner).to(cdt)
         new_state = {"conv": window[:, 1:].to(state["conv"].dtype),
                      "ssm": h.to(state["ssm"].dtype)}

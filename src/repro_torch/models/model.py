@@ -34,7 +34,11 @@ the gradients come back as shards, summed over the gathers' axes by
 their reduce-scatters. The step's batch is this rank's block of the
 global one: its rows over "data" and, where the "model" axis has more
 than one rank, its positions over "model" (``input_shardings``).
-Serving binds no mesh, as JAX's ``run_serving``.
+Serving under a mesh (``prefill_step``, ``serve_step``: JAX's dry-run
+compiles both on the production meshes) runs the layers on the rank's
+block in the same way, without autograd: prefill's positions over
+"model", decode's one token whole over "model" against the rank's block
+of the sequence-split cache (``cache_shardings``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from torch import nn
 from ..device import resolve_device
 from ..optim.adamw import (LeafShards, OptConfig, OptState, apply_updates, init_opt_state,
                            opt_state_specs)
-from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, gather_splits, shard_shape,
+from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, all_reduce, axis_group,
+                                 batch_size, gather_seq, gather_splits, seq_shards, shard_shape,
                                  splits_of)
 from .config import ArchConfig, ShapeConfig
 from .layers import ParamSpec
@@ -253,6 +258,19 @@ class Model(nn.Module):
         self._compute = None
 
     @torch.no_grad()
+    def init_shards(self, generator: torch.Generator) -> None:
+        """Draw this rank's shard of every parameter from ``generator`` (on
+        the model's device) with the init rule's distribution, and never
+        build a whole leaf: a model whose whole masters do not fit one
+        device (qwen2-vl-72b, llama4-maverick) is laid out this way for the
+        dry-run. The values are random and depend on the mesh; nothing the
+        dry-run counts depends on them."""
+        state = self.state_dict()
+        for name, spec in self.param_specs().items():
+            spec.materialize_(state[name], generator)
+        self._compute = None
+
+    @torch.no_grad()
     def load_params(self, state: Mapping[str, torch.Tensor]) -> None:
         """Copy whole leaves (e.g. from ``convert.params_from_jax``), each
         rank its shard."""
@@ -266,11 +284,14 @@ class Model(nn.Module):
             masters[name].copy_(psh[name].shard(t, name))
         self._compute = None
 
-    def compute_params(self) -> Dict:
+    def compute_params(self, decode: bool = False) -> Dict:
         """The parameter tree the layers use: the matrices JAX casts in the
-        compute dtype (cast once), the rest, and the embeddings, as stored."""
+        compute dtype (cast once), the rest, and the embeddings, as stored.
+        Under a mesh, the step tree of this rank's shards (``_step_tree``),
+        which each layer gathers where it uses it; ``decode``: the experts
+        gathered whole too (decode's MoE layer falls back to the dispatch)."""
         if self.ctx.mesh is not None:
-            raise RuntimeError("serving binds no mesh: the model holds shards")
+            return self._step_tree(dict(self.masters()), keep_experts=not decode)
         if self._compute is None:
             cdt = getattr(torch, self.cfg.dtype)
             self._compute = {name: _cast(_tree(getattr(self, name)), cdt)
@@ -290,15 +311,16 @@ class Model(nn.Module):
         """Zeroed moments in the masters' layout (this rank's shards)."""
         return init_opt_state(self.masters(), self.opt)
 
-    def _step_tree(self, leaves: Dict[str, torch.Tensor]) -> Dict:
+    def _step_tree(self, leaves: Dict[str, torch.Tensor], keep_experts: bool = True) -> Dict:
         """The parameter tree a step's layers take, from its leaves: under a
         mesh each split leaf as a ``Sharded`` (gathered by the layer that
         uses it), then the compute-dtype casts of ``_cast``. The experts of
-        ``moe_a2a`` keep their split over "model" (``moe.a2a_shards``)."""
+        ``moe_a2a`` keep their split over "model" (``moe.a2a_shards``) when
+        ``keep_experts``."""
         cdt = getattr(torch, self.cfg.dtype)
         mesh = self.ctx.mesh
         if mesh is not None:
-            keep_model = a2a_shards(self.cfg, mesh) > 1
+            keep_model = keep_experts and a2a_shards(self.cfg, mesh) > 1
             specs = self.param_specs()
             for name, sh in self.param_shardings().items():
                 splits = splits_of(sh.spec, mesh)
@@ -374,9 +396,37 @@ class Model(nn.Module):
         return opt_state, {"loss": loss}
 
     @torch.no_grad()
+    def mean_over_batch(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
+        """This rank's loss and gradients, its parts of the global batch's,
+        summed over the mesh and divided by the number of batch blocks
+        (pod x data): after it, each rank's gradient shard is its block of
+        JAX's global-batch-mean gradient, and the loss is the global mean,
+        before clipping reads the global norm. The batch axes split the
+        rows and the model ranks one sequence (``loss_fn``'s part is over
+        the rank's rows' tokens), so only the batch axes divide. A leaf's
+        gradient shard already holds its sum over the axes the leaf is
+        split over (its gathers' reduce-scatters; a shard that a layer uses
+        unsplit, as ``moe_a2a`` uses its experts, holds every use of it); it
+        is all-reduced over the mesh's other axes, a whole leaf's over the
+        whole mesh (a ``train_step``'s ``reduce``)."""
+        mesh = self.ctx.mesh
+        shards, n = self.shards(), batch_size(self.ctx)
+        for name, g in grads.items():
+            rest = tuple(a for a in mesh.mesh_dim_names if a not in shards.axes(name))
+            group, _ = axis_group(mesh, rest)
+            if group is not None:
+                all_reduce(g, group)
+            g.div_(n)
+        loss = loss.clone()
+        group, _ = axis_group(mesh, mesh.mesh_dim_names)
+        if group is not None:
+            all_reduce(loss, group)
+        return loss / n, grads
+
+    @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of ``batch`` at the current masters."""
-        return loss_fn(self.compute_params(), self.cfg, batch)
+        return loss_fn(self.compute_params(), self.cfg, batch, self.ctx)
 
     # -------------------------------------------------------------- #
     # serving steps
@@ -387,24 +437,36 @@ class Model(nn.Module):
     def prefill_step(self, tokens: Optional[torch.Tensor] = None, *,
                      embeds: Optional[torch.Tensor] = None):
         """Full-context forward returning (last-token logits [b, 1, v],
-        the prefill cache of ``transformer.forward``)."""
+        the prefill cache of ``transformer.forward``). Under a mesh the
+        batch is this rank's block ({tokens [b/(pod data), s/model]}:
+        ``input_shardings``), every layer runs on it as in training, without
+        autograd, gathering each split leaf where it uses it; the logits are
+        those of the sequence's last position (on the last model rank),
+        and the cache is this rank's blocks in ``cache_shardings``' layout."""
         mode = "last" if self.cfg.prefill_last_logits else "all"
-        logits, cache = forward(self.compute_params(), self.cfg, tokens,
-                                want_cache=True, logits_positions=mode, embeds=embeds)
+        logits, cache = forward(self.compute_params(), self.cfg, tokens, want_cache=True,
+                                logits_positions=mode, embeds=embeds, ctx=self.ctx)
+        sp = seq_shards(self.ctx)
+        if sp is not None and mode == "all":
+            # the rank's block's logits: the sequence's last is the last rank's
+            logits = gather_seq(logits[:, -1:, :].contiguous(), 1, sp)
         return logits[:, -1:, :], cache
 
     @torch.no_grad()
     def serve_step(self, cache: Dict, tokens: Optional[torch.Tensor], pos: int, *,
                    embeds: Optional[torch.Tensor] = None):
-        """One decode step: (logits [b, 1, v], cache updated in place)."""
-        return decode_step(self.compute_params(), cache, self.cfg, tokens, pos,
-                           embeds=embeds)
+        """One decode step: (logits [b, 1, v], cache updated in place).
+        Under a mesh tokens [b/(pod data), 1] are the rank's rows, whole
+        over "model", and ``cache`` its blocks (``init_cache``)."""
+        return decode_step(self.compute_params(decode=True), cache, self.cfg, tokens, pos,
+                           embeds=embeds, ctx=self.ctx)
 
     @torch.no_grad()
     def forward_logits(self, tokens: Optional[torch.Tensor] = None, *,
                        embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits [b, s, v] of a full forward, no cache."""
-        return forward(self.compute_params(), self.cfg, tokens, embeds=embeds)[0]
+        return forward(self.compute_params(), self.cfg, tokens, embeds=embeds,
+                       ctx=self.ctx)[0]
 
     # -------------------------------------------------------------- #
     # cache
@@ -412,10 +474,18 @@ class Model(nn.Module):
     def cache_specs(self, shape: ShapeConfig):
         return init_cache_specs(self.cfg, shape.global_batch, shape.seq_len)
 
+    def cache_shapes(self, shape: ShapeConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(this rank's shape, dtype) of each decode buffer: the whole
+        buffer without a mesh, its block in ``cache_shardings``' layout."""
+        specs, csh = self.cache_specs(shape), self.cache_shardings()
+        return {k: (shard_shape(s, csh[k].spec, self.ctx.mesh, k) if csh else s, dt)
+                for k, (s, dt) in specs.items()}
+
     def init_cache(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
-        """Zeroed decode buffers, each in its own dtype (bf16 KV, fp32 states)."""
+        """Zeroed decode buffers, each in its own dtype (bf16 KV, fp32
+        states), this rank's blocks under a mesh."""
         return {k: torch.zeros(s, dtype=dt, device=self.device)
-                for k, (s, dt) in self.cache_specs(shape).items()}
+                for k, (s, dt) in self.cache_shapes(shape).items()}
 
 
 def make_model(cfg: ArchConfig, ctx: Optional[ShardingCtx] = None,

@@ -43,7 +43,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..parallel.sharding import all_gather_flat, axis_group, mesh_shape, reduce_scatter_flat
+from ..parallel.sharding import (all_gather_flat, all_to_all, axis_group, batch_axes, mesh_shape,
+                                 reduce_scatter_flat)
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -264,16 +265,19 @@ def _all_to_all_rows(x: torch.Tensor, out_splits: List[int], in_splits: List[int
                      group) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
-    dist.all_to_all_single(out, x, output_split_sizes=out_splits,
-                           input_split_sizes=in_splits, group=group)
+    all_to_all(out, x, group, out_splits, in_splits)
     return out
 
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's t [T, ...] of ``group``, concatenated in rank order."""
+    """Every rank's t [T, ...] of ``group``, concatenated in rank order.
+    The buffer starts as n copies of this rank's t (the plan's expert ids),
+    so that under a process group whose collectives move nothing (the
+    dry-run's fake group) the plan made from it is this rank's tokens' for
+    every rank, never one read from uninitialised memory."""
     t = t.contiguous()
-    out = torch.empty((dist.get_world_size(group) * t.shape[0],) + tuple(t.shape[1:]),
-                      dtype=t.dtype, device=t.device)
+    n = dist.get_world_size(group)
+    out = t.repeat((n,) + (1,) * (t.dim() - 1))
     all_gather_flat(out, t, group)
     return out
 
@@ -377,7 +381,7 @@ class _AllToAll(torch.autograd.Function):
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    all_to_all(out, x, group)
     return out
 
 
@@ -554,18 +558,19 @@ def moe_shard_params(p: Dict, cfg: ArchConfig, model: Tuple[int, int],
 def moe_shard_input(x: torch.Tensor, cfg: ArchConfig, model: Tuple[int, int],
                     data: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Rank (d, m)'s slice of x [b, s, e] (JAX's ``x_spec``): its batch rows
-    over "data", its sequence positions over "model". Where s % n_sh is
-    nonzero GSPMD splits the sequence unevenly, which the port's blocks do
-    not: it raises there."""
+    over "data", its sequence positions over "model"; where s % n_sh is
+    nonzero, where JAX's ``moe_a2a`` falls back to the dispatch, every
+    position (decode's token is whole over "model")."""
     b, s, _ = x.shape
     (m, n_sh), (d, D) = model, data
-    if s % n_sh:
-        raise NotImplementedError(
-            f"a sequence of {s} over {n_sh} model shards: JAX's GSPMD splits it unevenly "
-            "(repro/models/moe.py:165-174), the port's equal blocks do not")
     if b % D:
         raise ValueError(f"batch {b} does not split over {D} data ranks")
-    return x[d * b // D:(d + 1) * b // D, m * s // n_sh:(m + 1) * s // n_sh]
+    rows = slice(d * b // D, (d + 1) * b // D)
+    if s % n_sh:
+        # JAX's moe_a2a falls back to the dispatch, over tokens whole on
+        # every model shard (decode's one position)
+        return x[rows]
+    return x[rows, m * s // n_sh:(m + 1) * s // n_sh]
 
 
 def moe_a2a(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None) -> torch.Tensor:
@@ -592,7 +597,7 @@ def moe_a2a(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None) -> torch.Tensor
         sizes = mesh_shape(mesh)
         n_sh = sizes.get("model", 0)
         if not n_sh or cfg.n_experts % n_sh:
-            return moe_dispatch(x, p, cfg, *_token_group(mesh))
+            return moe_dispatch(x, p, cfg, *_token_group(ctx))
         exchange = group_exchange(mesh.get_group("model"))
         if cfg.moe_ep2d and "data" in sizes:
             data = (mesh.get_group("data"), sizes["data"])
@@ -609,12 +614,15 @@ def add_shared(y: torch.Tensor, x: torch.Tensor, p: Dict, cfg: ArchConfig) -> to
     return y + _shared(xn, p, cfg).view(b, s, e)
 
 
-def _token_group(mesh) -> Tuple[object, int]:
-    """(the group over which a mesh splits the batch, the ranks to a
-    sequence): the flattened ("data", "model") group, whose consecutive
-    "model" ranks hold one sequence's blocks."""
-    group, _ = axis_group(mesh, ("data", "model"))
-    return group, mesh_shape(mesh).get("model", 1)
+def _token_group(ctx, seq_split: bool = True) -> Tuple[object, int]:
+    """(the group over which ``ctx``'s mesh splits the batch, the ranks to
+    a sequence): with ``seq_split`` the flattened batch and "model" axes,
+    whose consecutive "model" ranks hold one sequence's blocks; without
+    (decode's token, whole over "model") the batch axes alone."""
+    if not seq_split:
+        return axis_group(ctx.mesh, batch_axes(ctx))[0], 1
+    group, _ = axis_group(ctx.mesh, batch_axes(ctx) + ("model",))
+    return group, mesh_shape(ctx.mesh).get("model", 1)
 
 
 def a2a_shards(cfg: ArchConfig, mesh) -> int:
@@ -639,23 +647,27 @@ def _f_slice(p: Dict, cfg: ArchConfig, mesh) -> Dict:
             "w_down": p["w_down"][:, f]}
 
 
-def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None) -> torch.Tensor:
+def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None,
+        seq_split: bool = True) -> torch.Tensor:
     """The layer ``cfg.moe_impl`` names, on this rank's block of the batch
-    under ``ctx``'s mesh. The dense oracle couples no tokens. ``moe_a2a``
+    under ``ctx``'s mesh: its rows over the batch axes and, with
+    ``seq_split``, its positions over "model" (decode's one position is
+    whole over "model"). The dense oracle couples no tokens. ``moe_a2a``
     runs over the "model" group where the mesh's "model" axis has n_sh > 1
-    ranks and E divides by it (p then holds the rank's E / n_sh experts,
-    ``a2a_shards``; under ``moe_ep2d`` their f is sliced over "data" here),
-    and at one model shard on the rank's own tokens, as JAX's ``shard_map``
-    body does. The dispatch, and ``moe_a2a`` where JAX falls back to it,
-    ranks its pairs over the mesh's tokens in their global order and splits
-    its buffer's capacity over the mesh (``moe_dispatch``)."""
+    ranks, E divides by it and the sequence is split over it (p then holds
+    the rank's E / n_sh experts, ``a2a_shards``; under ``moe_ep2d`` their f
+    is sliced over "data" here), and at one model shard on the rank's own
+    tokens, as JAX's ``shard_map`` body does. The dispatch, and ``moe_a2a``
+    where JAX falls back to it (decode: s % n_sh nonzero), ranks its pairs
+    over the mesh's tokens in their global order and splits its buffer's
+    capacity over the ranks that hold distinct tokens (``moe_dispatch``)."""
     if cfg.moe_impl == "dense":
         return moe_dense(x, p, cfg)
     mesh = None if ctx is None else ctx.mesh
-    if cfg.moe_impl == "a2a" and a2a_shards(cfg, mesh) > 1:
+    if cfg.moe_impl == "a2a" and seq_split and a2a_shards(cfg, mesh) > 1:
         return moe_a2a(x, _f_slice(p, cfg, mesh), cfg, ctx)
     if cfg.moe_impl == "a2a" and (mesh is None or mesh_shape(mesh).get("model", 1) == 1):
         return moe_a2a(x, p, cfg)
     if mesh is None:
         return moe_dispatch(x, p, cfg)
-    return moe_dispatch(x, p, cfg, *_token_group(mesh))
+    return moe_dispatch(x, p, cfg, *_token_group(ctx, seq_split))

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import SeqShards, ShardingCtx, gather_tree, seq_shards
+from ..parallel.sharding import SeqShards, ShardingCtx, gather_seq, gather_tree, seq_shards
 from .config import ArchConfig
 from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
@@ -175,8 +175,6 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
     conv_dim], "ssm" [L, b, H, P, N]} in fp32; hybrid the ssm states plus
     {"shared_k", "shared_v"} [groups, b, s, kvh, d]."""
     sp = seq_shards(ctx)
-    if sp is not None and want_cache:
-        raise ValueError("a prefill cache binds no mesh: serving runs on one device")
     x, positions = _inputs(params, cfg, tokens, embeds, sp=sp)
     _, per = _group_layout(cfg)
     cache: Dict[str, list] = {}
@@ -227,6 +225,9 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
             collect(kv)
     if logits_positions == "last":
         x = x[:, -1:, :]
+        if sp is not None:
+            # the sequence's last position is the last model rank's
+            x = gather_seq(x, 1, sp)[:, -1:, :]
     logits = lm_logits(x, params["embed"], cfg)
     return logits, (_pack_cache(cfg, cache) if want_cache else None)
 
@@ -297,22 +298,35 @@ def cache_shardings(cfg: ArchConfig, ctx: ShardingCtx):
 
 def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
                 tokens: Optional[torch.Tensor], pos: int, *,
-                embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                embeds: Optional[torch.Tensor] = None,
+                ctx: Optional[ShardingCtx] = None) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens [b, 1] (or ``embeds`` [b, 1, e]); ``pos`` is
     the write position (the current context length). Updates ``cache`` in
     place (new k/v at ``pos``, new SSM states) and returns (logits
-    [b, 1, v], cache)."""
+    [b, 1, v], cache). Under ``ctx``'s mesh the rows are this rank's and
+    whole over "model"; each layer's split leaves are gathered where they
+    are used; the cache is this rank's blocks (``cache_shardings``):
+    attention runs over the rank's block of the sequence and combines the
+    model ranks' partial results, the MLP is tensor-parallel over "model"
+    (its weights' "tp" blocks), Mamba2 steps its H/m heads, and the MoE
+    layer plans the batch's tokens over the batch axes."""
+    sp = seq_shards(ctx)
     x, positions = _inputs(params, cfg, tokens, embeds, offset=pos)
     groups, per = _group_layout(cfg)
 
     def block(x, bp, ck, cv):
-        return _block(x, bp, cfg, positions, cache={"k": ck, "v": cv}, cache_index=pos)[0]
+        a, _ = attention(x, gather_tree(bp["attn"]), cfg, positions, cache={"k": ck, "v": cv},
+                         cache_index=pos, sp=sp)
+        x = x + a
+        ffn = (moe(x, gather_tree(bp["ffn"]), cfg, ctx, seq_split=False) if "ffn" in bp
+               else mlp(x, bp["mlp"] if sp is not None else gather_tree(bp["mlp"]), cfg, sp=sp))
+        return x + ffn
 
     if cfg.family in ("ssm", "hybrid"):
         layers = _unstack(params["blocks"], cfg.n_layers)
         for i in range(cfg.n_layers):
-            y, st = mamba_layer(x, layers[i], cfg,
-                                state={"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+            y, st = mamba_layer(x, gather_tree(layers[i]), cfg,
+                                state={"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, sp=sp)
             cache["conv"][i].copy_(st["conv"])
             cache["ssm"][i].copy_(st["ssm"])
             x = x + y

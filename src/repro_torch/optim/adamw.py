@@ -27,9 +27,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
-from ..parallel.sharding import PartitionSpec, axis_group, spec_axes
+from ..parallel.sharding import PartitionSpec, all_reduce, axis_group, spec_axes
 from .schedule import warmup_cosine
 
 CHUNK_ELEMENTS = 1 << 26        # 256 MB of fp32 per temporary
@@ -128,7 +127,7 @@ def global_norm(tree: Dict[str, torch.Tensor], shards: Optional[LeafShards] = No
     for key in sorted(sums):
         group, _ = (None, 1) if shards is None else shards.group(key)
         if group is not None:
-            dist.all_reduce(sums[key], group=group)
+            all_reduce(sums[key], group)
         split = split + sums[key]
     return torch.sqrt(split + whole)
 
@@ -143,7 +142,7 @@ def _mean(t: torch.Tensor, dim: Optional[int], axes: Tuple[str, ...],
         return torch.mean(t) if dim is None else t.mean(dim=dim, keepdim=keepdim)
     s = torch.sum(t) if dim is None else t.sum(dim=dim, keepdim=keepdim)
     if group is not None:
-        dist.all_reduce(s, group=group)
+        all_reduce(s, group)
     count = t.numel() if dim is None else t.shape[dim]
     return s / (count * n)
 

@@ -25,7 +25,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from .sharding import mesh_shape
+from .sharding import all_reduce, mesh_shape
 
 
 def _const(like: torch.Tensor, value: float) -> torch.Tensor:
@@ -95,10 +95,10 @@ def _reduce_leaves(flat: List[torch.Tensor], draws: List[torch.Tensor], group,
         q, scale = _quantize(g, u)
         # shared scale: the max over the ranks, so the dequant is consistent
         gmax = scale.clone()
-        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        all_reduce(gmax, group, op=dist.ReduceOp.MAX)
         requant = torch.clamp(torch.round(dequantize_int8(q, scale) / gmax),
                               -127, 127).to(torch.int32)
-        dist.all_reduce(requant, op=dist.ReduceOp.SUM, group=group)
+        all_reduce(requant, group)
         out.append((requant.float() * gmax / _const(gmax, n)).to(g.dtype))
     return out
 

@@ -53,6 +53,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..launch.tally import record_collective
+
 Physical = Union[None, str, Tuple[str, ...]]
 
 
@@ -252,10 +254,10 @@ def spec_axes(spec: PartitionSpec, dim: Optional[int] = None) -> Tuple[str, ...]
 
 def axis_group(mesh, axes: Sequence[str]) -> Tuple[Any, int]:
     """The process group over the mesh axes ``axes`` that have more than
-    one rank, and its size: one axis's group; for "data" and "model"
-    together the mesh's flattened group (its ranks in the order ``coord_data
-    * m + coord_model``, as ``make_mesh_for`` builds it). (None, 1) where
-    no such axis is left."""
+    one rank, and its size: one axis's group; for several, the mesh's group
+    over them flattened (its ranks in JAX's block order, ``coord_a *
+    size_b + coord_b``, as ``launch.mesh.make_mesh`` builds it). (None, 1)
+    where no such axis is left."""
     if mesh is None:
         return None, 1
     sizes = mesh_shape(mesh)
@@ -264,11 +266,27 @@ def axis_group(mesh, axes: Sequence[str]) -> Tuple[Any, int]:
         return None, 1
     if len(axes) == 1:
         return mesh.get_group(axes[0]), sizes[axes[0]]
-    flat = getattr(mesh, "flat_group", None)
+    flat = getattr(mesh, "flat_groups", {}).get(axes)
     if flat is None:
         raise ValueError(f"the mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} has no "
-                         "flattened group: build it with launch.mesh.make_mesh_for")
+                         f"group over {axes}: build it with launch.mesh.make_mesh")
     return flat, math.prod(sizes[a] for a in axes)
+
+
+def batch_axes(ctx: Optional["ShardingCtx"]) -> Tuple[str, ...]:
+    """The mesh axes a global batch's rows are split over: those the rules
+    map "batch" to (by default "pod" and "data"), of ``ctx``'s mesh."""
+    if ctx is None or ctx.mesh is None:
+        return ()
+    return spec_axes(ctx.spec("batch"))
+
+
+def batch_size(ctx: Optional["ShardingCtx"]) -> int:
+    """The number of blocks the batch's rows are split into."""
+    if ctx is None or ctx.mesh is None:
+        return 1
+    sizes = mesh_shape(ctx.mesh)
+    return math.prod(sizes[a] for a in batch_axes(ctx))
 
 
 class Split(NamedTuple):
@@ -319,20 +337,48 @@ def reset_collectives() -> None:
         COLLECTIVES[k] = 0
 
 
-def all_gather_flat(out: torch.Tensor, x: torch.Tensor, group) -> None:
+def all_gather_flat(out: torch.Tensor, x: torch.Tensor, group,
+                    kind: Optional[str] = "all-gather") -> None:
     """``out`` = every rank's ``x`` of ``group``, in rank order along
     dimension 0. torch 2.13 names this collective ``all_gather_single`` and
     deprecates ``all_gather_into_tensor``, its only name in earlier
-    releases: the call takes whichever this torch has."""
+    releases: the call takes whichever this torch has. Counted in the
+    active tally as ``kind`` (None: the caller counts it)."""
     getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, x, group=group)
+    if kind:
+        record_collective(kind, out)
 
 
-def reduce_scatter_flat(out: torch.Tensor, x: torch.Tensor, group) -> None:
+def reduce_scatter_flat(out: torch.Tensor, x: torch.Tensor, group,
+                        kind: Optional[str] = "reduce-scatter") -> None:
     """``out`` = block r along dimension 0 of ``x`` summed over ``group``,
     on its rank r (``reduce_scatter_single`` from torch 2.13,
     ``reduce_scatter_tensor`` before, as ``all_gather_flat``)."""
     getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
         out, x, op=dist.ReduceOp.SUM, group=group)
+    if kind:
+        record_collective(kind, out)
+
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """``t`` reduced in place over ``group``, counted in the active tally."""
+    dist.all_reduce(t, op=op, group=group)
+    record_collective("all-reduce", t)
+
+
+def all_to_all(out: torch.Tensor, x: torch.Tensor, group, out_splits=None,
+               in_splits=None) -> None:
+    """``all_to_all_single`` of ``x`` into ``out`` over ``group`` (equal
+    blocks of dimension 0, or the row counts given), counted in the active
+    tally. An integer ``out`` (a plan: expert ids) is first filled with the
+    rank's own ``x`` where the shapes allow, so that under a process group
+    whose collectives move nothing (the dry-run's fake group) every index
+    read from it is one of this rank's plan, never uninitialised memory."""
+    if not out.is_floating_point() and out.shape == x.shape:
+        out.copy_(x)
+    dist.all_to_all_single(out, x, output_split_sizes=out_splits,
+                           input_split_sizes=in_splits, group=group)
+    record_collective("all-to-all", out)
 
 
 def gather_full(shard: torch.Tensor, dim: int, group, n: int, pieces: int = 1) -> torch.Tensor:
@@ -428,6 +474,16 @@ def gathered(x):
     return x.full() if isinstance(x, Sharded) else x
 
 
+def gathered_but_model(x):
+    """``x`` gathered over every split but those over "model" alone, which
+    stay the rank's block (a tensor-parallel layer's slice of its weight);
+    a tensor as it is."""
+    if not isinstance(x, Sharded):
+        return x
+    return _Gather.apply(x.shard, x.dtype, tuple(s for s in x.splits if s.axes != ("model",)),
+                         "")
+
+
 def gather_tree(tree: Dict) -> Dict:
     """Every ``Sharded`` leaf of a tree gathered."""
     return {k: gather_tree(v) if isinstance(v, dict) else gathered(v) for k, v in tree.items()}
@@ -475,7 +531,8 @@ class _Halo(torch.autograd.Function):
         tail = u[:, -k:].contiguous()
         tails = torch.empty((n * tail.shape[0],) + tuple(tail.shape[1:]), dtype=u.dtype,
                             device=u.device)
-        all_gather_flat(tails, tail, group)
+        all_gather_flat(tails, tail, group, kind=None)
+        record_collective("collective-permute", tail)       # JAX's halo exchange
         if r == 0:
             return torch.zeros_like(tail)
         return tails.view((n,) + tuple(tail.shape))[r - 1].clone()
@@ -488,7 +545,9 @@ class _Halo(torch.autograd.Function):
         if r > 0:
             parts[r - 1] = g
         mine = torch.empty_like(g)
-        reduce_scatter_flat(mine, parts.view((n * g.shape[0],) + tuple(g.shape[1:])), group)
+        reduce_scatter_flat(mine, parts.view((n * g.shape[0],) + tuple(g.shape[1:])), group,
+                            kind=None)
+        record_collective("collective-permute", mine)
         gu = g.new_zeros(shape)
         gu[:, -k:] = mine
         return gu, None, None, None, None
@@ -506,7 +565,7 @@ def _to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
     send = x.reshape((b, sl, n, H // n) + rest).movedim(2, 0).contiguous()
     recv = torch.empty_like(send)
     COLLECTIVES["all_to_all"] += 1
-    dist.all_to_all_single(recv, send, group=group)
+    all_to_all(recv, send, group)
     return recv.movedim(0, 1).reshape((b, n * sl, H // n) + rest)
 
 
@@ -516,7 +575,7 @@ def _to_seq(y: torch.Tensor, group, n: int) -> torch.Tensor:
     send = y.reshape((b, n, s // n, Hl) + rest).movedim(1, 0).contiguous()
     recv = torch.empty_like(send)
     COLLECTIVES["all_to_all"] += 1
-    dist.all_to_all_single(recv, send, group=group)
+    all_to_all(recv, send, group)
     return recv.movedim(0, 2).reshape((b, s // n, n * Hl) + rest)
 
 

@@ -80,7 +80,7 @@ from ..launch.mesh import make_mesh_for
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.model import Model, make_model
 from ..optim.adamw import OptConfig, OptState
-from ..parallel.sharding import Rules, ShardingCtx, axis_group, mesh_shape
+from ..parallel.sharding import Rules, ShardingCtx
 from .checkpoint import _flatten, _unflatten
 
 
@@ -426,27 +426,5 @@ class ElasticRuntime:
 
     def _mean_over_data(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
         """This rank's loss and gradients, its parts of the global batch's,
-        summed over the mesh and divided by the data size: after it, each
-        rank's gradient shard is its block of JAX's global-batch-mean
-        gradient, and the loss is the global mean, before clipping reads
-        the global norm. The data ranks split the batch and the model ranks
-        one sequence (``loss_fn``'s part is over the data rank's tokens),
-        so only the data size divides. A leaf's gradient shard already
-        holds its sum over the axes the leaf is split over (its gathers'
-        reduce-scatters; a shard that a layer uses unsplit, as ``moe_a2a``
-        uses its experts, holds every use of it); it is all-reduced over the
-        mesh's other axes, a whole leaf's over the whole mesh."""
-        mesh = self.device_mesh
-        sizes = mesh_shape(mesh)
-        shards = self.model.shards()
-        for name, g in grads.items():
-            rest = tuple(a for a in mesh.mesh_dim_names if a not in shards.axes(name))
-            group, _ = axis_group(mesh, rest)
-            if group is not None:
-                dist.all_reduce(g, group=group)
-            g.div_(sizes["data"])
-        loss = loss.clone()
-        group, _ = axis_group(mesh, mesh.mesh_dim_names)
-        if group is not None:
-            dist.all_reduce(loss, group=group)
-        return loss / sizes["data"], grads
+        made the global batch's mean over the mesh (``Model.mean_over_batch``)."""
+        return self.model.mean_over_batch(loss, grads)

@@ -261,9 +261,9 @@ def test_unsupported_shards_raise(tag, results):
     dispatch ranks the mesh's pairs in the tokens' global order; y within
     2e-5 of max(1, largest |y|) of JAX's, x's gradient block by block and
     every leaf's gradient summed over the ranks within 1e-5 of its largest
-    |g|. A sequence that does not split over the model shards still raises
-    in ``moe_shard_input``: the port's blocks are equal, GSPMD's need not
-    be."""
+    |g|. A sequence that does not split over the model shards (decode's
+    one position) is JAX's other fallback: ``moe_shard_input`` gives every
+    rank its rows with every position, whole over "model"."""
     import torch
     from repro_torch.models import moe
     from repro_torch.models.config import ArchConfig
@@ -277,5 +277,7 @@ def test_unsupported_shards_raise(tag, results):
     gx = np.concatenate([np.concatenate([ranks[d * n_sh + m][tag]["g"]["x"]
                                          for m in range(n_sh)], axis=1) for d in range(D)])
     assert np.abs(gx).max() > 0
-    with pytest.raises(NotImplementedError):
-        moe.moe_shard_input(torch.zeros(2, 6, 32), ArchConfig(**BASE), (0, 4))
+    x = torch.arange(2 * 6 * 32, dtype=torch.float32).view(2, 6, 32)
+    for m in range(4):
+        assert torch.equal(moe.moe_shard_input(x, ArchConfig(**BASE), (m, 4)), x)
+        assert torch.equal(moe.moe_shard_input(x, ArchConfig(**BASE), (m, 4), (1, 2)), x[1:])

@@ -265,6 +265,40 @@ def test_flash_decode_kernel_vs_plain(b, h, kvh, S, d, dtype, cache_dtype, cuda)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cache_dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("b,h,kvh,S,d,window", [
+    (1, 32, 32, 2048, 80, 256),      # zamba2's block: the window within two splits
+    (8, 24, 8, 544, 128, 64),        # llama3.2-3b shape under a window
+    (4, 8, 2, 300, 64, 1),           # a window of one key
+    (2, 16, 2, 200, 64, 150),        # GQA group 8
+    (3, 4, 2, 40, 16, 8),            # shorter than a tile
+    (1, 8, 1, 512, 128, 100),        # 8 splits, most of them outside the window
+])
+def test_flash_decode_starts_empty_rows_and_lse(b, h, kvh, S, d, window, dtype, cache_dtype,
+                                                cuda):
+    """The sequence-split, windowed contract: row i attends [starts[i],
+    lengths[i]) with starts = max(0, lengths - window); one row attends
+    nothing (starts = lengths), one row's range lies in the cache's last
+    split alone. Outputs and the logsumexps of ``lse=True`` against
+    ``ref_decode``; an empty row gives 0 and -inf, with no NaN."""
+    rng = np.random.default_rng(11)
+    q, ck, cv, lengths = _decode_inputs(rng, b, h, kvh, S, d, dtype, cache_dtype, cuda)
+    starts = (lengths - window).clamp_min(0)
+    starts[-1] = lengths[-1]                                  # an empty row
+    out, lse = flash_decode(q, ck, cv, lengths, starts, lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = ref_decode(q, ck, cv, lengths, starts, lse=True)
+    assert lse.shape == (b, h, 1) and lse.dtype == torch.float32
+    _close(out, want, dtype)
+    assert torch.isneginf(lse[-1]).all() and not out[-1].float().any()
+    assert torch.isfinite(lse[:-1]).all() and not torch.isnan(out).any()
+    np.testing.assert_allclose(lse[:-1].cpu().numpy(), want_lse[:-1].cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_array_equal(flash_decode(q, ck, cv, lengths, starts).float().cpu().numpy(),
+                                  out.float().cpu().numpy())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("misalign", ["pointer", "row_stride"])
 def test_flash_decode_rejects_unaligned_rows(cache_dtype, misalign, cuda):
