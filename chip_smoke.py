@@ -3260,8 +3260,10 @@ DRYRUN_CELLS = [
     ("qwen2-vl-72b", "prefill_32k", True, False, ("flash_attention",)),
 ]
 # reduced twins (launch/dryrun.py --reduced) whose tally must be the same on
-# the card as on the CPU, exactly: no MoE, whose routing (and so its buffers'
-# shapes) follows the random values, which the two devices draw differently
+# the card as on the CPU, exactly (the kernels write other layouts than their
+# plain versions; the tally counts no layout copy): no MoE, whose routing
+# (and so its buffers' shapes) follows the random values, which the two
+# devices draw differently
 DRYRUN_TWINS = [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k")]
 TALLY_KEYS = ("dot_flops_per_device", "collectives", "collective_counts",
               "collective_bytes_ag2d", "collective_bytes_other2d", "collective_bytes_hi",

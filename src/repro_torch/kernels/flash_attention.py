@@ -22,7 +22,7 @@ import torch
 
 from . import build
 from .build import LAUNCHES
-from ..launch.tally import counts_as
+from ..tally_hooks import counts_as
 from .ref import ref_attention, ref_attention_bwd, ref_decode
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)

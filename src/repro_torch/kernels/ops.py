@@ -7,8 +7,9 @@ a kernel that fails to build or launch raises.
 No gradient stops silently at a kernel. Attention carries gradients
 through ``FlashAttention`` and the SSD scan through ``SsdChunk`` (each a
 forward kernel and a backward kernel on the card, the plain pair on the
-CPU, so a step does the same products on both: ``launch/tally.py``). The decode kernel has no backward: decode only serves, so on CUDA
-tensors that want a gradient it raises. On the CPU the plain decode is
+CPU, so a step does the same products on both: ``launch/tally.py``). The
+decode kernel has no backward: decode only serves, so on CUDA tensors
+that want a gradient it raises. On the CPU the plain decode is
 differentiated by autograd.
 """
 from __future__ import annotations

@@ -43,8 +43,7 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [b, h, sq, d]; k, v: [b, kvh, skv, d] (GQA: h % kvh == 0).
 
     Query positions are offset by ``skv - sq``; the window applies only
-    together with the causal mask, as in the JAX oracle. The output is a
-    [b, h, sq, d] view of a [b, sq, h, d] buffer, as the kernel's. With
+    together with the causal mask, as in the JAX oracle. With
     ``return_lse`` also each row's logsumexp of the scaled scores, fp32
     [b, h, sq] (what the forward kernel saves for the backward).
     """
@@ -53,17 +52,10 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = _scores(q, k, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    o = _bshd(o.reshape(b, h, sq, d).to(q.dtype))
+    o = o.reshape(b, h, sq, d).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
     return o
-
-
-def _bshd(t: torch.Tensor) -> torch.Tensor:
-    """[b, heads, s, d] as a view of a [b, s, heads, d] buffer, the layout
-    the attention kernels write: so that what follows a kernel on the card
-    and its plain version on the CPU is the same ops (``launch/tally.py``)."""
-    return t.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
 
 
 def ref_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -87,8 +79,7 @@ def ref_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torc
     ds = p * (torch.einsum("bkgqd,bktd->bkgqt", dOg, v.float()) - delta)
     dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.float()) * scale
     dk = torch.einsum("bkgqt,bkgqd->bktd", ds, q.float().reshape(b, kvh, g, sq, d)) * scale
-    return (_bshd(dq.reshape(b, h, sq, d).to(q.dtype)), _bshd(dk.to(k.dtype)),
-            _bshd(dv.to(v.dtype)))
+    return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,7 +105,7 @@ def ref_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.logsumexp(s, dim=-1, keepdim=True)                  # -inf: an empty row
     p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)), 0.0)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    o = o.reshape(b, h, 1, d).to(q.dtype).contiguous()       # the kernel's layout
+    o = o.reshape(b, h, 1, d).to(q.dtype)
     return (o, m.reshape(b, h, 1)) if lse else o
 
 
@@ -238,8 +229,7 @@ def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
     y = torch.einsum("bcqkh,bckhp->bcqhp", scores * L, ydt)
     decay_to_end = torch.exp((total[:, :, None, :] - hi) + (total_lo[:, :, None, :] - lo))
     states = torch.einsum("bcqhn,bcqh,bcqhp->bchnp", Bg, decay_to_end, ydt)
-    # contiguous, as the kernel writes them
-    return y.reshape(b, s, H, P).contiguous(), states.contiguous(), total.contiguous()
+    return y.reshape(b, s, H, P), states, total
 
 
 def ref_ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -306,8 +296,8 @@ def ref_ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: tor
     gx = gu * dtg[..., None]
     gdt = gdA * Af + (gu * xg).sum(-1)
     gA = (gdA * dtg).sum((0, 1, 2))
-    return tuple(t.contiguous() for t in (gx.reshape(b, s, H, P), gdt.reshape(b, s, H), gA,
-                                          gB.reshape(b, s, G, N), gC.reshape(b, s, G, N)))
+    return (gx.reshape(b, s, H, P), gdt.reshape(b, s, H), gA, gB.reshape(b, s, G, N),
+            gC.reshape(b, s, G, N))
 
 
 def tile_rel_err(out: torch.Tensor, ref: torch.Tensor, rows: int = 64) -> float:

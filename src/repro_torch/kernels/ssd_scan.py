@@ -30,7 +30,7 @@ import torch
 
 from . import build
 from .build import LAUNCHES
-from ..launch.tally import counts_as
+from ..tally_hooks import counts_as
 from .ref import ref_ssd_chunk, ref_ssd_chunk_bwd
 
 MAX_CHUNK = 256          # kMaxQ: the chunk's dt, seg and weights sit in shared memory

@@ -28,8 +28,9 @@ block holds the window. Decode runs at ``pos = seq_len - 1``. The
 parameters are drawn shard by shard (``Model.init_shards``), never whole:
 qwen2-vl-72b's and llama4's whole masters do not fit a card. The values
 are random; the collectives write nothing, so what a step computes is not
-checked, and every shape the step takes comes from the rank's own plan
-(``parallel.sharding.all_to_all``, ``models.moe._gather_rows``).
+checked, and every shape the step takes comes from the rank's own plan:
+an integer collective's output (the MoE plan's expert ids) starts as the
+rank's own input (``seeded_integer_collectives``).
 
 Records go to ``experiments/dryrun_torch/<arch>_<shape>_<mesh>_<tag>.json``.
 
@@ -42,6 +43,7 @@ Records go to ``experiments/dryrun_torch/<arch>_<shape>_<mesh>_<tag>.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -49,7 +51,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -91,12 +93,12 @@ def cell_config(arch_id: str, shape: ShapeConfig, cfg_override: Optional[ArchCon
     return cfg
 
 
-def cell_rules(mesh, shape: ShapeConfig, rules: Optional[Rules] = None) -> Rules:
+def cell_rules(mesh, shape: ShapeConfig) -> Rules:
     """JAX's ``build_cell`` rule for the batch: the axes "batch" maps to
     that the global batch does not divide (with those before them) are
     dropped, so ``long_500k``'s batch of 1 stays whole (the model axis
     still spreads the state and the cache)."""
-    rules = rules or Rules()
+    rules = Rules()
     sizes = mesh_shape(mesh)
     axes = rules.table.get("batch") or ()
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -167,7 +169,7 @@ def _map_pairs(shapes, shardings, out: list) -> None:
         out.append((shapes, shardings))
 
 
-def build_cell(arch_id: str, shape: ShapeConfig, mesh, rules: Optional[Rules] = None,
+def build_cell(arch_id: str, shape: ShapeConfig, mesh,
                cfg_override: Optional[ArchConfig] = None,
                cfg_patch: Optional[Dict[str, Any]] = None,
                device: Union[str, torch.device] = "meta") -> Model:
@@ -176,7 +178,7 @@ def build_cell(arch_id: str, shape: ShapeConfig, mesh, rules: Optional[Rules] = 
     rank's shards on ``device`` (allocated, not drawn; "meta": the layout
     alone)."""
     cfg = cell_config(arch_id, shape, cfg_override, cfg_patch)
-    ctx = ShardingCtx(cell_rules(mesh, shape, rules), mesh)
+    ctx = ShardingCtx(cell_rules(mesh, shape), mesh)
     return make_model(cfg, ctx, device=device)
 
 
@@ -219,6 +221,32 @@ def run_step(model: Model, shape: ShapeConfig, args: Dict):
                             embeds=batch.get("embeds"))
 
 
+@contextlib.contextmanager
+def seeded_integer_collectives() -> Iterator[None]:
+    """Under the fake process group a collective moves nothing and leaves
+    its output as it was. Inside, the all-to-all and the all-gather do no
+    more than that, except that an integer output (the MoE plan's expert
+    ids, whose values become shapes and indices) is filled with this
+    rank's own input, as many times as it holds it: every index read from
+    it is one of this rank's plan, never uninitialised memory. (The fake
+    all-to-all would also check the row counts of such a plan, which need
+    not agree across ranks that never met.)"""
+    names = [n for n in ("all_to_all_single", "all_gather_single", "all_gather_into_tensor")
+             if hasattr(dist, n)]
+    saved = {n: getattr(dist, n) for n in names}
+
+    def seeded(out, x, *args, **kwargs):
+        if not out.is_floating_point() and x.numel() and out.numel() % x.numel() == 0:
+            out.view(-1, x.numel()).copy_(x.reshape(1, -1))
+    for n in names:
+        setattr(dist, n, seeded)
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+
+
 def default_rank(mesh_dims: Tuple[int, ...]) -> int:
     """The rank at every coordinate 0 but the last "model" one."""
     return mesh_dims[-1] - 1
@@ -253,10 +281,10 @@ def shape_of(shape_name: str, reduced: bool = False) -> ShapeConfig:
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
-             rules: Optional[Rules] = None, tag: str = "baseline", verbose: bool = True,
+             tag: str = "baseline", verbose: bool = True,
              cfg_patch: Optional[Dict[str, Any]] = None, rank: Optional[int] = None,
              device: Union[str, torch.device] = "cuda", reduced: bool = False,
-             seed: int = 0, write: bool = True) -> Dict[str, Any]:
+             seed: int = 0) -> Dict[str, Any]:
     """One cell on one rank: binds a fake world of the mesh's size at
     ``rank`` (``default_rank``) unless a process group is already up, runs
     the step and returns (and writes) its record."""
@@ -278,27 +306,29 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
         dist.init_process_group("fake", store=FakeStore(), rank=rank,
                                 world_size=math.prod(dims))
     t0 = time.perf_counter()
+    seeding = seeded_integer_collectives() if own_world else contextlib.nullcontext()
     try:
         mesh = make_production_mesh(multi_pod=multi_pod, device_type=dev.type)
         rec["coordinate"] = list(mesh.get_coordinate())
         cfg_override = reduced_config(arch_id) if reduced else None
-        model = build_cell(arch_id, shape, mesh, rules, cfg_override, cfg_patch, device=dev)
+        model = build_cell(arch_id, shape, mesh, cfg_override, cfg_patch, device=dev)
         rec["batch_axes"] = list(spec_axes(model.ctx.spec("batch")))
         expect = argument_bytes(model, shape)
         args = cell_arguments(model, shape, torch.Generator(device=dev).manual_seed(seed))
         held = _held_bytes(model, args)
         _sync(dev)
         rec["setup_s"] = time.perf_counter() - t0
-        with tally() as t:
+        with seeding:
+            with tally() as t:
+                run_step(model, shape, args)
+                _sync(dev)
+            # the step again, outside the tally's dispatch mode (which costs
+            # host time at every op): its time and the allocator's peak
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
             run_step(model, shape, args)
             _sync(dev)
-        # the step again, outside the tally's dispatch mode (which costs host
-        # time at every op): its time and the allocator's peak
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        t1 = time.perf_counter()
-        run_step(model, shape, args)
-        _sync(dev)
         rec["step_s"] = time.perf_counter() - t1
         rec["step_note"] = ("the second step of the cell, the first warm-up and counted; fake "
                             "process group: no collective moves a byte, so the step's time is "
@@ -329,10 +359,9 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
             torch.cuda.empty_cache()
         if own_world:
             dist.destroy_process_group()
-    if write:
-        OUT_DIR.mkdir(parents=True, exist_ok=True)
-        path = OUT_DIR / f"{arch_id}_{shape_name}_{mesh_name}_{tag}.json"
-        path.write_text(json.dumps(rec, indent=1))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    path = OUT_DIR / f"{arch_id}_{shape_name}_{mesh_name}_{tag}.json"
+    path.write_text(json.dumps(rec, indent=1))
     if verbose:
         status = "OK " if rec["ok"] else "FAIL"
         extra = (f"dotflops/dev={rec['dot_flops_per_device']:.3e} "

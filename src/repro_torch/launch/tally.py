@@ -4,22 +4,24 @@
 JAX's dry-run compiles a step and parses the partitioned HLO for its
 collectives, its ``dot`` FLOPs and its result bytes. The port has no HLO:
 it runs the step (eagerly, on one rank) inside ``tally()``, which counts
-the same quantities as they happen and keeps ``Tally``'s field names:
+the same quantities as they happen and keeps ``Tally``'s field names. The
+layers report to it through ``tally_hooks``, which ``tally()`` points at
+its counter:
 
 * ``dot_flops``: every aten product (mm, bmm, addmm, baddbmm,
   convolutions and PyTorch's attention), by the formulas of
   ``torch.utils.flop_counter``, plus each kernel's products, which its
-  wrapper in ``kernels/*.py`` reports (``counts_as``) as what its plain
-  version's einsums count: the plain version run on meta tensors under a
-  counter of its own, so attention counts full sq x skv scores, as JAX's
-  einsum attention does. On the CPU the plain version itself runs and its
-  einsums are counted as aten products, so a step's tally is the same on
-  the card and on the CPU (its result bytes likewise: a wrapper adds its
-  plain version's, and its own ops are not counted).
+  wrapper in ``kernels/*.py`` reports (``tally_hooks.counts_as``) as what
+  its plain version's einsums count: the plain version run on meta
+  tensors under a counter of its own, so attention counts full sq x skv
+  scores, as JAX's einsum attention does. On the CPU the plain version
+  itself runs and its einsums are counted as aten products, so a step's
+  tally is the same on the card and on the CPU (its result bytes likewise:
+  a wrapper adds its plain version's, and its own ops are not counted).
 * ``collective_bytes`` and ``collective_counts`` by HLO kind
   (``COLLECTIVES``), each collective's bytes the size of its result, as
   ``shape_bytes`` counts an HLO result. They are counted where the port
-  issues them (``record_collective``: the helpers of
+  issues them (``tally_hooks.record_collective``: the helpers of
   ``parallel/sharding.py`` and their callers in ``models/moe.py``,
   ``optim/adamw.py``, ``parallel/compress.py`` and ``runtime/elastic.py``);
   the sequence split's halo, which JAX lowers to a collective-permute, is
@@ -27,7 +29,11 @@ the same quantities as they happen and keeps ``Tally``'s field names:
   rank <= 2 all-gathers (the weights' gathers), other rank <= 2 results
   (the gradients' reductions), rank >= 3 (activations).
 * ``result_bytes``: the bytes of every aten op's outputs, views excluded
-  (the memory-traffic proxy of ``analyze``).
+  (the memory-traffic proxy of ``analyze``). A copy that only lays out
+  values already counted (``clone``: the copy ``contiguous`` or a reshape
+  makes) is not counted, nor ``_unsafe_view``, a view: a kernel and its
+  plain version lay out their outputs differently, and the copies that
+  follow would otherwise differ between the card and the CPU.
 
 ``analyze``'s ``trip_counts`` has no counterpart: HLO runs a ``while``
 body once per trip and the parser must weigh it, while eager code runs
@@ -38,11 +44,13 @@ from __future__ import annotations
 import contextlib
 import functools
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_flatten
+
+from .. import tally_hooks
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -73,39 +81,21 @@ class Tally:
                 "dot_flops": self.dot_flops, "result_bytes": self.result_bytes}
 
 
-_ACTIVE: Optional[Tally] = None
-
-
-def record_collective(kind: str, result: torch.Tensor) -> None:
-    """Count one collective of ``kind`` whose result is ``result`` (the
-    tensor it writes: the gathered or reduced array, an all-to-all's
-    received buffer) in the active tally, if any."""
-    t = _ACTIVE
-    if t is None:
-        return
-    if kind not in COLLECTIVES:
-        raise ValueError(f"unknown collective {kind!r}")
-    b = float(result.numel() * result.element_size())
-    t.collective_bytes[kind] = t.collective_bytes.get(kind, 0.0) + b
-    t.collective_counts[kind] = t.collective_counts.get(kind, 0.0) + 1
-    if result.dim() <= 2:
-        if kind == "all-gather":
-            t.collective_bytes_ag2d += b
-        else:
-            t.collective_bytes_other2d += b
-    else:
-        t.collective_bytes_hi += b
-
-
 def _op_flops(func, args, kwargs, out) -> int:
     from torch.utils.flop_counter import flop_registry
     f = flop_registry.get(func._overloadpacket)
     return 0 if f is None else int(f(*args, **kwargs, out_val=out))
 
 
+# a layout copy and a view that the schema does not mark as one, whose
+# outputs ``result_bytes`` leaves out
+_LAYOUT_OPS = ("aten::clone", "aten::_unsafe_view")
+
+
 class _Counter(TorchDispatchMode):
-    """Adds each aten op's product FLOPs and output bytes (views excluded)
-    into ``sink``, except inside a kernel wrapper (``counts_as``)."""
+    """Adds each aten op's product FLOPs and output bytes (views and layout
+    copies excluded) into ``sink``, except inside a kernel wrapper; as the
+    ``tally_hooks`` sink, counts the collectives and the kernels' reports."""
 
     def __init__(self, sink: Tally):
         super().__init__()
@@ -117,14 +107,37 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not self.quiet:
             self.sink.dot_flops += _op_flops(func, args, kwargs, out)
-            if not func.is_view:
+            if not func.is_view and func._schema.name not in _LAYOUT_OPS:
                 self.sink.result_bytes += sum(float(t.numel() * t.element_size())
                                               for t in tree_flatten(out)[0]
                                               if isinstance(t, torch.Tensor))
         return out
 
+    def collective(self, kind: str, result: torch.Tensor) -> None:
+        if kind not in COLLECTIVES:
+            raise ValueError(f"unknown collective {kind!r}")
+        t = self.sink
+        b = float(result.numel() * result.element_size())
+        t.collective_bytes[kind] = t.collective_bytes.get(kind, 0.0) + b
+        t.collective_counts[kind] = t.collective_counts.get(kind, 0.0) + 1
+        if result.dim() <= 2:
+            if kind == "all-gather":
+                t.collective_bytes_ag2d += b
+            else:
+                t.collective_bytes_other2d += b
+        else:
+            t.collective_bytes_hi += b
 
-_COUNTER: Optional[_Counter] = None
+    def kernel(self, plain: Callable, kernel: Callable, args, kwargs):
+        flops, nbytes = plain_count(plain, *args, **kwargs)
+        self.quiet += 1
+        try:
+            out = kernel(*args, **kwargs)
+        finally:
+            self.quiet -= 1
+        self.sink.dot_flops += flops
+        self.sink.result_bytes += nbytes
+        return out
 
 
 def _key(args, kwargs) -> tuple:
@@ -136,8 +149,7 @@ def _key(args, kwargs) -> tuple:
 
 
 def _unkey(k):
-    # the arguments' strides too: a reshape copies a view that is not
-    # contiguous, and the copy's bytes count
+    # the arguments' strides too, as the kernel was given them
     if k[0] == "T":
         return torch.empty_strided(k[1], k[2], dtype=k[3], device="meta")
     return k[1]
@@ -161,41 +173,19 @@ def plain_count(fn: Callable, *args, **kwargs) -> Tuple[float, float]:
     return _plain_count(fn, _key(args, kwargs))
 
 
-def counts_as(plain: Callable) -> Callable:
-    """Decorate a kernel's wrapper, whose signature is its plain version
-    ``plain``'s: inside ``tally()`` the wrapper's own ops are not counted
-    and the call adds what ``plain`` counts on the same arguments."""
-    def wrap(kernel: Callable) -> Callable:
-        @functools.wraps(kernel)
-        def run(*args, **kwargs):
-            counter = _COUNTER
-            if counter is None:
-                return kernel(*args, **kwargs)
-            flops, nbytes = plain_count(plain, *args, **kwargs)
-            counter.quiet += 1
-            try:
-                out = kernel(*args, **kwargs)
-            finally:
-                counter.quiet -= 1
-            counter.sink.dot_flops += flops
-            counter.sink.result_bytes += nbytes
-            return out
-        return run
-    return wrap
-
-
 @contextlib.contextmanager
 def tally() -> Iterator[Tally]:
     """Count the step run inside: aten products and output bytes through a
     dispatch mode (the autograd engine carries it into the backward), the
     kernels' reports and the collectives into the ``Tally`` yielded."""
-    global _ACTIVE, _COUNTER
-    if _ACTIVE is not None:
-        raise RuntimeError("a tally is already running")
     t = Tally()
-    _ACTIVE, _COUNTER = t, _Counter(t)
+    counter = _Counter(t)
+    prev = tally_hooks.set_sink(counter)
+    if prev is not None:
+        tally_hooks.set_sink(prev)
+        raise RuntimeError("a tally is already running")
     try:
-        with _COUNTER:
+        with counter:
             yield t
     finally:
-        _ACTIVE = _COUNTER = None
+        tally_hooks.set_sink(None)

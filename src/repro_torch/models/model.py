@@ -28,8 +28,8 @@ this rank's shard (``param_shardings``: "fsdp" over "data", "tp",
 router, the conv weights, ``A_log``, ``D`` and ``dt_bias`` whole), and
 the optimizer state mirrors it (``opt_shardings``). A training step
 hands the layers each split leaf as a ``Sharded``, which the layer body
-gathers where it uses it (``models/transformer.py``; the experts of
-``moe_a2a`` keep their split over "model", each rank running its own);
+gathers where it uses it (``models/transformer.py``; the experts keep
+their split over "model", each rank running its own: ``moe.expert_shards``);
 the gradients come back as shards, summed over the gathers' axes by
 their reduce-scatters. The step's batch is this rank's block of the
 global one: its rows over "data" and, where the "model" axis has more
@@ -55,7 +55,7 @@ from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, all_reduce, axi
                                  splits_of)
 from .config import ArchConfig, ShapeConfig
 from .layers import ParamSpec
-from .moe import a2a_shards
+from .moe import expert_shards
 from .transformer import (cache_shardings, decode_step, forward, init_cache_specs, init_specs,
                           loss_fn)
 
@@ -284,14 +284,13 @@ class Model(nn.Module):
             masters[name].copy_(psh[name].shard(t, name))
         self._compute = None
 
-    def compute_params(self, decode: bool = False) -> Dict:
+    def compute_params(self) -> Dict:
         """The parameter tree the layers use: the matrices JAX casts in the
         compute dtype (cast once), the rest, and the embeddings, as stored.
         Under a mesh, the step tree of this rank's shards (``_step_tree``),
-        which each layer gathers where it uses it; ``decode``: the experts
-        gathered whole too (decode's MoE layer falls back to the dispatch)."""
+        which each layer gathers where it uses it."""
         if self.ctx.mesh is not None:
-            return self._step_tree(dict(self.masters()), keep_experts=not decode)
+            return self._step_tree(dict(self.masters()))
         if self._compute is None:
             cdt = getattr(torch, self.cfg.dtype)
             self._compute = {name: _cast(_tree(getattr(self, name)), cdt)
@@ -311,16 +310,16 @@ class Model(nn.Module):
         """Zeroed moments in the masters' layout (this rank's shards)."""
         return init_opt_state(self.masters(), self.opt)
 
-    def _step_tree(self, leaves: Dict[str, torch.Tensor], keep_experts: bool = True) -> Dict:
+    def _step_tree(self, leaves: Dict[str, torch.Tensor]) -> Dict:
         """The parameter tree a step's layers take, from its leaves: under a
         mesh each split leaf as a ``Sharded`` (gathered by the layer that
-        uses it), then the compute-dtype casts of ``_cast``. The experts of
-        ``moe_a2a`` keep their split over "model" (``moe.a2a_shards``) when
-        ``keep_experts``."""
+        uses it), then the compute-dtype casts of ``_cast``. The experts
+        keep their split over "model" where the MoE layer runs on it
+        (``moe.expert_shards``)."""
         cdt = getattr(torch, self.cfg.dtype)
         mesh = self.ctx.mesh
         if mesh is not None:
-            keep_model = keep_experts and a2a_shards(self.cfg, mesh) > 1
+            keep_model = expert_shards(self.cfg, mesh) > 1
             specs = self.param_specs()
             for name, sh in self.param_shardings().items():
                 splits = splits_of(sh.spec, mesh)
@@ -406,7 +405,7 @@ class Model(nn.Module):
         the rank's rows' tokens), so only the batch axes divide. A leaf's
         gradient shard already holds its sum over the axes the leaf is
         split over (its gathers' reduce-scatters; a shard that a layer uses
-        unsplit, as ``moe_a2a`` uses its experts, holds every use of it); it
+        unsplit, as the MoE layer uses its experts, holds every use of it); it
         is all-reduced over the mesh's other axes, a whole leaf's over the
         whole mesh (a ``train_step``'s ``reduce``)."""
         mesh = self.ctx.mesh
@@ -458,7 +457,7 @@ class Model(nn.Module):
         """One decode step: (logits [b, 1, v], cache updated in place).
         Under a mesh tokens [b/(pod data), 1] are the rank's rows, whole
         over "model", and ``cache`` its blocks (``init_cache``)."""
-        return decode_step(self.compute_params(decode=True), cache, self.cfg, tokens, pos,
+        return decode_step(self.compute_params(), cache, self.cfg, tokens, pos,
                            embeds=embeds, ctx=self.ctx)
 
     @torch.no_grad()

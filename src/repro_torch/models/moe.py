@@ -28,23 +28,25 @@ so on one device it runs this body), or ``loopback_exchange``, which runs
 n_sh shards in one process.
 
 Inside the model (``moe``) each rank holds its block of the batch, rows
-over "data" and positions over "model": ``moe_a2a`` runs there over the
-"model" group with the rank's own experts; where JAX falls back to the
-dispatch (E % n_sh nonzero, or ``moe_impl="dispatch"``) the dispatch
-plans the tokens of the whole mesh in their global order, as GSPMD's
-partitioned ``moe_dispatch`` does, and splits its capacity over the
-mesh's ranks.
+over "data" and positions over "model" (decode's one position whole over
+"model"), and, where E divides by the "model" axis, its E / m experts
+(``expert_shards``): ``moe_a2a`` runs there over the "model" group; where
+JAX falls back to the dispatch (decode, E % n_sh nonzero, or
+``moe_impl="dispatch"``) the dispatch plans the tokens of the whole mesh
+in their global order, as GSPMD's partitioned ``moe_dispatch`` does, and
+splits its buffer as JAX's constraint does: the experts over "model", the
+capacity over the batch axes.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..parallel.sharding import (all_gather_flat, all_to_all, axis_group, batch_axes, mesh_shape,
-                                 reduce_scatter_flat)
+from ..parallel.sharding import (SeqShards, all_gather_flat, all_reduce, all_to_all, axis_group,
+                                 batch_axes, mesh_shape, reduce_scatter_flat, seq_shards)
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -153,7 +155,7 @@ def moe_dense(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None,
-                 seq_ranks: int = 1) -> torch.Tensor:
+                 seq_ranks: int = 1, model: Optional[SeqShards] = None) -> torch.Tensor:
     """Capacity-based scatter dispatch (see the module docstring).
 
     ``group``: the process group over whose ranks the batch is split, each
@@ -171,15 +173,23 @@ def moe_dispatch(x: torch.Tensor, p: Dict, cfg: ArchConfig, group=None,
     padded up to a multiple of n with empty slots, as GSPMD pads the
     constraint's split) and runs the experts over its [E, C/n, e] buffer
     alone. Each kept pair's row travels to the rank that owns its slot and
-    its expert output back, by all-to-alls over the group."""
+    its expert output back, by all-to-alls over the group.
+
+    ``model``: the "model" axis over which p's experts are split, E / m a
+    rank (``expert_shards``), as JAX's constraint splits the buffer's
+    experts. Where the group holds the model ranks too (``seq_ranks`` m)
+    rank (d, j) owns the slots of block d of the capacity of experts block
+    j; where the tokens are whole over "model" (decode) each model rank
+    takes its experts' pairs alone, over the group of the batch axes, and
+    the partial outputs are summed over "model"."""
     b, s, e = x.shape
     cdt = x.dtype
     E, k, T = cfg.n_experts, cfg.top_k, b * s
     xn = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T, e)
     gates, ids = _route(xn, p, cfg)                                     # [T, k]
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    if group is not None and dist.get_world_size(group) > 1:
-        y = _dispatch_split(xn, gates, ids, tok, p, cfg, group, (b, s, seq_ranks))
+    if model is not None or (group is not None and dist.get_world_size(group) > 1):
+        y = _dispatch_split(xn, gates, ids, tok, p, cfg, group, (b, s, seq_ranks), model)
     else:
         plan = dispatch_plan(ids, cfg)
         C, kept, dest = plan.capacity, plan.keep, plan.dest
@@ -205,27 +215,35 @@ def _global_order(n: int, block: Tuple[int, int, int], device) -> torch.Tensor:
 
 def _dispatch_split(xn: torch.Tensor, gates: torch.Tensor, ids: torch.Tensor,
                     tok: torch.Tensor, p: Dict, cfg: ArchConfig, group,
-                    block: Tuple[int, int, int]) -> torch.Tensor:
-    """``moe_dispatch`` with the buffer's capacity split over the n ranks
-    of ``group``, each holding a ``block`` (b, s, m) of the batch
-    (``_global_order``): y [T, e] of this rank's tokens before the shared
-    expert."""
+                    block: Tuple[int, int, int], model: Optional[SeqShards]) -> torch.Tensor:
+    """``moe_dispatch`` with the buffer split over the n ranks of
+    ``group``, each holding a ``block`` (b, s, m) of the batch
+    (``_global_order``), and its experts over ``model``'s ranks if given:
+    y [T, e] of this rank's tokens before the shared expert."""
     T, e = xn.shape
     E, k, cdt = cfg.n_experts, cfg.top_k, xn.dtype
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    fid = _gather_rows(ids, group).reshape(-1)                          # [n T k], by rank
+    # (no group: decode's batch whole, one rank of it on each model rank)
+    n, r = (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
+    fid = (ids if group is None else _gather_rows(ids, group)).reshape(-1)   # [n T k], by rank
     order = _global_order(n, block, ids.device)
     plan = dispatch_plan(fid.view(n * T, k)[order], cfg)
     # the plan of the global order, back in the ranks' order
     keep, dest = torch.empty_like(plan.keep), torch.empty_like(plan.dest)
     keep.view(n * T, k)[order] = plan.keep.view(n * T, k)
     dest.view(n * T, k)[order] = plan.dest.view(n * T, k)
-    plan = DispatchPlan(keep, dest, plan.capacity)
     C = plan.capacity
-    Cl = -(-C // n)                                   # a rank's slots of each expert
-    slot = plan.dest - fid * C                        # the pair's slot in its expert
-    owner = torch.where(plan.keep, slot // Cl, n)     # n: dropped
-    row = fid * Cl + slot - owner * Cl                # its row of the owner's buffer
+    # the experts' blocks: over the group's model ranks where it holds them
+    # (rank d m + j owns expert block j), else over "model" beside the
+    # group, each model rank sending its own block's pairs alone
+    e_loc = E // (1 if model is None else model.n)
+    blk = fid // e_loc
+    split = block[2] if model is not None and block[2] > 1 else 1
+    if model is not None and split == 1:
+        keep = keep & (blk == model.rank)
+    Cl = -(-C // (n // split))                        # a rank's slots of each expert
+    slot = dest - fid * C                             # the pair's slot in its expert
+    owner = torch.where(keep, (slot // Cl) * split + blk % split, n)   # n: not sent
+    row = (fid % e_loc) * Cl + slot % Cl              # its row of the owner's buffer
     owner, row = owner.view(n, T * k), row.view(n, T * k)
     # this rank's kept pairs, by the rank that owns their slot (pair order within)
     mine = torch.argsort(owner[r], stable=True)
@@ -235,14 +253,18 @@ def _dispatch_split(xn: torch.Tensor, gates: torch.Tensor, ids: torch.Tensor,
     to_me = owner == r                                                  # [n, T k]
     recv_counts = to_me.sum(1).tolist()
     recv_row = row[to_me]
-    recv = _AllToAllRows.apply(xn[tok[mine]], recv_counts, send_counts, group)
-    buf = torch.zeros((E * Cl, e), dtype=cdt, device=xn.device).index_add(0, recv_row, recv)
-    yb = _expert_ffn(buf.view(E, Cl, e), p, cfg)                        # [E, C/n, e]
-    back = _AllToAllRows.apply(yb.reshape(E * Cl, e)[recv_row], send_counts, recv_counts, group)
+    recv = _exchange_rows(xn[tok[mine]], recv_counts, send_counts, group)
+    buf = torch.zeros((e_loc * Cl, e), dtype=cdt, device=xn.device).index_add(0, recv_row, recv)
+    yb = _expert_ffn(buf.view(e_loc, Cl, e), p, cfg)                    # [E/m, C/n, e]
+    back = _exchange_rows(yb.reshape(e_loc * Cl, e)[recv_row], send_counts, recv_counts, group)
     got = torch.zeros((T * k, e), dtype=cdt, device=xn.device).index_add(0, mine, back)
-    got = got * (gates.reshape(T * k) * plan.keep.view(n, T * k)[r]).to(cdt)[:, None]
+    got = got * (gates.reshape(T * k) * keep.view(n, T * k)[r]).to(cdt)[:, None]
     # each token's k parts summed in a fixed order (JAX scatter-adds them)
-    return got.view(T, k, e).sum(1)
+    y = got.view(T, k, e).sum(1)
+    if model is not None and split == 1:
+        # decode: the model ranks' experts' parts of the same tokens
+        all_reduce(y, model.group)
+    return y
 
 
 class _AllToAllRows(torch.autograd.Function):
@@ -261,6 +283,13 @@ class _AllToAllRows(torch.autograd.Function):
         return _all_to_all_rows(g, in_splits, out_splits, group), None, None, None
 
 
+def _exchange_rows(x: torch.Tensor, out_splits: List[int], in_splits: List[int],
+                   group) -> torch.Tensor:
+    """``_AllToAllRows`` over ``group``; without one (a group of one rank)
+    the rows as they are."""
+    return x if group is None else _AllToAllRows.apply(x, out_splits, in_splits, group)
+
+
 def _all_to_all_rows(x: torch.Tensor, out_splits: List[int], in_splits: List[int],
                      group) -> torch.Tensor:
     x = x.contiguous()
@@ -270,14 +299,10 @@ def _all_to_all_rows(x: torch.Tensor, out_splits: List[int], in_splits: List[int
 
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's t [T, ...] of ``group``, concatenated in rank order.
-    The buffer starts as n copies of this rank's t (the plan's expert ids),
-    so that under a process group whose collectives move nothing (the
-    dry-run's fake group) the plan made from it is this rank's tokens' for
-    every rank, never one read from uninitialised memory."""
+    """Every rank's t [T, ...] of ``group``, concatenated in rank order."""
     t = t.contiguous()
     n = dist.get_world_size(group)
-    out = t.repeat((n,) + (1,) * (t.dim() - 1))
+    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
     all_gather_flat(out, t, group)
     return out
 
@@ -625,13 +650,15 @@ def _token_group(ctx, seq_split: bool = True) -> Tuple[object, int]:
     return group, mesh_shape(ctx.mesh).get("model", 1)
 
 
-def a2a_shards(cfg: ArchConfig, mesh) -> int:
-    """The model shards ``moe`` runs ``moe_a2a`` over under ``mesh``: its
-    "model" axis's size where the layer is ``"a2a"`` and E divides by it
-    (each rank then runs its own E / n_sh experts, whose split over "model"
-    the model keeps), else 1."""
+def expert_shards(cfg: ArchConfig, mesh) -> int:
+    """The "model" shards over which the layer holds its experts under
+    ``mesh``, E / m a rank (the model keeps their split): the axis's size
+    m where it exceeds 1, E divides by it and the layer routes (JAX's
+    "expert" -> "model" rule, which ``moe_a2a``'s shards and the dispatch
+    buffer's constraint follow), else 1 (the dense oracle's experts, and
+    an E that does not divide, stay whole)."""
     m = 1 if mesh is None else mesh_shape(mesh).get("model", 1)
-    return m if cfg.moe_impl == "a2a" and m > 1 and cfg.n_experts % m == 0 else 1
+    return m if cfg.moe_impl != "dense" and m > 1 and cfg.n_experts % m == 0 else 1
 
 
 def _f_slice(p: Dict, cfg: ArchConfig, mesh) -> Dict:
@@ -652,22 +679,25 @@ def moe(x: torch.Tensor, p: Dict, cfg: ArchConfig, ctx=None,
     """The layer ``cfg.moe_impl`` names, on this rank's block of the batch
     under ``ctx``'s mesh: its rows over the batch axes and, with
     ``seq_split``, its positions over "model" (decode's one position is
-    whole over "model"). The dense oracle couples no tokens. ``moe_a2a``
-    runs over the "model" group where the mesh's "model" axis has n_sh > 1
-    ranks, E divides by it and the sequence is split over it (p then holds
-    the rank's E / n_sh experts, ``a2a_shards``; under ``moe_ep2d`` their f
-    is sliced over "data" here), and at one model shard on the rank's own
-    tokens, as JAX's ``shard_map`` body does. The dispatch, and ``moe_a2a``
-    where JAX falls back to it (decode: s % n_sh nonzero), ranks its pairs
-    over the mesh's tokens in their global order and splits its buffer's
-    capacity over the ranks that hold distinct tokens (``moe_dispatch``)."""
+    whole over "model"); p holds the rank's E / m experts where
+    ``expert_shards`` is m > 1 (under ``moe_ep2d`` their f is sliced over
+    "data" here for ``moe_a2a``). The dense oracle couples no tokens.
+    ``moe_a2a`` runs over the "model" group where the experts are split and
+    so is the sequence, and at one model shard on the rank's own tokens, as
+    JAX's ``shard_map`` body does. The dispatch, and ``moe_a2a`` where JAX
+    falls back to it (decode: s % n_sh nonzero), ranks its pairs over the
+    mesh's tokens in their global order and splits its buffer: the
+    capacity over the ranks that hold distinct tokens, the experts over
+    "model" (``moe_dispatch``)."""
     if cfg.moe_impl == "dense":
         return moe_dense(x, p, cfg)
     mesh = None if ctx is None else ctx.mesh
-    if cfg.moe_impl == "a2a" and seq_split and a2a_shards(cfg, mesh) > 1:
+    split = expert_shards(cfg, mesh) > 1
+    if cfg.moe_impl == "a2a" and seq_split and split:
         return moe_a2a(x, _f_slice(p, cfg, mesh), cfg, ctx)
     if cfg.moe_impl == "a2a" and (mesh is None or mesh_shape(mesh).get("model", 1) == 1):
         return moe_a2a(x, p, cfg)
     if mesh is None:
         return moe_dispatch(x, p, cfg)
-    return moe_dispatch(x, p, cfg, *_token_group(ctx, seq_split))
+    return moe_dispatch(x, p, cfg, *_token_group(ctx, seq_split),
+                        model=seq_shards(ctx) if split else None)

@@ -309,7 +309,8 @@ def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
     attention runs over the rank's block of the sequence and combines the
     model ranks' partial results, the MLP is tensor-parallel over "model"
     (its weights' "tp" blocks), Mamba2 steps its H/m heads, and the MoE
-    layer plans the batch's tokens over the batch axes."""
+    layer plans the batch's tokens over the batch axes, each model rank
+    running its own experts (``moe.moe_dispatch``'s ``model``)."""
     sp = seq_shards(ctx)
     x, positions = _inputs(params, cfg, tokens, embeds, offset=pos)
     groups, per = _group_layout(cfg)

@@ -53,7 +53,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from ..launch.tally import record_collective
+from ..tally_hooks import record_collective
 
 Physical = Union[None, str, Tuple[str, ...]]
 
@@ -370,12 +370,7 @@ def all_to_all(out: torch.Tensor, x: torch.Tensor, group, out_splits=None,
                in_splits=None) -> None:
     """``all_to_all_single`` of ``x`` into ``out`` over ``group`` (equal
     blocks of dimension 0, or the row counts given), counted in the active
-    tally. An integer ``out`` (a plan: expert ids) is first filled with the
-    rank's own ``x`` where the shapes allow, so that under a process group
-    whose collectives move nothing (the dry-run's fake group) every index
-    read from it is one of this rank's plan, never uninitialised memory."""
-    if not out.is_floating_point() and out.shape == x.shape:
-        out.copy_(x)
+    tally."""
     dist.all_to_all_single(out, x, output_split_sizes=out_splits,
                            input_split_sizes=in_splits, group=group)
     record_collective("all-to-all", out)

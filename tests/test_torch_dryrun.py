@@ -13,11 +13,15 @@ against JAX's (``repro/launch/dryrun.py``, ``repro/launch/hloparse.py``).
   [8, 8] all-reduce, then a bf16 [4, 8, 16] all-gather and a dot) on a gloo
   world of 4 gives the analyzer's numbers;
 * ``dot_flops_per_device`` of reduced llama3.2-3b's train, prefill and
-  decode cells on a ("data" 2, "model" 2) mesh, at the last model rank,
-  against ``analyze(compiled.as_text()).dot_flops`` of JAX's compiled step
-  on a 4-device mesh of Auto axes, within ``FLOPS_TOL``;
+  decode cells and reduced qwen3-moe's decode cell (its experts split over
+  "model" in the dispatch) on a ("data" 2, "model" 2) mesh, at the last
+  model rank, against ``analyze(compiled.as_text()).dot_flops`` of JAX's
+  compiled step on a 4-device mesh of Auto axes, within ``FLOPS_TOL``;
 * each kernel wrapper's report (``counts_as``): what its plain version
-  counts on the same arguments, products and result bytes.
+  counts on the same arguments, products and result bytes;
+* the tally of the reduced twins of ``chip_smoke.py`` with each kernel
+  replaced by a stand-in that writes the kernel's output layout: the same
+  as on the plain path, every field.
 """
 import json
 import os
@@ -35,6 +39,9 @@ ARCH = "llama3.2-3b"
 SEQ, BATCH = 32, 4
 FLOP_MESH = (2, 2)
 FLOP_MODES = ("train", "prefill", "decode")
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# the cells of the FLOPs check: name -> (arch, mode)
+FLOP_CELLS = {**{m: (ARCH, m) for m in FLOP_MODES}, "moe_decode": (MOE_ARCH, "decode")}
 # the port's count at its last model rank against JAX's per-device count
 FLOPS_TOL = 0.02
 
@@ -98,9 +105,7 @@ from repro.launch.hloparse import analyze
 from repro.models.config import ShapeConfig
 from repro.models.model import make_model
 from repro.parallel.sharding import Rules, ShardingCtx
-cfg = get_config({ARCH!r}).reduced()
 mesh = jax.make_mesh({FLOP_MESH!r}, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-model = make_model(cfg, ShardingCtx(Rules(), mesh))
 
 
 def with_sh(shapes, shardings):
@@ -108,7 +113,8 @@ def with_sh(shapes, shardings):
         lambda sd, sh: jax.ShapeDtypeStruct(sd.shape, sd.dtype, sharding=sh), shapes, shardings)
 
 
-for mode in {FLOP_MODES!r}:
+for name, (arch, mode) in {FLOP_CELLS!r}.items():
+    model = make_model(get_config(arch).reduced(), ShardingCtx(Rules(), mesh))
     shape = ShapeConfig(mode, {SEQ}, {BATCH}, mode)
     p = with_sh(model.param_shapes(), model.param_shardings())
     x = with_sh(model.input_specs(shape), model.input_shardings(shape))
@@ -124,8 +130,54 @@ for mode in {FLOP_MODES!r}:
                 jax.ShapeDtypeStruct((), jax.numpy.int32))
     with mesh:
         compiled = fn.lower(*args).compile()
-    save(**{{mode: analyze(compiled.as_text()).dot_flops}})
+    save(**{{name: analyze(compiled.as_text()).dot_flops}})
 """
+
+
+# the reduced cell (arch, shape) through ``run_cell`` on the CPU twice: on
+# the plain path, then with each kernel a stand-in (``counts_as`` its plain
+# version) that writes the kernel's output layout: attention's [b, h, s, d]
+# a view of a [b, s, h, d] buffer, the others contiguous
+LAYOUT_TWIN = """
+import json, sys
+from repro_torch.kernels import ops, ref, flash_attention as fa, ssd_scan as ss
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.tally_hooks import counts_as
+arch, shape = sys.argv[1:3]
+
+
+def run():
+    return run_cell(arch, shape, device="cpu", reduced=True, tag="layout_twin", verbose=False)
+
+
+def bshd(t):
+    return t.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+
+
+def dense(out):
+    return tuple(t.contiguous() for t in out) if isinstance(out, tuple) else out.contiguous()
+
+
+def attn(q, k, v, causal=True, window=0, return_lse=False):
+    out = ref.ref_attention(q, k, v, causal=causal, window=window, return_lse=return_lse)
+    return (bshd(out[0]), out[1].contiguous()) if return_lse else bshd(out)
+
+
+plain = run()
+fa.flash_attention = ops.flash_attention = counts_as(ref.ref_attention)(attn)
+fa.flash_attention_bwd = counts_as(ref.ref_attention_bwd)(
+    lambda *a, **kw: tuple(bshd(t) for t in ref.ref_attention_bwd(*a, **kw)))
+fa.flash_decode = ops.flash_decode = counts_as(ref.ref_decode)(
+    lambda *a, **kw: dense(ref.ref_decode(*a, **kw)))
+ss.ssd_chunk = counts_as(ref.ref_ssd_chunk)(lambda *a, **kw: dense(ref.ref_ssd_chunk(*a, **kw)))
+ss.ssd_chunk_bwd = counts_as(ref.ref_ssd_chunk_bwd)(
+    lambda *a, **kw: dense(ref.ref_ssd_chunk_bwd(*a, **kw)))
+ops._on_cuda = fa._on_card = ss._on_card = lambda t: True
+print(json.dumps([plain, run()]))
+"""
+TALLY_KEYS = ("ok", "dot_flops_per_device", "collectives", "collective_counts",
+              "collective_bytes_ag2d", "collective_bytes_other2d", "collective_bytes_hi",
+              "result_bytes_per_device")
 
 
 # ---------------------------------------------------------------------- #
@@ -157,7 +209,8 @@ def _synthetic_step():
 
 
 def _flop_cells(rank):
-    """This rank's tally of each reduced llama cell on the (2, 2) mesh."""
+    """This rank's tally of each ``FLOP_CELLS`` cell, reduced, on the (2, 2)
+    mesh."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import build_cell, cell_arguments, run_step
@@ -166,14 +219,14 @@ def _flop_cells(rank):
     from repro_torch.models.config import ShapeConfig
     mesh = make_mesh(FLOP_MESH, ("data", "model"))
     out = {}
-    for mode in FLOP_MODES:
+    for name, (arch, mode) in FLOP_CELLS.items():
         shape = ShapeConfig(mode, SEQ, BATCH, mode)
-        model = build_cell(ARCH, shape, mesh, cfg_override=get_config(ARCH).reduced(),
+        model = build_cell(arch, shape, mesh, cfg_override=get_config(arch).reduced(),
                            device="cpu")
         args = cell_arguments(model, shape, torch.Generator().manual_seed(rank))
         with tally() as t:
             run_step(model, shape, args)
-        out[mode] = t.as_dict()
+        out[name] = t.as_dict()
     return out
 
 
@@ -244,19 +297,21 @@ def test_tally_twin_of_hloparse_trip_count_weighting(results):
         assert not has_trips
 
 
-@pytest.mark.parametrize("mode", FLOP_MODES)
+@pytest.mark.parametrize("mode", list(FLOP_CELLS))
 def test_dot_flops_match_jax_compiled_step(mode, results):
-    """Reduced llama's ``mode`` cell on ("data" 2, "model" 2): the last
+    """The reduced ``FLOP_CELLS`` cell on ("data" 2, "model" 2): the last
     model rank's dot FLOPs (aten products, attention at full sq x skv
-    scores over its K/V prefix) within ``FLOPS_TOL`` of JAX's per-device
-    ``analyze(...).dot_flops``, on every rank of the last model column;
-    the first column's attention sees a shorter prefix and counts less."""
+    scores over its K/V prefix; MoE decode's products of the rank's E / 2
+    experts over its data rank's C / 2 slots) within ``FLOPS_TOL`` of
+    JAX's per-device ``analyze(...).dot_flops``, on every rank of the last
+    model column; the first column's attention sees a shorter prefix and
+    counts less."""
     want = float(results["jax_flops"][mode])
     ranks = results["ranks"]
     last = [ranks[r]["flops"][mode]["dot_flops"] for r in range(WORLD) if r % 2 == 1]
     for got in last:
         assert abs(got - want) <= FLOPS_TOL * want, (got, want)
-    if mode != "decode":
+    if FLOP_CELLS[mode][1] != "decode":
         assert all(ranks[r]["flops"][mode]["dot_flops"] < last[0]
                    for r in range(WORLD) if r % 2 == 0)
 
@@ -269,7 +324,8 @@ def test_kernel_reports_are_their_plain_versions_counts(name):
     same arguments (here it runs on the CPU), and none of its own ops."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.launch.tally import counts_as, tally
+    from repro_torch.launch.tally import tally
+    from repro_torch.tally_hooks import counts_as
     g = torch.Generator().manual_seed(0)
 
     def rn(*s):
@@ -296,3 +352,18 @@ def test_kernel_reports_are_their_plain_versions_counts(name):
         counts_as(plain)(kernel)(*args, **kwargs)
     assert want.dot_flops > 0
     assert (got.dot_flops, got.result_bytes) == (want.dot_flops, want.result_bytes)
+
+
+@pytest.mark.parametrize("arch,shape", [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k")])
+def test_tally_is_the_same_under_the_kernels_layouts(arch, shape):
+    """``chip_smoke.py``'s reduced twins, whose tally must be the same on
+    the card as on the CPU: with every kernel a stand-in that reports its
+    plain version's count and writes the kernel's output layout (which the
+    layout copies after it follow), each tally field is the plain path's
+    exactly, forward and backward."""
+    proc = subprocess.run([sys.executable, "-c", LAYOUT_TWIN, arch, shape], capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    plain, layout = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert plain["ok"], plain.get("error")
+    assert {k: plain[k] for k in TALLY_KEYS} == {k: layout[k] for k in TALLY_KEYS}
