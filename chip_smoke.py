@@ -2948,15 +2948,21 @@ def per_step_collectives(cfg, mesh=(1, 1)) -> dict:
     ``mesh``, reckoned from the specs and the layers (``COLLECTIVES``'
     keys): each layer body gathers each of its leaves once for each
     dimension the leaf's spec splits over axes of more than one rank, once
-    in the forward and once more when remat recomputes it; the embedding
-    and the LM head are gathered where they are used, outside the remat
-    region; each gather of the forward is reduce-scattered once in the
-    backward. With a model axis above 1, each attention gathers K and V
-    (one sequence gather) and each Mamba2 block B and C (one more), its
-    conv's halo (one) and three all-to-alls (x and dt to the heads, y
-    back), each again under remat, and each transposed once in the
-    backward. Times ``grad_accum``'s microbatches. Dense and Mamba2
-    models (the MoE layer's collectives depend on its routing)."""
+    in the forward and once more when remat recomputes it; the LM head is
+    gathered where it is used, outside the remat region; each gather of
+    the forward is reduce-scattered once in the backward. A split
+    embedding table is looked up in the rank's shard once (``take``) and
+    its backward runs once. With a model axis above 1, each attention
+    gathers K and V (one sequence gather) and each Mamba2 block B and C
+    (one more), its conv's halo (one) and three all-to-alls (x and dt to
+    the heads, and y back to the positions under ``ssm_seq_sharded``, else
+    z to the heads, where the block's output parts and its norm's mean
+    square are summed over "model": two ``seq_sum``), each again under
+    remat (but the output's sum: it saves nothing for the backward, and
+    the recomputation stops at the last tensor the backward needs), and
+    each transposed once in the backward. Times ``grad_accum``'s
+    microbatches. Dense and Mamba2 models (the MoE layer's collectives
+    depend on its routing)."""
     from repro_torch.models.model import make_model
     from repro_torch.models.transformer import _group_layout
     from repro_torch.parallel.sharding import spec_axes
@@ -2973,15 +2979,19 @@ def per_step_collectives(cfg, mesh=(1, 1)) -> dict:
 
     groups, _ = _group_layout(cfg)
     blocks = gathers("blocks.") * cfg.n_layers + gathers("shared.") * groups
-    outer = gathers("embed.")
+    outer = gathers("embed.lm_head")
+    take = int(gathers("embed.embedding") > 0)
     r = 2 if cfg.remat else 1
     mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     attn = {"ssm": 0, "hybrid": groups}.get(cfg.family, cfg.n_layers)
     seq = attn + mamba if sizes["model"] > 1 else 0
     halo = mamba if sizes["model"] > 1 else 0
+    sums = 0 if cfg.ssm_seq_sharded else halo
     k = max(cfg.grad_accum, 1)
     return {"gather": k * (r * blocks + outer), "reduce_scatter": k * (blocks + outer),
+            "take": k * take, "take_grad": k * take,
             "seq_gather": k * r * seq, "seq_reduce_scatter": k * seq,
+            "seq_sum": k * (r + 1) * sums, "seq_sum_grad": k * 2 * sums,
             "halo": k * r * halo, "halo_grad": k * halo, "all_to_all": k * 3 * (r + 1) * halo}
 
 
@@ -3264,7 +3274,8 @@ DRYRUN_CELLS = [
 # plain versions; the tally counts no layout copy): no MoE, whose routing
 # (and so its buffers' shapes) follows the random values, which the two
 # devices draw differently
-DRYRUN_TWINS = [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k")]
+DRYRUN_TWINS = [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k"),
+                ("mamba2-2.7b", "train_4k")]
 TALLY_KEYS = ("dot_flops_per_device", "collectives", "collective_counts",
               "collective_bytes_ag2d", "collective_bytes_other2d", "collective_bytes_hi",
               "result_bytes_per_device")

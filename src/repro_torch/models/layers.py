@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import attention_op, decode_attention_op
-from ..parallel.sharding import SeqShards, all_reduce, gather_seq, gathered, gathered_but_model
+from ..parallel.sharding import (SeqShards, Sharded, ShardingCtx, all_reduce, gather_seq, gathered,
+                                 gathered_but_model, sharded_take)
 from .config import ArchConfig
 
 
@@ -281,10 +282,19 @@ def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def embed_tokens(tokens: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
-    """The rows of the fp32 table (gathered whole where it is sharded, so
-    that a token's repeated rows sum their gradients in fp32), cast."""
-    return gathered(p["embedding"])[tokens].to(getattr(torch, cfg.dtype))
+def embed_tokens(tokens: torch.Tensor, p: Dict, cfg: ArchConfig,
+                 ctx: Optional[ShardingCtx] = None, seq_split: bool = True) -> torch.Tensor:
+    """The rows of the fp32 table, cast to the compute dtype. A table held
+    as shards (a ``Sharded`` under ``ctx``'s mesh) is never gathered: each
+    rank looks its tokens (its block of the batch, with ``seq_split`` its
+    positions over "model" too) up in its own shard, as GSPMD partitions
+    JAX's ``jnp.take`` (``sharded_take``). Either way a token's repeated
+    rows sum their gradients in fp32."""
+    cdt = getattr(torch, cfg.dtype)
+    table = p["embedding"]
+    if isinstance(table, Sharded):
+        return sharded_take(table, tokens, ctx, seq_split, cdt)
+    return table[tokens].to(cdt)
 
 
 def lm_logits(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:

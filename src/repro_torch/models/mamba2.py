@@ -18,8 +18,22 @@ GSPMD do (``repro/models/mamba2.py:167-202``): the conv takes the K - 1
 positions before the block from the previous rank (``halo_prev``); x and
 dt go by all-to-all to every position of the rank's H/m heads (its slice
 of ``A_log``, ``D``), B and C (JAX's compact G-form) are gathered whole,
-the scan runs there, and y comes back to the rank's positions by the
-inverse all-to-all; the gate and ``out_norm`` act on the whole d_inner.
+and the scan runs there. How the block leaves the scan follows
+``cfg.ssm_seq_sharded``, as JAX's HLO does:
+
+* on (§Perf): y comes back to the rank's positions by the inverse
+  all-to-all, and the gate, ``out_norm`` and ``out_proj`` act there on the
+  whole d_inner;
+* off (the baseline): y stays on the rank's heads over every position; z
+  goes to them by all-to-all, ``out_norm``'s mean square is summed over
+  "model", and ``out_proj``'s rows of the rank's heads give its part of
+  the output, all-reduced over "model", of which the rank keeps its
+  positions (``sum_over_model``). The backward of that product is GSPMD's
+  partition of JAX's baseline: the gradient of y over the whole d_inner,
+  then the rank's heads (``_HeadsProj``).
+
+Decode (x whole on every model rank, the SSM state the rank's heads') takes
+the baseline's exit whatever the flag, as JAX's decode does.
 
 Layout: x [b, s, H, P] (heads H = d_inner / headdim, P = headdim),
 B/C [b, s, G, N] (G groups, N = ssm_state), dt/A per head.
@@ -32,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import ssd_scan_op
-from ..parallel.sharding import SeqShards, gather_seq, halo_prev, heads_to_seq, seq_to_heads
+from ..parallel.sharding import (SeqShards, gather_seq, halo_prev, heads_to_seq, seq_to_heads,
+                                 sum_over_model)
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -102,11 +117,13 @@ def _rank_heads(H: int, sp: SeqShards) -> slice:
 
 
 def _scan_heads(xh: torch.Tensor, dtp: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                BC: torch.Tensor, cfg: ArchConfig, sp: SeqShards, want_state: bool = False):
+                BC: torch.Tensor, cfg: ArchConfig, sp: SeqShards, want_state: bool = False,
+                back: bool = True):
     """The SSD scan and the D residual of the rank's positions xh [b, s/m,
     H, P], dtp [b, s/m, H] and BC [b, s/m, 2 G N] (B, then C), run on the
-    rank's heads over the whole sequence; y [b, s/m, H, P] fp32 (and, with
-    ``want_state``, the rank's heads' final state [b, H/m, P, N])."""
+    rank's heads over the whole sequence; y fp32, with ``back`` [b, s/m, H,
+    P] (the rank's positions), else [b, s, H/m, P] (the rank's heads) (and,
+    with ``want_state``, the rank's heads' final state [b, H/m, P, N])."""
     b, sl = xh.shape[:2]
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     heads = _rank_heads(H, sp)
@@ -116,8 +133,54 @@ def _scan_heads(xh: torch.Tensor, dtp: torch.Tensor, A: torch.Tensor, D: torch.T
     out = ssd_scan_op(xs, dts, A[heads], BCs[:, :, 0], BCs[:, :, 1], cfg.ssm_chunk,
                       return_state=want_state)
     y, final = out if want_state else (out, None)
-    y = heads_to_seq(y + xs * D[heads][None, None, :, None], sp)
+    y = y + xs * D[heads][None, None, :, None]
+    if back:
+        y = heads_to_seq(y, sp)
     return (y, final) if want_state else y
+
+
+def _rank_cols(cfg: ArchConfig, sp: SeqShards) -> slice:
+    """The d_inner channels of model rank r's heads."""
+    di = cfg.d_inner
+    return slice(sp.rank * di // sp.n, (sp.rank + 1) * di // sp.n)
+
+
+class _HeadsProj(torch.autograd.Function):
+    """y [..., di/m] (the channels ``cols`` of the rank's heads) times
+    their rows of the whole ``out_proj`` w [di, e]: the rank's part of the
+    output. The backward is GSPMD's partition of JAX's baseline (the
+    reduced train step's HLO: dot f32[64,128] a layer): y's gradient over
+    the whole d_inner, of which the rank keeps its channels, and w's on the
+    rank's rows."""
+
+    @staticmethod
+    def forward(ctx, y, w, cols):
+        ctx.save_for_backward(y, w)
+        ctx.cols = cols
+        return y @ w[cols]
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        gy = (g @ w.T)[..., ctx.cols]
+        gw = torch.zeros_like(w)
+        gw[ctx.cols] = y.reshape(-1, y.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gy, gw, None
+
+
+def _heads_out(y: torch.Tensor, z: torch.Tensor, p: Dict, cfg: ArchConfig,
+               sp: SeqShards, dim: Optional[int]) -> torch.Tensor:
+    """The block's output from y [..., di/m] on the rank's heads, gated by
+    z (their channels): ``out_norm`` with the mean square summed over the
+    model ranks, the rank's rows of ``out_proj``, and the parts summed over
+    "model" (with ``dim``, the rank's positions of that dimension kept)."""
+    cols = _rank_cols(cfg, sp)
+    y = y * F.silu(z)
+    y32 = y.float()
+    ms = sum_over_model((y32 * y32).sum(-1, keepdim=True), sp) / cfg.d_inner
+    y = (y32 * torch.rsqrt(ms + cfg.norm_eps) * (1.0 + p["out_norm"][cols].float())).to(y.dtype)
+    part = _HeadsProj.apply(y, p["out_proj"].to(y.dtype), cols)
+    return sum_over_model(part, sp, dim)
 
 
 def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
@@ -132,7 +195,8 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     prefill x is this rank's block of positions and the state it returns
     the conv's last K - 1 positions (whole) and its heads' SSM state; in
     decode x is whole on every model rank and ``state["ssm"]`` holds the
-    rank's H/m heads, which it steps, gathering y's heads over "model"."""
+    rank's H/m heads, which it steps, their parts of the output summed over
+    "model"."""
     b, s, _ = x.shape
     cdt = x.dtype
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
@@ -149,13 +213,19 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
         conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
                        halo_prev(conv_in, CONV_K - 1, sp))
         xh = conv[..., :cfg.d_inner].reshape(b, s, H, P).float()
-        y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp, want_state)
+        back = cfg.ssm_seq_sharded
+        y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp, want_state,
+                        back)
         if want_state:
             # the conv state is the sequence's last K - 1 positions (the last
             # rank's), whole on every rank; the SSM state the rank's heads'
             y, final = y
             tail = gather_seq(conv_in[:, -(CONV_K - 1):], 1, sp)[:, -(CONV_K - 1):]
             new_state = {"conv": tail.float(), "ssm": final.float()}
+        if not back:
+            zh = seq_to_heads(z.reshape(b, s, H, P), sp)
+            y = y.reshape(zh.shape[:2] + (-1,)).to(cdt)
+            return _heads_out(y, zh.reshape(y.shape), p, cfg, sp, 1), new_state
         y = y.reshape(b, s, cfg.d_inner).to(cdt)
     elif state is None:
         conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
@@ -183,7 +253,7 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
         Bh = Bc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
         Ch = Cc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
         if sp is not None:
-            # the state holds the rank's heads: step them, gather y's heads
+            # the state holds the rank's heads: step them
             heads = _rank_heads(H, sp)
             xh, Bh, Ch, dtp, A, D = xh[:, heads], Bh[:, heads], Ch[:, heads], \
                 dtp[:, heads], A[heads], D[heads]
@@ -191,11 +261,13 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
         h = h * da[:, :, None, None] + torch.einsum("bhp,bhn,bh->bhpn", xh, Bh, dtp)
         y = torch.einsum("bhpn,bhn->bhp", h, Ch)
         y = y + xh * D[None, :, None]
-        if sp is not None:
-            y = gather_seq(y, 1, sp)                                   # [b, H, P]
-        y = y.reshape(b, 1, cfg.d_inner).to(cdt)
         new_state = {"conv": window[:, 1:].to(state["conv"].dtype),
                      "ssm": h.to(state["ssm"].dtype)}
+        if sp is not None:
+            # the heads' output parts, summed over "model"
+            y = y.reshape(b, 1, -1).to(cdt)
+            return _heads_out(y, z[..., _rank_cols(cfg, sp)], p, cfg, sp, None), new_state
+        y = y.reshape(b, 1, cfg.d_inner).to(cdt)
 
     y = y * F.silu(z)
     y = rmsnorm(y, p["out_norm"], cfg.norm_eps)

@@ -23,7 +23,9 @@ shards and the layer body gathers them first (``gather_tree``), inside
 the checkpointed region: remat gathers them again in the backward, and no
 gathered weight is kept between the forward and the backward. Each
 gather's backward reduce-scatters that use's gradient. The hybrid's
-shared block is gathered at each application.
+shared block is gathered at each application. The embedding table is
+never gathered: each rank looks its tokens up in its own shard
+(``layers.embed_tokens``).
 
 Under a mesh whose "model" axis has m > 1 ranks (``ctx``), each rank's
 residual stream is its rows and its block of m of the sequence, [b/data,
@@ -48,7 +50,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import SeqShards, ShardingCtx, gather_seq, gather_tree, seq_shards
+from ..parallel.sharding import ShardingCtx, gather_seq, gather_tree, seq_shards
 from .config import ArchConfig
 from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
@@ -115,16 +117,19 @@ def _sinusoid(positions: torch.Tensor, e: int, dtype: torch.dtype) -> torch.Tens
 
 def _inputs(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor],
             embeds: Optional[torch.Tensor], offset: int = 0,
-            sp: Optional[SeqShards] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            ctx: Optional[ShardingCtx] = None,
+            seq_split: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The first layer's input and the positions: embeds [b, s, e] cast to
-    the compute dtype, or tokens [b, s] looked up in the embedding; then,
-    for ``abs_sin``, the sinusoid added in that dtype. Under a sequence
-    split ``sp`` the s positions are the rank's block, from r s."""
+    the compute dtype, or tokens [b, s] looked up in the embedding (under
+    ``ctx``'s mesh, in the rank's shard of it); then, for ``abs_sin``, the
+    sinusoid added in that dtype. With ``seq_split`` under a sequence split
+    the s positions are the rank's block, from r s."""
     if embeds is not None:
         x = embeds.to(getattr(torch, cfg.dtype))
     else:
-        x = embed_tokens(tokens, params["embed"], cfg)
+        x = embed_tokens(tokens, params["embed"], cfg, ctx, seq_split)
     b, s = x.shape[:2]
+    sp = seq_shards(ctx) if seq_split else None
     if sp is not None:
         offset += sp.rank * s
     positions = make_positions(cfg, b, s, offset=offset, device=x.device)
@@ -175,7 +180,7 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
     conv_dim], "ssm" [L, b, H, P, N]} in fp32; hybrid the ssm states plus
     {"shared_k", "shared_v"} [groups, b, s, kvh, d]."""
     sp = seq_shards(ctx)
-    x, positions = _inputs(params, cfg, tokens, embeds, sp=sp)
+    x, positions = _inputs(params, cfg, tokens, embeds, ctx=ctx)
     _, per = _group_layout(cfg)
     cache: Dict[str, list] = {}
 
@@ -308,19 +313,25 @@ def decode_step(params: Dict, cache: Dict, cfg: ArchConfig,
     are used; the cache is this rank's blocks (``cache_shardings``):
     attention runs over the rank's block of the sequence and combines the
     model ranks' partial results, the MLP is tensor-parallel over "model"
-    (its weights' "tp" blocks), Mamba2 steps its H/m heads, and the MoE
+    (its weights' "tp" blocks; with ``mlp_seq_sharded`` it runs whole on
+    every model rank, its weights gathered whole, as JAX's decode then
+    does), Mamba2 steps its H/m heads, and the MoE
     layer plans the batch's tokens over the batch axes, each model rank
     running its own experts (``moe.moe_dispatch``'s ``model``)."""
     sp = seq_shards(ctx)
-    x, positions = _inputs(params, cfg, tokens, embeds, offset=pos)
+    x, positions = _inputs(params, cfg, tokens, embeds, offset=pos, ctx=ctx, seq_split=False)
     groups, per = _group_layout(cfg)
 
     def block(x, bp, ck, cv):
         a, _ = attention(x, gather_tree(bp["attn"]), cfg, positions, cache={"k": ck, "v": cv},
                          cache_index=pos, sp=sp)
         x = x + a
-        ffn = (moe(x, gather_tree(bp["ffn"]), cfg, ctx, seq_split=False) if "ffn" in bp
-               else mlp(x, bp["mlp"] if sp is not None else gather_tree(bp["mlp"]), cfg, sp=sp))
+        if "ffn" in bp:
+            ffn = moe(x, gather_tree(bp["ffn"]), cfg, ctx, seq_split=False)
+        elif sp is not None and not cfg.mlp_seq_sharded:
+            ffn = mlp(x, bp["mlp"], cfg, sp=sp)
+        else:
+            ffn = mlp(x, gather_tree(bp["mlp"]), cfg)
         return x + ffn
 
     if cfg.family in ("ssm", "hybrid"):

@@ -34,14 +34,17 @@ backward is the reduce-scatter of the gradient), and ``gather_full``
 rebuilds a whole leaf from its shards over a group. A dimension split
 over ("data", "model") is gathered over the mesh's flattened group,
 whose rank order is JAX's block order ``coord_data * m + coord_model``
-(``launch/mesh.py::make_mesh_for`` keeps one for each mesh).
+(``launch/mesh.py::make_mesh_for`` keeps one for each mesh). The
+embedding table is the one leaf never gathered: ``sharded_take`` looks
+each rank's tokens up in its shard, as GSPMD partitions ``jnp.take``.
 
 The activations' collectives of a model axis above 1 (``SeqShards``:
 each rank holds one block of every sequence) are here too: the
 sequence gather (``gather_seq``, attention's K and V, the SSD scan's B
-and C), the conv's halo from the previous block (``halo_prev``) and the
+and C), the conv's halo from the previous block (``halo_prev``), the
 all-to-alls between sequence blocks and head blocks (``seq_to_heads``,
-``heads_to_seq``), each an autograd function whose backward is its
+``heads_to_seq``) and the sum of a product's parts over the model ranks
+(``sum_over_model``), each an autograd function whose backward is its
 transpose.
 """
 from __future__ import annotations
@@ -227,6 +230,15 @@ def shard_shape(shape: Sequence[int], spec: PartitionSpec, mesh, name: str = "")
     return tuple(out)
 
 
+def _block_of(coord: Dict[str, int], axes: Sequence[str], sizes: Dict[str, int]) -> int:
+    """The block index of mesh coordinate ``coord`` over ``axes`` (JAX's
+    order: ``coord_a * size_b + coord_b``)."""
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + coord[a]
+    return i
+
+
 def local_shard(full, spec: PartitionSpec, mesh, name: str = ""):
     """The slice of ``full`` (a tensor or an array) that this rank's mesh
     coordinate owns: along each dimension split over axes (a, b, ...), the
@@ -239,9 +251,7 @@ def local_shard(full, spec: PartitionSpec, mesh, name: str = ""):
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     index = []
     for d, p in enumerate(spec):
-        i = 0
-        for a in _axes(p):
-            i = i * sizes[a] + coord[a]
+        i = _block_of(coord, _axes(p), sizes)
         index.append(slice(i * small[d], (i + 1) * small[d]))
     return full[tuple(index)]
 
@@ -326,10 +336,12 @@ def gather_splits(t: torch.Tensor, splits: Sequence[Split], pieces: bool = False
     return t
 
 
-# the collectives of the Zero-3 layout's gathers and of the sequence split,
-# counted where they are issued, one a call of a collective
-COLLECTIVES = {"gather": 0, "reduce_scatter": 0, "seq_gather": 0, "seq_reduce_scatter": 0,
-               "halo": 0, "halo_grad": 0, "all_to_all": 0}
+# the collectives of the Zero-3 layout's gathers, of the sharded table
+# lookup and of the sequence split, counted where they are issued, one a
+# call of a collective (a lookup, and its backward, once)
+COLLECTIVES = {"gather": 0, "reduce_scatter": 0, "take": 0, "take_grad": 0, "seq_gather": 0,
+               "seq_reduce_scatter": 0, "seq_sum": 0, "seq_sum_grad": 0, "halo": 0,
+               "halo_grad": 0, "all_to_all": 0}
 
 
 def reset_collectives() -> None:
@@ -484,6 +496,121 @@ def gather_tree(tree: Dict) -> Dict:
     return {k: gather_tree(v) if isinstance(v, dict) else gathered(v) for k, v in tree.items()}
 
 
+class TakePlan(NamedTuple):
+    """How a rank looks its tokens up in its shard of a [V, e] table:
+    its first row (``row0``), the group that sums the rows of the vocab
+    blocks (None where the vocab is whole), the group over which the e
+    blocks are exchanged (None where e is whole) and, for each of that
+    group's ranks in order (only this rank where there is none), the
+    (rows, positions) of its tokens among the gathered ones."""
+    row0: int
+    sum_group: Any
+    ex_group: Any
+    members: Tuple[Tuple[slice, slice], ...]
+
+
+class _Take(torch.autograd.Function):
+    """Rows of a sharded table for the gathered token ids, as GSPMD
+    partitions JAX's ``jnp.take`` (see ``sharded_take``). The backward
+    sends each rank its rows' gradients back, sums them over the vocab
+    blocks' group and adds them, in fp32, into the rank's own rows
+    (``index_add_``): the gradient of the shard itself, every use of each
+    row summed."""
+
+    @staticmethod
+    def forward(ctx, shard, ids, plan, dtype):
+        V = shard.shape[0]
+        local = ids - plan.row0
+        hit = (local >= 0) & (local < V)
+        rows = shard[local.clamp(0, V - 1)].to(dtype)
+        rows.masked_fill_(~hit[..., None], 0)
+        if plan.sum_group is not None:
+            # one block holds each row: the sum is exact in any dtype
+            all_reduce(rows, plan.sum_group)
+        ctx.plan, ctx.shard_meta = plan, (shard.shape, shard.dtype)
+        ctx.save_for_backward(local, hit)
+        if plan.ex_group is None:
+            b, s = plan.members[0]
+            return rows[b, s].contiguous()
+        send = torch.stack([rows[b, s] for b, s in plan.members])
+        recv = torch.empty_like(send)
+        all_to_all(recv, send, plan.ex_group)
+        n, bl, sl, el = recv.shape
+        return recv.permute(1, 2, 0, 3).reshape(bl, sl, n * el)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, (shape, dtype) = ctx.plan, ctx.shard_meta
+        local, hit = ctx.saved_tensors
+        grid = g.new_zeros(tuple(local.shape) + (shape[1],))
+        if plan.ex_group is None:
+            b, s = plan.members[0]
+            grid[b, s] = g
+        else:
+            n = len(plan.members)
+            bl, sl = g.shape[:2]
+            send = g.reshape(bl, sl, n, shape[1]).permute(2, 0, 1, 3).contiguous()
+            recv = torch.empty_like(send)
+            all_to_all(recv, send, plan.ex_group)
+            for (b, s), part in zip(plan.members, recv):
+                grid[b, s] += part
+        if plan.sum_group is not None:
+            # each position is one rank's: the sum adds zeros, exact in g's dtype
+            all_reduce(grid, plan.sum_group)
+        COLLECTIVES["take_grad"] += 1
+        # every position added (the others' rows as zeros): no shape here
+        # follows the token ids
+        grid.masked_fill_(~hit[..., None], 0)
+        out = torch.zeros(shape, dtype=torch.float32, device=g.device)
+        out.index_add_(0, local.clamp(0, shape[0] - 1).flatten(),
+                       grid.reshape(-1, shape[1]).float())
+        return out.to(dtype), None, None, None
+
+
+def sharded_take(table: Sharded, tokens: torch.Tensor, ctx: "ShardingCtx",
+                 seq_split: bool, dtype: torch.dtype) -> torch.Tensor:
+    """The rows [b, s, e] of this rank's tokens [b, s] (its block of a
+    global batch: rows over the batch axes, positions over "model" with
+    ``seq_split``) of a [V, e] ``table`` held as shards, in ``dtype``,
+    without gathering the table. As GSPMD partitions JAX's ``jnp.take``
+    (``repro/models/layers.py:280``): the token ids are all-gathered over
+    the table's axes that split them (as [b, s, 1], JAX's index shape),
+    each rank reads the rows its shard holds and zeroes the rest; where
+    the vocab is split (over "model") the rows are all-reduced over it,
+    the all-reduce of JAX's HLO; where e is split (over "data", or
+    ("data", "model") for an ``fsdp2d`` table) the e blocks of each rank's
+    tokens come to it by an all-to-all over e's axes. (For the e-split
+    table JAX all-gathers the rows whole, [B, S, e], and keeps its block;
+    the all-to-all moves 1 / n of that.)"""
+    mesh = ctx.mesh
+    names, sizes = list(mesh.mesh_dim_names), mesh_shape(mesh)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    vocab = [s for s in table.splits if s.dim == 0]
+    emb = [s for s in table.splits if s.dim == 1]
+    used = {a for s in table.splits for a in s.axes}
+    ids = tokens.to(torch.int32)[..., None]
+    b, s = tokens.shape
+    row_axes = tuple(a for a in batch_axes(ctx) if a in used and sizes[a] > 1)
+    seq_axes = ("model",) if seq_split and "model" in used and sizes.get("model", 1) > 1 else ()
+    for dim, axes in ((0, row_axes), (1, seq_axes)):
+        if axes:
+            ids = gather_full(ids, dim, *axis_group(mesh, axes))
+    ex_axes = emb[0].axes if emb else ()
+    members = []
+    for j in range(math.prod(sizes[a] for a in ex_axes)):
+        c, rest = dict(coord), j
+        for a in reversed(ex_axes):
+            c[a], rest = rest % sizes[a], rest // sizes[a]
+        bi = _block_of(c, row_axes, sizes)
+        si = c["model"] if seq_axes else 0
+        members.append((slice(bi * b, (bi + 1) * b), slice(si * s, (si + 1) * s)))
+    row0 = _block_of(coord, vocab[0].axes, sizes) * table.shard.shape[0] if vocab else 0
+    plan = TakePlan(row0, vocab[0].group if vocab else None, emb[0].group if emb else None,
+                    tuple(members))
+    COLLECTIVES["take"] += 1
+    return _Take.apply(table.shard, ids[..., 0].long(), plan, dtype)
+
+
 class SeqShards(NamedTuple):
     """The "model" axis of a mesh, over which each rank holds one block of
     every sequence: its process group, its size n and this rank's block r
@@ -546,6 +673,42 @@ class _Halo(torch.autograd.Function):
         gu = g.new_zeros(shape)
         gu[:, -k:] = mine
         return gu, None, None, None, None
+
+
+class _SeqSum(torch.autograd.Function):
+    """x summed over the "model" group (an all-reduce) and, with ``dim``,
+    this rank's block of that dimension kept: the parts of a product split
+    over "model" (the rank's heads' rows of a weight). The backward is the
+    sum of the ranks' gradients: with ``dim``, where each rank's is its
+    block's alone, their all-gather; without, their all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, r):
+        ctx.meta = (dim, group, n)
+        COLLECTIVES["seq_sum"] += 1
+        x = x.clone(memory_format=torch.contiguous_format)
+        all_reduce(x, group)
+        if dim is None:
+            return x
+        size = x.shape[dim] // n
+        return x.narrow(dim, r * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.meta
+        COLLECTIVES["seq_sum_grad"] += 1
+        if dim is None:
+            g = g.clone(memory_format=torch.contiguous_format)
+            all_reduce(g, group)
+        else:
+            g = gather_full(g, dim, group, n)
+        return g, None, None, None, None
+
+
+def sum_over_model(x: torch.Tensor, sp: SeqShards, dim: Optional[int] = None) -> torch.Tensor:
+    """``x`` summed over the model ranks, and with ``dim`` the rank's block
+    of that dimension (its positions, where x covers every position)."""
+    return _SeqSum.apply(x, dim, sp.group, sp.n, sp.rank)
 
 
 def halo_prev(u: torch.Tensor, k: int, sp: SeqShards) -> torch.Tensor:

@@ -12,11 +12,19 @@ against JAX's (``repro/launch/dryrun.py``, ``repro/launch/hloparse.py``).
   a synthetic step (12 trips of an fp32 [8, 16] all-gather, a dot and an
   [8, 8] all-reduce, then a bf16 [4, 8, 16] all-gather and a dot) on a gloo
   world of 4 gives the analyzer's numbers;
-* ``dot_flops_per_device`` of reduced llama3.2-3b's train, prefill and
-  decode cells and reduced qwen3-moe's decode cell (its experts split over
-  "model" in the dispatch) on a ("data" 2, "model" 2) mesh, at the last
-  model rank, against ``analyze(compiled.as_text()).dot_flops`` of JAX's
-  compiled step on a 4-device mesh of Auto axes, within ``FLOPS_TOL``;
+* the tally of the reduced ``FLOP_CELLS`` on a ("data" 2, "model" 2) mesh
+  against ``analyze(compiled.as_text())`` of JAX's compiled step on a
+  4-device mesh of Auto axes: llama3.2-3b's train, prefill and decode
+  cells, qwen3-moe's decode cell (its experts split over "model" in the
+  dispatch), mamba2's three with ``ssm_seq_sharded`` off and on, llama
+  with its vocab cut to 250 (an e-split embedding table, as mamba2's
+  50,280) in prefill and decode, and llama's decode with
+  ``mlp_seq_sharded``. At every rank of the last model column the dot
+  FLOPs within ``FLOPS_TOL`` of JAX's per-device count, and in every
+  prefill and decode cell the weights' all-gathers
+  (``collective_bytes_ag2d``) JAX's to the byte (qwen3-moe's decode
+  routing aside, ``ROUTING_GAP``); the two flags move the port's FLOPs and
+  weight gathers by what they move JAX's;
 * each kernel wrapper's report (``counts_as``): what its plain version
   counts on the same arguments, products and result bytes;
 * the tally of the reduced twins of ``chip_smoke.py`` with each kernel
@@ -40,10 +48,28 @@ SEQ, BATCH = 32, 4
 FLOP_MESH = (2, 2)
 FLOP_MODES = ("train", "prefill", "decode")
 MOE_ARCH = "qwen3-moe-30b-a3b"
-# the cells of the FLOPs check: name -> (arch, mode)
-FLOP_CELLS = {**{m: (ARCH, m) for m in FLOP_MODES}, "moe_decode": (MOE_ARCH, "decode")}
+SSM_ARCH = "mamba2-2.7b"
+SEQ_SHARDED = {"ssm_seq_sharded": True}
+# the cells of the tally check: name -> (arch, mode, config patch)
+FLOP_CELLS = {**{m: (ARCH, m, {}) for m in FLOP_MODES},
+              "moe_decode": (MOE_ARCH, "decode", {}),
+              **{f"mamba2_{m}": (SSM_ARCH, m, {}) for m in FLOP_MODES},
+              **{f"mamba2_seq_{m}": (SSM_ARCH, m, SEQ_SHARDED) for m in FLOP_MODES},
+              **{f"vocab250_{m}": (ARCH, m, {"vocab": 250}) for m in ("prefill", "decode")},
+              "mlp_seq_decode": (ARCH, "decode", {"mlp_seq_sharded": True})}
+GATHER_CELLS = [c for c, (_, mode, _) in FLOP_CELLS.items() if mode != "train"]
+# (cell without the flag, cell with it)
+FLAG_PAIRS = [(f"mamba2_{m}", f"mamba2_seq_{m}") for m in FLOP_MODES] + [
+    ("decode", "mlp_seq_decode")]
 # the port's count at its last model rank against JAX's per-device count
 FLOPS_TOL = 0.02
+# JAX's all-gathers that the port has no counterpart of, in bytes a rank
+# (ROADMAP.md, Known differences): in reduced qwen3-moe's decode GSPMD
+# gathers the router's probabilities f32[4, 4] (64 B a layer) to run top_k
+# over the batch, then its flat expert ids s32[8] (32 B) again for the
+# argsort; the port routes its own tokens and gathers their ids once,
+# int64 [2, 2] into [4, 2] (64 B): 32 B a layer short, over 2 layers
+ROUTING_GAP = {"moe_decode": 64}
 
 _CELLS = """
 from repro{pkg}.configs.registry import ARCH_IDS, get_config, shapes_for
@@ -98,14 +124,20 @@ for multi_pod in (False, True):
 print(json.dumps({"bytes": out, "raised": raised}))
 """
 
+# the fields of ``analyze``'s tally that the port's is held against
+JAX_TALLY = ("dot_flops", "collective_bytes", "collective_counts", "collective_bytes_ag2d",
+             "collective_bytes_other2d", "collective_bytes_hi")
+
 FLOPS_ORACLE = f"""
 import dataclasses
+import json
 from repro.configs.registry import get_config
 from repro.launch.hloparse import analyze
 from repro.models.config import ShapeConfig
 from repro.models.model import make_model
 from repro.parallel.sharding import Rules, ShardingCtx
 mesh = jax.make_mesh({FLOP_MESH!r}, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+TALLY = {JAX_TALLY!r}
 
 
 def with_sh(shapes, shardings):
@@ -113,8 +145,9 @@ def with_sh(shapes, shardings):
         lambda sd, sh: jax.ShapeDtypeStruct(sd.shape, sd.dtype, sharding=sh), shapes, shardings)
 
 
-for name, (arch, mode) in {FLOP_CELLS!r}.items():
-    model = make_model(get_config(arch).reduced(), ShardingCtx(Rules(), mesh))
+for name, (arch, mode, patch) in {FLOP_CELLS!r}.items():
+    cfg = dataclasses.replace(get_config(arch).reduced(), **patch)
+    model = make_model(cfg, ShardingCtx(Rules(), mesh))
     shape = ShapeConfig(mode, {SEQ}, {BATCH}, mode)
     p = with_sh(model.param_shapes(), model.param_shardings())
     x = with_sh(model.input_specs(shape), model.input_shardings(shape))
@@ -130,7 +163,8 @@ for name, (arch, mode) in {FLOP_CELLS!r}.items():
                 jax.ShapeDtypeStruct((), jax.numpy.int32))
     with mesh:
         compiled = fn.lower(*args).compile()
-    save(**{{name: analyze(compiled.as_text()).dot_flops}})
+    t = analyze(compiled.as_text())
+    save(**{{name: np.asarray(json.dumps({{k: getattr(t, k) for k in TALLY}}))}})
 """
 
 
@@ -146,8 +180,9 @@ from repro_torch.tally_hooks import counts_as
 arch, shape = sys.argv[1:3]
 
 
-def run():
-    return run_cell(arch, shape, device="cpu", reduced=True, tag="layout_twin", verbose=False)
+def run(seed=0):
+    return run_cell(arch, shape, device="cpu", reduced=True, tag="layout_twin", verbose=False,
+                    seed=seed)
 
 
 def bshd(t):
@@ -163,7 +198,7 @@ def attn(q, k, v, causal=True, window=0, return_lse=False):
     return (bshd(out[0]), out[1].contiguous()) if return_lse else bshd(out)
 
 
-plain = run()
+plain, drawn = run(), run(seed=1)
 fa.flash_attention = ops.flash_attention = counts_as(ref.ref_attention)(attn)
 fa.flash_attention_bwd = counts_as(ref.ref_attention_bwd)(
     lambda *a, **kw: tuple(bshd(t) for t in ref.ref_attention_bwd(*a, **kw)))
@@ -173,7 +208,7 @@ ss.ssd_chunk = counts_as(ref.ref_ssd_chunk)(lambda *a, **kw: dense(ref.ref_ssd_c
 ss.ssd_chunk_bwd = counts_as(ref.ref_ssd_chunk_bwd)(
     lambda *a, **kw: dense(ref.ref_ssd_chunk_bwd(*a, **kw)))
 ops._on_cuda = fa._on_card = ss._on_card = lambda t: True
-print(json.dumps([plain, run()]))
+print(json.dumps([plain, run(), drawn]))
 """
 TALLY_KEYS = ("ok", "dot_flops_per_device", "collectives", "collective_counts",
               "collective_bytes_ag2d", "collective_bytes_other2d", "collective_bytes_hi",
@@ -211,6 +246,7 @@ def _synthetic_step():
 def _flop_cells(rank):
     """This rank's tally of each ``FLOP_CELLS`` cell, reduced, on the (2, 2)
     mesh."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import build_cell, cell_arguments, run_step
@@ -219,10 +255,10 @@ def _flop_cells(rank):
     from repro_torch.models.config import ShapeConfig
     mesh = make_mesh(FLOP_MESH, ("data", "model"))
     out = {}
-    for name, (arch, mode) in FLOP_CELLS.items():
+    for name, (arch, mode, patch) in FLOP_CELLS.items():
         shape = ShapeConfig(mode, SEQ, BATCH, mode)
-        model = build_cell(arch, shape, mesh, cfg_override=get_config(arch).reduced(),
-                           device="cpu")
+        cfg = dataclasses.replace(get_config(arch).reduced(), **patch)
+        model = build_cell(arch, shape, mesh, cfg_override=cfg, device="cpu")
         args = cell_arguments(model, shape, torch.Generator().manual_seed(rank))
         with tally() as t:
             run_step(model, shape, args)
@@ -248,7 +284,8 @@ def results(tmp_path_factory):
         proc = port_args.result()
         assert proc.returncode == 0, proc.stderr
         return dict(jax_args=json.loads(str(jax_args.result()["args"])),
-                    jax_flops=jax_flops.result(), port=json.loads(proc.stdout), ranks=ranks)
+                    jax={k: json.loads(str(v)) for k, v in jax_flops.result().items()},
+                    port=json.loads(proc.stdout), ranks=ranks)
 
 
 def _cells():
@@ -297,23 +334,57 @@ def test_tally_twin_of_hloparse_trip_count_weighting(results):
         assert not has_trips
 
 
+def _port(results, cell, key):
+    """The port's ``key`` on each rank of the cell, by rank."""
+    return [results["ranks"][r]["flops"][cell][key] for r in range(WORLD)]
+
+
 @pytest.mark.parametrize("mode", list(FLOP_CELLS))
 def test_dot_flops_match_jax_compiled_step(mode, results):
     """The reduced ``FLOP_CELLS`` cell on ("data" 2, "model" 2): the last
     model rank's dot FLOPs (aten products, attention at full sq x skv
     scores over its K/V prefix; MoE decode's products of the rank's E / 2
-    experts over its data rank's C / 2 slots) within ``FLOPS_TOL`` of
-    JAX's per-device ``analyze(...).dot_flops``, on every rank of the last
-    model column; the first column's attention sees a shorter prefix and
-    counts less."""
-    want = float(results["jax_flops"][mode])
-    ranks = results["ranks"]
-    last = [ranks[r]["flops"][mode]["dot_flops"] for r in range(WORLD) if r % 2 == 1]
-    for got in last:
-        assert abs(got - want) <= FLOPS_TOL * want, (got, want)
-    if FLOP_CELLS[mode][1] != "decode":
-        assert all(ranks[r]["flops"][mode]["dot_flops"] < last[0]
-                   for r in range(WORLD) if r % 2 == 0)
+    experts over its data rank's C / 2 slots; Mamba2's products of the
+    rank's heads, the baseline's transposed ``out_proj`` over the whole
+    d_inner) within ``FLOPS_TOL`` of JAX's per-device
+    ``analyze(...).dot_flops``, on every rank of the last model column; the
+    first column's attention sees a shorter prefix and counts less, and
+    without attention it counts the same."""
+    want = float(results["jax"][mode]["dot_flops"])
+    got = _port(results, mode, "dot_flops")
+    last = got[1::2]
+    for g in last:
+        assert abs(g - want) <= FLOPS_TOL * want, (g, want)
+    arch, shape, _ = FLOP_CELLS[mode]
+    if arch == SSM_ARCH:
+        assert got[0::2] == last
+    elif shape != "decode":
+        assert all(g < last[0] for g in got[0::2])
+
+
+@pytest.mark.parametrize("cell", GATHER_CELLS)
+def test_weight_gathers_match_jax_to_the_byte(cell, results):
+    """In every prefill and decode cell the bytes of the rank <= 2
+    all-gathers (``collective_bytes_ag2d``: each weight gathered where it is
+    used, the embedding table never, its tokens' ids [b, s, 1] gathered as
+    JAX's index) are JAX's to the byte on every rank, less the routing
+    gathers of qwen3-moe's decode that only JAX makes (``ROUTING_GAP``)."""
+    want = results["jax"][cell]["collective_bytes_ag2d"] - ROUTING_GAP.get(cell, 0)
+    assert _port(results, cell, "collective_bytes_ag2d") == [want] * WORLD
+
+
+@pytest.mark.parametrize("off,on", FLAG_PAIRS, ids=[p[1] for p in FLAG_PAIRS])
+def test_flags_move_the_tally_as_they_move_jax(off, on, results):
+    """``ssm_seq_sharded`` (mamba2's train, prefill and decode) and
+    ``mlp_seq_sharded`` (llama's decode) change the last model rank's dot
+    FLOPs and weight gathers by exactly what they change JAX's: mamba2's
+    baseline training carries JAX's full-d_inner transposed ``out_proj``
+    (1,048,576 FLOPs more), its prefill and decode move nothing, and the
+    MLP of llama's decode runs whole with the flag, its weights gathered
+    whole."""
+    for key in ("dot_flops", "collective_bytes_ag2d"):
+        jax_moves = results["jax"][on][key] - results["jax"][off][key]
+        assert _port(results, on, key)[-1] - _port(results, off, key)[-1] == jax_moves, key
 
 
 @pytest.mark.parametrize("name", ["attention", "attention_lse", "attention_bwd", "decode",
@@ -354,16 +425,20 @@ def test_kernel_reports_are_their_plain_versions_counts(name):
     assert (got.dot_flops, got.result_bytes) == (want.dot_flops, want.result_bytes)
 
 
-@pytest.mark.parametrize("arch,shape", [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k")])
+@pytest.mark.parametrize("arch,shape", [("llama3.2-3b", "train_4k"), ("zamba2-2.7b", "long_500k"),
+                                        ("mamba2-2.7b", "train_4k")])
 def test_tally_is_the_same_under_the_kernels_layouts(arch, shape):
     """``chip_smoke.py``'s reduced twins, whose tally must be the same on
     the card as on the CPU: with every kernel a stand-in that reports its
     plain version's count and writes the kernel's output layout (which the
     layout copies after it follow), each tally field is the plain path's
-    exactly, forward and backward."""
+    exactly, forward and backward; and so it is with other drawn values
+    (the card draws other tokens than the CPU from the same seed: no shape
+    may follow them)."""
     proc = subprocess.run([sys.executable, "-c", LAYOUT_TWIN, arch, shape], capture_output=True,
                           text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 0, proc.stderr
-    plain, layout = json.loads(proc.stdout.strip().splitlines()[-1])
+    plain, layout, drawn = json.loads(proc.stdout.strip().splitlines()[-1])
     assert plain["ok"], plain.get("error")
     assert {k: plain[k] for k in TALLY_KEYS} == {k: layout[k] for k in TALLY_KEYS}
+    assert {k: plain[k] for k in TALLY_KEYS} == {k: drawn[k] for k in TALLY_KEYS}

@@ -449,10 +449,12 @@ def test_checkpoint_from_four_restores_onto_two(results):
 def test_ssm_seq_sharded_matches_baseline(results):
     """The twin of the JAX test: over a (2, 1) mesh the loss is the same
     with ``ssm_seq_sharded`` on and off (rtol 1e-5, as JAX's test), and
-    equals JAX's under its (2, 2) mesh. The port reads no
-    ``ssm_seq_sharded`` (its ranks hold whole sequences), so the on/off
-    comparison holds the port to itself; the comparison with JAX, where
-    the flag changes the program, carries the weight."""
+    equals JAX's under its (2, 2) mesh. The port's ranks hold whole
+    sequences on a (2, 1) mesh, where the flag changes nothing of its
+    program, so the on/off comparison holds the port to itself; the
+    comparison with JAX, where the flag changes the program, carries the
+    weight (the two forms on the port's (2, 2) mesh:
+    tests/test_torch_model_axis.py)."""
     _, oracle, ranks = results
     for res in ranks[:2]:
         off, on = res["ssm_0"], res["ssm_1"]

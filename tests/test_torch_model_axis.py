@@ -23,8 +23,18 @@ axes (one ``run_jax_oracle``):
   one-process port, within 1e-6 of each kind's largest |value| or twice
   the step tolerance (every case but ``moe_a2a``, whose capacities
   follow its shard count in both frameworks);
+* mamba2 with ``ssm_seq_sharded`` (the scan's output back to the
+  positions by all-to-all) at (2, 2), the same way: JAX's program changes
+  with the flag, the values must not;
 * qwen2-vl's M-RoPE and musicgen's sinusoid, whose positions start at
   each model rank's block, at the loss level;
+* the embedding lookup in a sharded table (``sharded_take``), at (2, 2),
+  of a vocab-split table (vocab 256: rows over "model", e over "data") and
+  an e-split one (vocab 250: e over ("data", "model")), against JAX's
+  ``embed_tokens`` under the same mesh: each rank's rows of its block of
+  the tokens (positions split over "model", and decode's one position
+  whole over it) bit for bit, each rank's shard of the table's gradient
+  within 1e-6, and no weight all-gather;
 * the sequence gather (attention's K and V, with the prefix a rank
   attends), the conv's halo and the all-to-alls between sequence and head
   blocks at float64 over model groups of 2 and 4: forward values, and the
@@ -51,14 +61,21 @@ CASES = {"llama3.2-3b": ("llama3.2-3b", {}), "mamba2-2.7b": ("mamba2-2.7b", {}),
          "qwen3-moe-dispatch": (MOE, {"moe_impl": "dispatch", "capacity_factor": 1.0}),
          "qwen3-moe-a2a": (MOE, {"moe_impl": "a2a", "capacity_factor": 1.0}),
          "qwen3-moe-a2a-ep2d": (MOE, {"moe_impl": "a2a", "capacity_factor": 1.0,
-                                      "moe_ep2d": True})}
-# moe_ep2d slices each expert's f over "data": a mesh with both axes above 1
-SHARD_CASES = [(c, m) for c in CASES for m in MESHES
-               if c != "qwen3-moe-a2a-ep2d" or m == (2, 2)]
+                                      "moe_ep2d": True}),
+         "mamba2-seq-sharded": ("mamba2-2.7b", {"ssm_seq_sharded": True})}
+# cases on the (2, 2) mesh alone: moe_ep2d slices each expert's f over
+# "data", a mesh with both axes above 1; the §Perf Mamba2 form beside the
+# baseline's three meshes
+ONE_MESH = ("qwen3-moe-a2a-ep2d", "mamba2-seq-sharded")
+SHARD_CASES = [(c, m) for c in CASES for m in MESHES if c not in ONE_MESH or m == (2, 2)]
 ONE_PROCESS = [(c, m) for c, m in SHARD_CASES if not c.startswith("qwen3-moe-a2a")]
 FAMILIES = ("qwen2-vl-72b", "musicgen-medium")
 FAMILY_CASES = [(a, m) for a in FAMILIES for m in MESHES]
 GROUPS = {2: (2, 2), 4: (1, 4)}        # model group size: the mesh that has it
+# the sharded lookup's tables: layout -> vocab (256 splits its rows over
+# "model", 250 does not divide 256 and splits e over ("data", "model"))
+EMBED_VOCABS = {"vocab-split": 256, "e-split": 250}
+EMBED_PARTS = ("prefill", "decode", "grad")
 REBINDS = ("grow 2", "shrink 2", "eject and replace")
 TOL = 1e-6
 
@@ -138,6 +155,25 @@ for case, shape in {SHARD_CASES!r}:
             save(**{{f"{{tag}}|{{i + 1}}|loss": loss}})
             save(**{{f"{{tag}}|{{i + 1}}|g.{{k}}": v for k, v in flat(g).items()}})
             shards(i + 1, params, opt_state)
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.models.layers import embed_tokens
+mesh = mesh_of((2, 2))
+for layout, vocab in {EMBED_VOCABS!r}.items():
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), vocab=vocab)
+    ctx = ShardingCtx(Rules(), mesh)
+    tsh = make_model(cfg, ctx).param_shardings()["embed"]["embedding"]
+    with mesh:
+        table = jax.device_put(jnp.asarray(data[f"embed|{{layout}}|table"]), tsh)
+        tok = jax.device_put(jnp.asarray(data[f"embed|{{layout}}|tokens"]),
+                             NamedSharding(mesh, P("data", "model")))
+        dec = jax.device_put(jnp.asarray(data[f"embed|{{layout}}|tokens"][:, :1]),
+                             NamedSharding(mesh, P("data", None)))
+        w = jnp.asarray(data[f"embed|{{layout}}|w"])
+        look = jax.jit(lambda t, k: embed_tokens(k, {{"embedding": t}}, cfg, ctx))
+        out, vjp = jax.vjp(lambda t: look(t, tok), table)
+        (grad,) = vjp(w)
+        save(**{{f"embed|{{layout}}|prefill": out, f"embed|{{layout}}|grad": grad,
+                 f"embed|{{layout}}|decode": look(table, dec)}})
 for arch in {FAMILIES!r}:
     cfg = get_config(arch).reduced()
     params = make_model(cfg).init_params(jax.random.key(0))
@@ -260,6 +296,41 @@ def _collectives_world(rank):
     return out
 
 
+def _embed_world(rank, inputs):
+    """Each ``EMBED_VOCABS`` table as this rank's shard on the (2, 2) mesh,
+    looked up for the rank's block of the tokens (rows over "data",
+    positions over "model"), and for decode's first position (whole over
+    "model"): the rows, the gradient of sum(rows * w) for the shard, and
+    the weight all-gathers' bytes of the lookup."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.tally import tally
+    from repro_torch.models.layers import embed_specs, embed_tokens
+    from repro_torch.parallel.sharding import (Rules, Sharded, ShardingCtx, local_shard,
+                                               splits_of)
+    mesh = make_mesh_for(WORLD, 2)
+    ctx = ShardingCtx(Rules(), mesh)
+    d, m = mesh.get_coordinate()
+    rows = slice(d * BATCH // 2, (d + 1) * BATCH // 2)
+    cols = slice(m * SEQ // 2, (m + 1) * SEQ // 2)
+    out = {}
+    for layout, vocab in EMBED_VOCABS.items():
+        cfg = _cfg("llama3.2-3b", vocab=vocab)
+        spec = ctx.spec(*embed_specs(cfg)["embedding"].axes)
+        table, tokens, w = (torch.from_numpy(inputs["embed"][f"{layout}|{k}"])
+                            for k in ("table", "tokens", "w"))
+        shard = local_shard(table, spec, mesh).clone().requires_grad_()
+        p = {"embedding": Sharded(shard, splits_of(spec, mesh), shard.dtype)}
+        with tally() as t:
+            x = embed_tokens(tokens[rows, cols], p, cfg, ctx)
+            (grad,) = torch.autograd.grad((x * w[rows, cols]).sum(), shard)
+            dec = embed_tokens(tokens[rows, :1], p, cfg, ctx, seq_split=False)
+        out[layout] = dict(prefill=x.detach().numpy(), grad=grad.numpy(),
+                           decode=dec.detach().numpy(), ag2d=t.collective_bytes_ag2d,
+                           spec=list(spec), coord=(d, m))
+    return out
+
+
 def _collective_inputs(n, rank):
     """Rank ``rank``'s block a [2, 3, 5] and weights w [2, 12, 5], float64."""
     rng = np.random.default_rng(100 * n + rank)
@@ -271,7 +342,7 @@ def _port_world(rank, world, inputs, ckpt):
     import torch.distributed as dist
     from repro_torch.runtime.checkpoint import CheckpointManager
 
-    out = {"collectives": _collectives_world(rank)}
+    out = {"collectives": _collectives_world(rank), "embed": _embed_world(rank, inputs)}
     for case, mesh in SHARD_CASES:
         arch = CASES[case][0]
         rt = _bound(_cfg(case), mesh, inputs["params"][arch])
@@ -385,9 +456,15 @@ def results(tmp_path_factory):
             "embeds": rng.standard_normal((BATCH, SEQ, cfg.d_model)).astype(np.float32),
             "labels": rng.integers(0, cfg.vocab, (BATCH, SEQ)).astype(np.int32)}
         data.update({f"{arch}|{k}": v for k, v in families[arch].items()})
+    embed = {}
+    for layout, vocab in EMBED_VOCABS.items():
+        embed.update({f"{layout}|table": rng.standard_normal((vocab, 64)).astype(np.float32),
+                      f"{layout}|tokens": rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32),
+                      f"{layout}|w": rng.standard_normal((BATCH, SEQ, 64)).astype(np.float32)})
+    data.update({f"embed|{k}": v for k, v in embed.items()})
     np.savez(tmp / "batches.npz", **data)
     params = {arch: _jax_params(arch, {}) for arch in list(archs) + list(FAMILIES)}
-    inputs = dict(params=params, batches=batches, families=families)
+    inputs = dict(params=params, batches=batches, families=families, embed=embed)
     code = ORACLE.replace("np.load(sys.argv[1])", f"np.load({str(tmp / 'batches.npz')!r})")
     with ThreadPoolExecutor(1) as pool:
         oracle = pool.submit(run_jax_oracle, code, tmp, timeout=600.0)
@@ -552,6 +629,36 @@ def test_family_positions_loss(arch, mesh, results):
     want = float(oracle[f"{_tag(arch, mesh)}|loss"])
     for r in range(mesh[0] * mesh[1]):
         assert abs(ranks[r][("family", arch, mesh)] - want) <= TOL * abs(want)
+
+
+# ---------------------------------------------------------------------- #
+# the embedding looked up in its sharded table
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("part", EMBED_PARTS)
+@pytest.mark.parametrize("layout", list(EMBED_VOCABS))
+def test_sharded_lookup_matches_jax(layout, part, results):
+    """On the (2, 2) mesh, with the table held as each rank's shard (a
+    vocab-split table, or an e-split one): each rank's rows of its tokens'
+    block are JAX's ``embed_tokens`` under the same mesh bit for bit (the
+    lookup copies rows, its sums add zeros), decode's whole over "model";
+    each rank's gradient of sum(rows * w) is JAX's gradient's block of its
+    shard within 1e-6 of the largest |g| (a token's repeats summed in
+    another order); the lookup gathers no weight (no rank <= 2
+    all-gather)."""
+    _, oracle, ranks = results
+    want = oracle[f"embed|{layout}|{part}"]
+    for res in ranks:
+        got = res["embed"][layout]
+        d, m = got["coord"]
+        assert got["ag2d"] == 0
+        if part == "grad":
+            blk = _block(want, got["spec"], (2, 2), (d, m))
+            np.testing.assert_allclose(got["grad"], blk, rtol=0, atol=1e-6 * np.abs(want).max())
+            assert got["grad"].shape != want.shape
+        else:
+            rows = slice(d * BATCH // 2, (d + 1) * BATCH // 2)
+            cols = slice(m * SEQ // 2, (m + 1) * SEQ // 2) if part == "prefill" else slice(None)
+            np.testing.assert_array_equal(got[part], want[rows, cols])
 
 
 # ---------------------------------------------------------------------- #

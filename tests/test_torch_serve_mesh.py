@@ -9,7 +9,9 @@ weights, in fp32 at the reduced configs:
   16 under a 32-token prompt (so the window cuts during decode), and
   qwen3-moe-30b-a3b on the dispatch and on ``moe_a2a`` (whose decode falls
   back to the dispatch), on meshes ("data", "model") (2, 2) and (1, 4)
-  and ("pod" 2, "data" 1, "model" 2): each rank's prefill cache block is
+  and ("pod" 2, "data" 1, "model" 2), and at (2, 2) mamba2 with
+  ``ssm_seq_sharded`` and llama with ``mlp_seq_sharded`` (whose decode
+  runs the MLP whole): each rank's prefill cache block is
   JAX's device shard, and the last logits of prefill and of three decode
   steps (the prefill cache spliced into 72-position buffers, each rank
   its block) are JAX's, within ``LOGIT_TOL``, and so are the cache blocks
@@ -41,10 +43,14 @@ MOE = "qwen3-moe-30b-a3b"
 CASES = {"llama3.2-3b": ("llama3.2-3b", {}), "mamba2-2.7b": ("mamba2-2.7b", {}),
          "zamba2-2.7b": ("zamba2-2.7b", {"sliding_window": 16}),
          "qwen3-moe-dispatch": (MOE, {"moe_impl": "dispatch", "capacity_factor": 1.0}),
-         "qwen3-moe-a2a": (MOE, {"moe_impl": "a2a", "capacity_factor": 1.0})}
+         "qwen3-moe-a2a": (MOE, {"moe_impl": "a2a", "capacity_factor": 1.0}),
+         "mamba2-seq-sharded": ("mamba2-2.7b", {"ssm_seq_sharded": True}),
+         "llama3.2-3b-mlp-seq": ("llama3.2-3b", {"mlp_seq_sharded": True})}
 MESHES = {"2x2": ((2, 2), ("data", "model")), "1x4": ((1, 4), ("data", "model")),
           "pod2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
-SERVE_CASES = [(c, m) for c in CASES for m in MESHES]
+# the flags' forms of a program, on the (2, 2) mesh alone
+ONE_MESH = ("mamba2-seq-sharded", "llama3.2-3b-mlp-seq")
+SERVE_CASES = [(c, m) for c in CASES for m in MESHES if c not in ONE_MESH or m == "2x2"]
 TRAIN_MESH = "pod2x1x2"
 # the one-device serving tests' tolerance (tests/test_torch_model.py): logits
 # and the prefill cache at atol = rtol = 1e-4, fp32 on both sides
