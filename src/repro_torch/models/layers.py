@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,9 +66,14 @@ def stack_specs(specs: Dict, n: int) -> Dict:
 # ---------------------------------------------------------------------- #
 # norms
 # ---------------------------------------------------------------------- #
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+            mean_sq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """x's last dimension over its root mean square, times (1 + w), in fp32.
+    ``mean_sq`` maps the squares [..., c] to their mean [..., 1] where x is
+    a block of a wider dimension (the mean over every rank's block)."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    sq = x32 * x32
+    var = torch.mean(sq, dim=-1, keepdim=True) if mean_sq is None else mean_sq(sq)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 

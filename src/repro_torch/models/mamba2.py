@@ -27,10 +27,10 @@ and the scan runs there. How the block leaves the scan follows
 * off (the baseline): y stays on the rank's heads over every position; z
   goes to them by all-to-all, ``out_norm``'s mean square is summed over
   "model", and ``out_proj``'s rows of the rank's heads give its part of
-  the output, all-reduced over "model", of which the rank keeps its
-  positions (``sum_over_model``). The backward of that product is GSPMD's
-  partition of JAX's baseline: the gradient of y over the whole d_inner,
-  then the rank's heads (``_HeadsProj``).
+  the output, reduce-scattered over "model" to the rank's positions
+  (``sum_over_model``). Its backward takes y's gradient on the rank's
+  heads alone; GSPMD's partition of JAX's baseline takes it over the whole
+  d_inner and keeps the rank's heads, products the port does not make.
 
 Decode (x whole on every model rank, the SSM state the rank's heads') takes
 the baseline's exit whatever the flag, as JAX's decode does.
@@ -145,29 +145,6 @@ def _rank_cols(cfg: ArchConfig, sp: SeqShards) -> slice:
     return slice(sp.rank * di // sp.n, (sp.rank + 1) * di // sp.n)
 
 
-class _HeadsProj(torch.autograd.Function):
-    """y [..., di/m] (the channels ``cols`` of the rank's heads) times
-    their rows of the whole ``out_proj`` w [di, e]: the rank's part of the
-    output. The backward is GSPMD's partition of JAX's baseline (the
-    reduced train step's HLO: dot f32[64,128] a layer): y's gradient over
-    the whole d_inner, of which the rank keeps its channels, and w's on the
-    rank's rows."""
-
-    @staticmethod
-    def forward(ctx, y, w, cols):
-        ctx.save_for_backward(y, w)
-        ctx.cols = cols
-        return y @ w[cols]
-
-    @staticmethod
-    def backward(ctx, g):
-        y, w = ctx.saved_tensors
-        gy = (g @ w.T)[..., ctx.cols]
-        gw = torch.zeros_like(w)
-        gw[ctx.cols] = y.reshape(-1, y.shape[-1]).T @ g.reshape(-1, g.shape[-1])
-        return gy, gw, None
-
-
 def _heads_out(y: torch.Tensor, z: torch.Tensor, p: Dict, cfg: ArchConfig,
                sp: SeqShards, dim: Optional[int]) -> torch.Tensor:
     """The block's output from y [..., di/m] on the rank's heads, gated by
@@ -175,12 +152,9 @@ def _heads_out(y: torch.Tensor, z: torch.Tensor, p: Dict, cfg: ArchConfig,
     model ranks, the rank's rows of ``out_proj``, and the parts summed over
     "model" (with ``dim``, the rank's positions of that dimension kept)."""
     cols = _rank_cols(cfg, sp)
-    y = y * F.silu(z)
-    y32 = y.float()
-    ms = sum_over_model((y32 * y32).sum(-1, keepdim=True), sp) / cfg.d_inner
-    y = (y32 * torch.rsqrt(ms + cfg.norm_eps) * (1.0 + p["out_norm"][cols].float())).to(y.dtype)
-    part = _HeadsProj.apply(y, p["out_proj"].to(y.dtype), cols)
-    return sum_over_model(part, sp, dim)
+    y = rmsnorm(y * F.silu(z), p["out_norm"][cols], cfg.norm_eps,
+                mean_sq=lambda sq: sum_over_model(sq.sum(-1, keepdim=True), sp) / cfg.d_inner)
+    return sum_over_model(y @ p["out_proj"].to(y.dtype)[cols], sp, dim)
 
 
 def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,

@@ -676,22 +676,22 @@ class _Halo(torch.autograd.Function):
 
 
 class _SeqSum(torch.autograd.Function):
-    """x summed over the "model" group (an all-reduce) and, with ``dim``,
-    this rank's block of that dimension kept: the parts of a product split
-    over "model" (the rank's heads' rows of a weight). The backward is the
-    sum of the ranks' gradients: with ``dim``, where each rank's is its
-    block's alone, their all-gather; without, their all-reduce."""
+    """x summed over the "model" group: the parts of a product split over
+    "model" (the rank's heads' rows of a weight). Without ``dim`` an
+    all-reduce, whose backward is the all-reduce of the ranks' gradients;
+    with ``dim`` a reduce-scatter, the rank keeping its block of that
+    dimension, whose backward is the all-gather of the blocks'
+    gradients."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n, r):
+    def forward(ctx, x, dim, group, n):
         ctx.meta = (dim, group, n)
         COLLECTIVES["seq_sum"] += 1
+        if dim is not None:
+            return scatter_sum(x, dim, group, n)
         x = x.clone(memory_format=torch.contiguous_format)
         all_reduce(x, group)
-        if dim is None:
-            return x
-        size = x.shape[dim] // n
-        return x.narrow(dim, r * size, size).contiguous()
+        return x
 
     @staticmethod
     def backward(ctx, g):
@@ -702,13 +702,13 @@ class _SeqSum(torch.autograd.Function):
             all_reduce(g, group)
         else:
             g = gather_full(g, dim, group, n)
-        return g, None, None, None, None
+        return g, None, None, None
 
 
 def sum_over_model(x: torch.Tensor, sp: SeqShards, dim: Optional[int] = None) -> torch.Tensor:
     """``x`` summed over the model ranks, and with ``dim`` the rank's block
     of that dimension (its positions, where x covers every position)."""
-    return _SeqSum.apply(x, dim, sp.group, sp.n, sp.rank)
+    return _SeqSum.apply(x, dim, sp.group, sp.n)
 
 
 def halo_prev(u: torch.Tensor, k: int, sp: SeqShards) -> torch.Tensor:

@@ -20,11 +20,12 @@ against JAX's (``repro/launch/dryrun.py``, ``repro/launch/hloparse.py``).
   with its vocab cut to 250 (an e-split embedding table, as mamba2's
   50,280) in prefill and decode, and llama's decode with
   ``mlp_seq_sharded``. At every rank of the last model column the dot
-  FLOPs within ``FLOPS_TOL`` of JAX's per-device count, and in every
+  FLOPs within ``FLOPS_TOL`` of JAX's per-device count, less the products
+  that only GSPMD makes (``out_proj_gap``), and in every
   prefill and decode cell the weights' all-gathers
   (``collective_bytes_ag2d``) JAX's to the byte (qwen3-moe's decode
   routing aside, ``ROUTING_GAP``); the two flags move the port's FLOPs and
-  weight gathers by what they move JAX's;
+  weight gathers by what they move JAX's, those products aside;
 * each kernel wrapper's report (``counts_as``): what its plain version
   counts on the same arguments, products and result bytes;
 * the tally of the reduced twins of ``chip_smoke.py`` with each kernel
@@ -70,6 +71,24 @@ FLOPS_TOL = 0.02
 # argsort; the port routes its own tokens and gathers their ids once,
 # int64 [2, 2] into [4, 2] (64 B): 32 B a layer short, over 2 layers
 ROUTING_GAP = {"moe_decode": 64}
+
+
+def out_proj_gap(cell: str) -> int:
+    """The dot FLOPs a rank that JAX's baseline Mamba2 training counts and
+    the port does not make (ROADMAP.md, Known differences): GSPMD takes the
+    gradient of y, ``out_proj``'s input, over the whole d_inner and keeps
+    the rank's heads, where the port takes it on those heads alone;
+    2 b s d_inner e (1 - 1/m) a layer for a rank's b sequences of s."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, mode, patch = FLOP_CELLS[cell]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **patch)
+    if cfg.family != "ssm" or mode != "train" or cfg.ssm_seq_sharded:
+        return 0
+    data, m = FLOP_MESH
+    return (2 * (BATCH // data) * SEQ * cfg.d_inner * cfg.d_model * (m - 1) // m
+            * cfg.n_layers)
+
 
 _CELLS = """
 from repro{pkg}.configs.registry import ARCH_IDS, get_config, shapes_for
@@ -345,12 +364,12 @@ def test_dot_flops_match_jax_compiled_step(mode, results):
     model rank's dot FLOPs (aten products, attention at full sq x skv
     scores over its K/V prefix; MoE decode's products of the rank's E / 2
     experts over its data rank's C / 2 slots; Mamba2's products of the
-    rank's heads, the baseline's transposed ``out_proj`` over the whole
-    d_inner) within ``FLOPS_TOL`` of JAX's per-device
-    ``analyze(...).dot_flops``, on every rank of the last model column; the
+    rank's heads) within ``FLOPS_TOL`` of JAX's per-device
+    ``analyze(...).dot_flops`` less the products only JAX makes
+    (``out_proj_gap``), on every rank of the last model column; the
     first column's attention sees a shorter prefix and counts less, and
     without attention it counts the same."""
-    want = float(results["jax"][mode]["dot_flops"])
+    want = float(results["jax"][mode]["dot_flops"] - out_proj_gap(mode))
     got = _port(results, mode, "dot_flops")
     last = got[1::2]
     for g in last:
@@ -377,14 +396,40 @@ def test_weight_gathers_match_jax_to_the_byte(cell, results):
 def test_flags_move_the_tally_as_they_move_jax(off, on, results):
     """``ssm_seq_sharded`` (mamba2's train, prefill and decode) and
     ``mlp_seq_sharded`` (llama's decode) change the last model rank's dot
-    FLOPs and weight gathers by exactly what they change JAX's: mamba2's
-    baseline training carries JAX's full-d_inner transposed ``out_proj``
-    (1,048,576 FLOPs more), its prefill and decode move nothing, and the
-    MLP of llama's decode runs whole with the flag, its weights gathered
-    whole."""
+    FLOPs and weight gathers by exactly what they change JAX's, but for
+    the transposed ``out_proj`` over the whole d_inner that JAX's baseline
+    training makes and the port does not (``out_proj_gap``, 1,048,576
+    FLOPs): mamba2's prefill and decode move nothing, and the MLP of
+    llama's decode runs whole with the flag, its weights gathered whole."""
     for key in ("dot_flops", "collective_bytes_ag2d"):
         jax_moves = results["jax"][on][key] - results["jax"][off][key]
+        if key == "dot_flops":
+            jax_moves += out_proj_gap(off) - out_proj_gap(on)
         assert _port(results, on, key)[-1] - _port(results, off, key)[-1] == jax_moves, key
+
+
+def test_baseline_exit_reduce_scatters_what_jax_all_reduces(results):
+    """Mamba2's baseline prefill (``ssm_seq_sharded`` off) sums the block's
+    output parts over "model" where JAX's does: GSPMD all-reduces the
+    whole [b, s, e] and the norm's mean square [b, s, 1] a layer; the
+    port all-reduces the mean square alone and reduce-scatters the output
+    to the rank's positions, 1/m of its bytes (ROADMAP.md, Known
+    differences). Each as the flag's move, at the last model rank."""
+    from repro_torch.configs import get_config
+
+    def moves(side, kind):
+        off, on = (results["jax"][c]["collective_bytes"] if side == "jax"
+                   else _port(results, c, "collective_bytes")[-1]
+                   for c in ("mamba2_prefill", "mamba2_seq_prefill"))
+        return off.get(kind, 0) - on.get(kind, 0)
+
+    cfg = get_config(SSM_ARCH).reduced()
+    data, m = FLOP_MESH
+    mean_sq = cfg.n_layers * (BATCH // data) * SEQ * 4
+    jax_ar, port_ar = moves("jax", "all-reduce"), moves("port", "all-reduce")
+    port_rs = moves("port", "reduce-scatter")
+    assert port_ar == mean_sq
+    assert port_rs * m == jax_ar - mean_sq > 0
 
 
 @pytest.mark.parametrize("name", ["attention", "attention_lse", "attention_bwd", "decode",
