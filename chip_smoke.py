@@ -393,7 +393,11 @@ def device_ms(fn, iters: int = 100) -> float:
     fn()
     torch.cuda.synchronize()
     _, rows, _ = profiled(lambda: [fn() for _ in range(iters)])
-    return sum(ms / n * (round(n / iters) or n / iters) for ms, n, _ in rows)
+    ms = sum(ms / n * (round(n / iters) or n / iters) for ms, n, _ in rows)
+    # where the profiler recorded no device activity in any window, CUDA
+    # events around the loop (the host's launch rate for a call of a few
+    # microseconds)
+    return ms if ms > 0 else time_ms(fn, iters=iters)
 
 
 def nvidia_smi() -> str:
@@ -821,29 +825,35 @@ def check_consistency(dev, model, b: int = 2, s: int = 256) -> None:
 # ---------------------------------------------------------------------- #
 # phase 5: where the time of the serving shape goes (torch.profiler)
 # ---------------------------------------------------------------------- #
-def profiled(fn):
+def profiled(fn, tries: int = 3):
     """Run ``fn`` once under torch.profiler. Returns the host wall ms (to a
     synchronize) and the device rows and host rows as (ms, calls, name),
     largest first: kernels and copies by self device time, host ops by
-    self CPU time."""
+    self CPU time. Every caller's ``fn`` launches device work, but the
+    profiler now and then records none for a whole window: such a window
+    is run again, up to ``tries`` windows in all (the last is returned
+    as it came)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev_rows, host_rows = [], []
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = evt.self_cuda_time_total
-            dev_rows.append((dev_us / 1e3, evt.count, evt.key[:60]))
-        else:
-            host_rows.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key[:60]))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        dev_rows, host_rows = [], []
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                dev_us = getattr(evt, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = evt.self_cuda_time_total
+                dev_rows.append((dev_us / 1e3, evt.count, evt.key[:60]))
+            else:
+                host_rows.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key[:60]))
+        if any(ms > 0 for ms, _, _ in dev_rows):
+            break
     return wall_ms, sorted(dev_rows, reverse=True), sorted(host_rows, reverse=True)
 
 
