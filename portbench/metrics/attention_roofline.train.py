@@ -1,0 +1,7 @@
+"""attention_roofline.train: the attention kernels against their roofline over the traced
+window, forward and backward calls (``kernels.attention_share``)."""
+from portbench import kernels
+
+
+def read(run):
+    return kernels.attention_share(run, "train")

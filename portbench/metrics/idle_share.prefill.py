@@ -1,0 +1,7 @@
+"""idle_share.prefill: the share of the traced window in which the device ran
+nothing (``kernels.idle_share``)."""
+from portbench import kernels
+
+
+def read(run):
+    return kernels.idle_share(run, "prefill")
