@@ -31,9 +31,11 @@ journal — instead of polling internals:
 * :class:`SpanCollector` — a bounded pull-drained buffer for the
   structured trace spans ``GrowEngine`` (and ``SchedulerInstance``
   release) record per stage: local match → reclaim → revoke → forward
-  → external → splice.  Producers pay one ``is None`` check when no
-  collector is attached; ``record`` takes only the collector's own
-  lock and never calls out (the R2/R3 concurrency contract).
+  → external → splice; the data plane's spans and counters
+  (``tally_hooks.span`` / ``count``, whose module docstring lists them).
+  Producers pay one ``is None`` check when no collector is attached;
+  ``record`` takes only the collector's own lock and never calls out
+  (the R2/R3 concurrency contract).
 
 * :func:`fragmentation` — largest-free-block vs total-free per type,
   computed from the same per-vertex pruning aggregates the
@@ -53,7 +55,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 from ..analysis.lockwitness import named_lock
 from .events import EventType, JobEvent
 
-__all__ = ["QuantileSketch", "SpanCollector", "MetricsAggregator",
+__all__ = ["QuantileSketch", "SpanCollector", "Drained", "MetricsAggregator",
            "fragmentation"]
 
 
@@ -142,21 +144,35 @@ class QuantileSketch:
 # ---------------------------------------------------------------------- #
 # trace spans
 # ---------------------------------------------------------------------- #
-class SpanCollector:
-    """Bounded buffer for structured span records (plain dicts).
+class Drained(list):
+    """The spans of one :meth:`SpanCollector.drain`, in the order they
+    closed, and in ``counts`` the counters added since the drain before."""
 
-    Producers (``GrowEngine.grow``, ``SchedulerInstance.release``) call
-    :meth:`record` with ``{"name", "level", "jobid", "ok", "via",
-    "dur", "stages": {stage: seconds}}``; consumers :meth:`drain` on
-    their own schedule.  ``record`` is one atomic deque append — no
-    lock — and never emits, calls back, or touches a transport; the
-    producer may hold a scheduler lock's *caller* frame, so obeying
-    R2/R3 here is load-bearing, not style."""
+    def __init__(self, spans=(), counts: Optional[Dict[str, int]] = None):
+        super().__init__(spans)
+        self.counts: Dict[str, int] = counts if counts is not None else {}
+
+
+class SpanCollector:
+    """Bounded buffer for structured span records (plain dicts), and
+    counters beside them.
+
+    Producers (``GrowEngine.grow``, ``SchedulerInstance.release``; the
+    data plane's spans through ``tally_hooks.set_spans``) call
+    :meth:`record` with ``{"name", "dur", ...}`` (the control plane's
+    ``{"name", "level", "jobid", "ok", "via", "dur", "stages": {stage:
+    seconds}}``) and :meth:`count` with a counter's name and increment;
+    consumers :meth:`drain` on their own schedule.  ``record`` is one
+    atomic deque append — no lock — and never emits, calls back, or
+    touches a transport; the producer may hold a scheduler lock's
+    *caller* frame, so obeying R2/R3 here is load-bearing, not style.
+    ``count`` takes only the collector's own lock."""
 
     def __init__(self, maxlen: int = 65536):
         self._lock = named_lock("spancollector")
         self._spans: Deque[Dict] = collections.deque(maxlen=maxlen)
         self.recorded = 0           # monotonic (drain does not reset)
+        self.counts: Dict[str, int] = {}
 
     def record(self, span: Dict) -> None:
         # lock-free: deque.append is atomic and bounded by maxlen; a
@@ -166,9 +182,18 @@ class SpanCollector:
         self._spans.append(span)
         self.recorded += 1
 
-    def drain(self) -> List[Dict]:
+    def count(self, name: str, n: int = 1) -> None:
+        # a read-modify-write: under the drain's lock, so that two threads'
+        # adds, or an add racing a drain, lose nothing
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + n
+
+    def drain(self) -> Drained:
+        """The spans recorded since the last drain, with the counters
+        (``Drained.counts``), which restart."""
         with self._lock:            # one drainer at a time
-            out = []
+            counts, self.counts = self.counts, {}
+            out = Drained(counts=counts)
             try:
                 while True:
                     out.append(self._spans.popleft())

@@ -34,6 +34,7 @@ from ..device import resolve_device
 from ..models.config import ShapeConfig
 from ..models.model import Model, make_model
 from ..parallel.sharding import ShardingCtx, gather_seq, seq_shards
+from ..tally_hooks import span
 
 
 def _sync(dev: torch.device) -> None:
@@ -49,18 +50,20 @@ def splice_cache(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor]
     whole (``splice`` in repro/launch/serve.py). Under ``ctx``'s mesh both
     are this rank's blocks: the prompt's KV blocks are gathered over
     "model" and the rank keeps the part that falls in its block of the
-    buffer (JAX's reshard of the prefill cache into the decode layout)."""
+    buffer (JAX's reshard of the prefill cache into the decode layout).
+    The span ``serve.splice``."""
     sp = seq_shards(ctx)
-    for name, buf in cache.items():
-        part = pcache[name]
-        if sp is not None and name.endswith(("k", "v")):
-            ax = buf.dim() - 3                          # [..., b, S, kvh, d]
-            whole = gather_seq(part.contiguous(), ax, sp)
-            first, S = sp.rank * buf.shape[ax], buf.shape[ax]
-            n = max(0, min(whole.shape[ax] - first, S))
-            buf.narrow(ax, 0, n).copy_(whole.narrow(ax, min(first, whole.shape[ax]), n))
-            continue
-        buf[tuple(slice(0, n) for n in part.shape)].copy_(part)
+    with span("serve.splice"):
+        for name, buf in cache.items():
+            part = pcache[name]
+            if sp is not None and name.endswith(("k", "v")):
+                ax = buf.dim() - 3                          # [..., b, S, kvh, d]
+                whole = gather_seq(part.contiguous(), ax, sp)
+                first, S = sp.rank * buf.shape[ax], buf.shape[ax]
+                n = max(0, min(whole.shape[ax] - first, S))
+                buf.narrow(ax, 0, n).copy_(whole.narrow(ax, min(first, whole.shape[ax]), n))
+                continue
+            buf[tuple(slice(0, n) for n in part.shape)].copy_(part)
 
 
 def run_serving(arch: str, batch: int = 4, prompt_len: int = 16,

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..kernels.ops import attention_op, decode_attention_op
 from ..parallel.sharding import (SeqShards, Sharded, ShardingCtx, all_reduce, gather_seq, gathered,
                                  gathered_but_model, sharded_take)
+from ..tally_hooks import span
 from .config import ArchConfig
 
 
@@ -312,14 +313,16 @@ def lm_logits(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     tensors would round its output to bf16). Without a mesh the two
     variants are the same arithmetic. On a card this needs
     ``torch.backends.cuda.matmul.allow_tf32 = False``, which the entry
-    points set. A sharded head is gathered in the dtype it is used in."""
-    xn = rmsnorm(x, p["final_norm"], cfg.norm_eps)
-    head = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
-    if cfg.cast_params_once or cfg.seq_sharded_loss:
-        cdt = getattr(torch, cfg.dtype)
-        xn, head = xn.to(cdt), head.to(cdt)
-    head = gathered(head).float()
-    return xn.float() @ (head.T if cfg.tie_embeddings else head)
+    points set. A sharded head is gathered in the dtype it is used in.
+    The span ``model.head``."""
+    with span("model.head"):
+        xn = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+        head = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
+        if cfg.cast_params_once or cfg.seq_sharded_loss:
+            cdt = getattr(torch, cfg.dtype)
+            xn, head = xn.to(cdt), head.to(cdt)
+        head = gathered(head).float()
+        return xn.float() @ (head.T if cfg.tie_embeddings else head)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from ..kernels.ops import ssd_scan_op
 from ..parallel.sharding import (SeqShards, gather_seq, halo_prev, heads_to_seq, seq_to_heads,
                                  sum_over_model)
+from ..tally_hooks import span
 from .config import ArchConfig
 from .layers import ParamSpec, rmsnorm
 
@@ -87,6 +88,13 @@ def _conv1d(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     for i in range(K):
         out = out + pad[:, i:i + s, :] * w[i]
     return F.silu(out + bias)
+
+
+def _dt_a_d(dt: torch.Tensor, p: Dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan's step sizes softplus(dt + dt_bias), its decay A = -exp(A_log)
+    and the skip D, in fp32."""
+    return (F.softplus(dt.float() + p["dt_bias"].float()), -torch.exp(p["A_log"].float()),
+            p["D"].float())
 
 
 def _conv_step(window: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -170,82 +178,95 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     the conv's last K - 1 positions (whole) and its heads' SSM state; in
     decode x is whole on every model rank and ``state["ssm"]`` holds the
     rank's H/m heads, which it steps, their parts of the output summed over
-    "model"."""
+    "model". The spans ``mamba2.in_proj``, ``mamba2.conv``, ``mamba2.scan``
+    (dt, the scan and the D residual) and ``mamba2.out`` (gate, norm and
+    ``out_proj``)."""
     b, s, _ = x.shape
     cdt = x.dtype
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = xn @ p["in_proj"].to(cdt)
-    z, xin, B, C, dt = _split_proj(zxbcdt, cfg)
-    conv_in = torch.cat([xin, B, C], dim=-1)
-    dtp = F.softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-    D = p["D"].float()
+    with span("mamba2.in_proj"):
+        xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+        zxbcdt = xn @ p["in_proj"].to(cdt)
+        z, xin, B, C, dt = _split_proj(zxbcdt, cfg)
+        conv_in = torch.cat([xin, B, C], dim=-1)
 
     new_state = None
     if state is None and sp is not None:
-        conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
-                       halo_prev(conv_in, CONV_K - 1, sp))
-        xh = conv[..., :cfg.d_inner].reshape(b, s, H, P).float()
+        with span("mamba2.conv"):
+            conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
+                           halo_prev(conv_in, CONV_K - 1, sp))
         back = cfg.ssm_seq_sharded
-        y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp, want_state,
-                        back)
-        if want_state:
-            # the conv state is the sequence's last K - 1 positions (the last
-            # rank's), whole on every rank; the SSM state the rank's heads'
-            y, final = y
-            tail = gather_seq(conv_in[:, -(CONV_K - 1):], 1, sp)[:, -(CONV_K - 1):]
-            new_state = {"conv": tail.float(), "ssm": final.float()}
+        with span("mamba2.scan"):
+            dtp, A, D = _dt_a_d(dt, p)
+            xh = conv[..., :cfg.d_inner].reshape(b, s, H, P).float()
+            y = _scan_heads(xh, dtp, A, D, conv[..., cfg.d_inner:].float(), cfg, sp,
+                            want_state, back)
+            if want_state:
+                # the conv state is the sequence's last K - 1 positions (the last
+                # rank's), whole on every rank; the SSM state the rank's heads'
+                y, final = y
+                tail = gather_seq(conv_in[:, -(CONV_K - 1):], 1, sp)[:, -(CONV_K - 1):]
+                new_state = {"conv": tail.float(), "ssm": final.float()}
+            if back:
+                y = y.reshape(b, s, cfg.d_inner).to(cdt)
         if not back:
-            zh = seq_to_heads(z.reshape(b, s, H, P), sp)
-            y = y.reshape(zh.shape[:2] + (-1,)).to(cdt)
-            return _heads_out(y, zh.reshape(y.shape), p, cfg, sp, 1), new_state
-        y = y.reshape(b, s, cfg.d_inner).to(cdt)
+            with span("mamba2.out"):
+                zh = seq_to_heads(z.reshape(b, s, H, P), sp)
+                y = y.reshape(zh.shape[:2] + (-1,)).to(cdt)
+                return _heads_out(y, zh.reshape(y.shape), p, cfg, sp, 1), new_state
     elif state is None:
-        conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
-        xc, Bc, Cc = _split_conv(conv, cfg)
-        xh = xc.reshape(b, s, H, P).float()
-        out = ssd_scan_op(xh, dtp, A, Bc.reshape(b, s, G, N).float(),
-                          Cc.reshape(b, s, G, N).float(), cfg.ssm_chunk,
-                          return_state=want_state)
-        if want_state:
-            y, final = out
-            new_state = {"conv": conv_in[:, -(CONV_K - 1):, :].float(),
-                         "ssm": final.float()}
-        else:
-            y = out
-        y = y + xh * D[None, None, :, None]
-        y = y.reshape(b, s, cfg.d_inner).to(cdt)
+        with span("mamba2.conv"):
+            conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+        with span("mamba2.scan"):
+            dtp, A, D = _dt_a_d(dt, p)
+            xc, Bc, Cc = _split_conv(conv, cfg)
+            xh = xc.reshape(b, s, H, P).float()
+            out = ssd_scan_op(xh, dtp, A, Bc.reshape(b, s, G, N).float(),
+                              Cc.reshape(b, s, G, N).float(), cfg.ssm_chunk,
+                              return_state=want_state)
+            if want_state:
+                y, final = out
+                new_state = {"conv": conv_in[:, -(CONV_K - 1):, :].float(),
+                             "ssm": final.float()}
+            else:
+                y = out
+            y = y + xh * D[None, None, :, None]
+            y = y.reshape(b, s, cfg.d_inner).to(cdt)
     else:
         # recurrent decode: roll the conv window (in the compute dtype), one SSM step
-        window = torch.cat([state["conv"].to(cdt), conv_in], dim=1)    # [b, K, conv_dim]
-        conv = _conv_step(window, p["conv_w"].to(cdt), p["conv_b"].to(cdt))[:, None, :]
-        xc, Bc, Cc = _split_conv(conv, cfg)
-        dtp = dtp[:, 0]                                                # [b, H]
-        h = state["ssm"].float()                                       # [b, H, P, N]
-        xh = xc.reshape(b, H, P).float()
-        Bh = Bc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
-        Ch = Cc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
-        if sp is not None:
-            # the state holds the rank's heads: step them
-            heads = _rank_heads(H, sp)
-            xh, Bh, Ch, dtp, A, D = xh[:, heads], Bh[:, heads], Ch[:, heads], \
-                dtp[:, heads], A[heads], D[heads]
-        da = torch.exp(dtp * A[None, :])                               # [b, H]
-        h = h * da[:, :, None, None] + torch.einsum("bhp,bhn,bh->bhpn", xh, Bh, dtp)
-        y = torch.einsum("bhpn,bhn->bhp", h, Ch)
-        y = y + xh * D[None, :, None]
-        new_state = {"conv": window[:, 1:].to(state["conv"].dtype),
-                     "ssm": h.to(state["ssm"].dtype)}
+        with span("mamba2.conv"):
+            window = torch.cat([state["conv"].to(cdt), conv_in], dim=1)    # [b, K, conv_dim]
+            conv = _conv_step(window, p["conv_w"].to(cdt), p["conv_b"].to(cdt))[:, None, :]
+        with span("mamba2.scan"):
+            dtp, A, D = _dt_a_d(dt, p)
+            xc, Bc, Cc = _split_conv(conv, cfg)
+            dtp = dtp[:, 0]                                                # [b, H]
+            h = state["ssm"].float()                                       # [b, H, P, N]
+            xh = xc.reshape(b, H, P).float()
+            Bh = Bc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
+            Ch = Cc.reshape(b, G, N).repeat_interleave(H // G, dim=1).float()
+            if sp is not None:
+                # the state holds the rank's heads: step them
+                heads = _rank_heads(H, sp)
+                xh, Bh, Ch, dtp, A, D = xh[:, heads], Bh[:, heads], Ch[:, heads], \
+                    dtp[:, heads], A[heads], D[heads]
+            da = torch.exp(dtp * A[None, :])                               # [b, H]
+            h = h * da[:, :, None, None] + torch.einsum("bhp,bhn,bh->bhpn", xh, Bh, dtp)
+            y = torch.einsum("bhpn,bhn->bhp", h, Ch)
+            y = y + xh * D[None, :, None]
+            new_state = {"conv": window[:, 1:].to(state["conv"].dtype),
+                         "ssm": h.to(state["ssm"].dtype)}
         if sp is not None:
             # the heads' output parts, summed over "model"
-            y = y.reshape(b, 1, -1).to(cdt)
-            return _heads_out(y, z[..., _rank_cols(cfg, sp)], p, cfg, sp, None), new_state
+            with span("mamba2.out"):
+                y = y.reshape(b, 1, -1).to(cdt)
+                return _heads_out(y, z[..., _rank_cols(cfg, sp)], p, cfg, sp, None), new_state
         y = y.reshape(b, 1, cfg.d_inner).to(cdt)
 
-    y = y * F.silu(z)
-    y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(cdt), new_state
+    with span("mamba2.out"):
+        y = y * F.silu(z)
+        y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
+        return y @ p["out_proj"].to(cdt), new_state
 
 
 def mamba_state_specs(cfg: ArchConfig, batch: int, dtype=torch.float32

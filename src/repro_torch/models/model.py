@@ -53,6 +53,7 @@ from ..optim.adamw import (LeafShards, OptConfig, OptState, apply_updates, init_
 from ..parallel.sharding import (Sharded, Sharding, ShardingCtx, all_reduce, axis_group,
                                  batch_size, gather_seq, gather_splits, seq_shards, shard_shape,
                                  splits_of)
+from ..tally_hooks import span
 from .config import ArchConfig, ShapeConfig
 from .layers import ParamSpec
 from .moe import expert_shards
@@ -142,6 +143,7 @@ class Model(nn.Module):
         for name in self.parts:
             setattr(self, name, _params_module(specs[name], self.device, shapes, f"{name}."))
         self._compute: Optional[Dict] = None
+        self.prefills = 0                            # prefill batches run: their spans' step
 
     # -------------------------------------------------------------- #
     # params and their layout
@@ -338,19 +340,22 @@ class Model(nn.Module):
         ``_value_and_grad``). The compute-dtype casts of the weight
         matrices are made inside the graph, from those leaves. Under a mesh
         the loss and the gradients are this rank's parts (``loss_fn``),
-        which the caller sums over the mesh."""
+        which the caller sums over the mesh. The spans ``train.forward``
+        (the leaves, the casts, the loss) and ``train.backward``."""
         cdt = getattr(torch, self.cfg.dtype)
         leaves = {}
-        for name, p in self.masters().items():
-            leaf = p.detach()
-            if self.cfg.bf16_grads and leaf.dtype == torch.float32:
-                leaf = leaf.to(cdt)
-            leaves[name] = leaf.requires_grad_()
-        params = self._step_tree(dict(leaves))
-        loss = loss_fn(params, self.cfg, batch, self.ctx)
+        with span("train.forward"):
+            for name, p in self.masters().items():
+                leaf = p.detach()
+                if self.cfg.bf16_grads and leaf.dtype == torch.float32:
+                    leaf = leaf.to(cdt)
+                leaves[name] = leaf.requires_grad_()
+            params = self._step_tree(dict(leaves))
+            loss = loss_fn(params, self.cfg, batch, self.ctx)
         # a stub frontend's model never reads its embedding table: its
         # gradient is zeros, as JAX's
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         return loss.detach(), {name: torch.zeros_like(leaf) if g is None else g
                                for (name, leaf), g in zip(leaves.items(), grads)}
 
@@ -386,12 +391,14 @@ class Model(nn.Module):
         and returns (opt_state, {"loss": loss}). ``reduce(loss, grads)``,
         if given, returns the (loss, grads) the optimizer takes: across
         ranks, this rank's parts summed over the mesh into the global
-        batch's mean (``ElasticRuntime._mean_over_data``)."""
+        batch's mean (``ElasticRuntime._mean_over_data``). The update is
+        the span ``train.optimizer``."""
         self._compute = None                 # the serving cast is stale after the step
         loss, grads = self.value_and_grad(batch)
         if reduce is not None:
             loss, grads = reduce(loss, grads)
-        opt_state = apply_updates(self.masters(), grads, opt_state, self.opt, self.shards())
+        with span("train.optimizer"):
+            opt_state = apply_updates(self.masters(), grads, opt_state, self.opt, self.shards())
         return opt_state, {"loss": loss}
 
     @torch.no_grad()
@@ -441,15 +448,19 @@ class Model(nn.Module):
         ``input_shardings``), every layer runs on it as in training, without
         autograd, gathering each split leaf where it uses it; the logits are
         those of the sequence's last position (on the last model rank),
-        and the cache is this rank's blocks in ``cache_shardings``' layout."""
-        mode = "last" if self.cfg.prefill_last_logits else "all"
-        logits, cache = forward(self.compute_params(), self.cfg, tokens, want_cache=True,
-                                logits_positions=mode, embeds=embeds, ctx=self.ctx)
-        sp = seq_shards(self.ctx)
-        if sp is not None and mode == "all":
-            # the rank's block's logits: the sequence's last is the last rank's
-            logits = gather_seq(logits[:, -1:, :].contiguous(), 1, sp)
-        return logits[:, -1:, :], cache
+        and the cache is this rank's blocks in ``cache_shardings``' layout.
+        The batch is the span ``serve.prefill``, its ``step`` the count of
+        prefill batches this model has run (``prefills``)."""
+        self.prefills += 1
+        with span("serve.prefill", step=self.prefills):
+            mode = "last" if self.cfg.prefill_last_logits else "all"
+            logits, cache = forward(self.compute_params(), self.cfg, tokens, want_cache=True,
+                                    logits_positions=mode, embeds=embeds, ctx=self.ctx)
+            sp = seq_shards(self.ctx)
+            if sp is not None and mode == "all":
+                # the rank's block's logits: the sequence's last is the last rank's
+                logits = gather_seq(logits[:, -1:, :].contiguous(), 1, sp)
+            return logits[:, -1:, :], cache
 
     @torch.no_grad()
     def serve_step(self, cache: Dict, tokens: Optional[torch.Tensor], pos: int, *,

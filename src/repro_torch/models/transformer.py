@@ -51,6 +51,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.sharding import ShardingCtx, gather_seq, gather_tree, seq_shards
+from ..tally_hooks import count, span
 from .config import ArchConfig
 from .layers import (attention, attn_specs, cross_entropy, embed_specs, embed_tokens,
                      lm_logits, mlp, mlp_specs, stack_specs)
@@ -123,19 +124,20 @@ def _inputs(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     the compute dtype, or tokens [b, s] looked up in the embedding (under
     ``ctx``'s mesh, in the rank's shard of it); then, for ``abs_sin``, the
     sinusoid added in that dtype. With ``seq_split`` under a sequence split
-    the s positions are the rank's block, from r s."""
-    if embeds is not None:
-        x = embeds.to(getattr(torch, cfg.dtype))
-    else:
-        x = embed_tokens(tokens, params["embed"], cfg, ctx, seq_split)
-    b, s = x.shape[:2]
-    sp = seq_shards(ctx) if seq_split else None
-    if sp is not None:
-        offset += sp.rank * s
-    positions = make_positions(cfg, b, s, offset=offset, device=x.device)
-    if cfg.rope == "abs_sin":
-        x = x + _sinusoid(positions, cfg.d_model, x.dtype)
-    return x, positions
+    the s positions are the rank's block, from r s. The span ``model.embed``."""
+    with span("model.embed"):
+        if embeds is not None:
+            x = embeds.to(getattr(torch, cfg.dtype))
+        else:
+            x = embed_tokens(tokens, params["embed"], cfg, ctx, seq_split)
+        b, s = x.shape[:2]
+        sp = seq_shards(ctx) if seq_split else None
+        if sp is not None:
+            offset += sp.rank * s
+        positions = make_positions(cfg, b, s, offset=offset, device=x.device)
+        if cfg.rope == "abs_sin":
+            x = x + _sinusoid(positions, cfg.d_model, x.dtype)
+        return x, positions
 
 
 def _unstack(blocks: Dict, n: int) -> List[Dict]:
@@ -159,11 +161,31 @@ def _block(x: torch.Tensor, bp: Dict, cfg: ArchConfig,
     """Attention then the feed-forward: the MoE layer where ``bp`` has one
     ("ffn"), else the MLP. A dense or MoE layer, or the hybrid's shared
     block (the same weights at every application). ``ctx``: the mesh the
-    batch is split over (attention's sequence split, ``moe.moe``)."""
-    a, kv = attention(x, bp["attn"], cfg, positions, sp=seq_shards(ctx), **attn_kw)
-    x = x + a
-    ffn = moe(x, bp["ffn"], cfg, ctx) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
-    return x + ffn, kv
+    batch is split over (attention's sequence split, ``moe.moe``). The
+    spans ``block.attention`` and ``block.mlp`` (the MoE layer's too)."""
+    with span("block.attention"):
+        a, kv = attention(x, bp["attn"], cfg, positions, sp=seq_shards(ctx), **attn_kw)
+        x = x + a
+    with span("block.mlp"):
+        ffn = moe(x, bp["ffn"], cfg, ctx) if "ffn" in bp else mlp(x, bp["mlp"], cfg)
+        return x + ffn, kv
+
+
+def _remat_body(body, **attrs):
+    """``body`` as ``checkpoint`` runs it: its first call, the forward, is
+    the span ``model.layer``; a later one, remat's recompute in the
+    backward, is ``remat.layer`` and counts in ``remat.recomputes``."""
+    first = [True]
+
+    def run(*args):
+        if first[0]:
+            first[0] = False
+            with span("model.layer", **attrs):
+                return body(*args)
+        count("remat.recomputes")
+        with span("remat.layer", **attrs):
+            return body(*args)
+    return run
 
 
 def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
@@ -189,12 +211,15 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
             for k, v in part.items():
                 cache.setdefault(prefix + k, []).append(v)
 
-    def run(body, *args):
-        """A layer's body, recomputed in the backward under ``cfg.remat``
-        when a gradient is being taken (the cache path never is)."""
+    def run(body, *args, **attrs):
+        """A layer's body, the span ``model.layer`` with ``attrs`` (its
+        index ``i``), recomputed in the backward under ``cfg.remat`` when a
+        gradient is being taken (the cache path never is)."""
         if cfg.remat and not want_cache and torch.is_grad_enabled():
-            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
-        return body(*args)
+            return checkpoint(_remat_body(body, **attrs), *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        with span("model.layer", **attrs):
+            return body(*args)
 
     blocks = params["blocks"]
     if cfg.cast_params_once:
@@ -209,10 +234,10 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
             return x + y, st
 
         for i, bp in enumerate(_unstack(blocks, cfg.n_layers)):
-            x, st = run(ssm_body, x, bp)
+            x, st = run(ssm_body, x, bp, i=i)
             collect(st)
             if cfg.family == "hybrid" and (i + 1) % per == 0:
-                x, kv = run(block_body, x, params["shared"])
+                x, kv = run(block_body, x, params["shared"], i=i, shared=True)
                 collect(kv, "shared_")
     elif _interleaved(cfg):
         def group_body(x, bp):
@@ -220,13 +245,13 @@ def forward(params: Dict, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None
             x, kv_moe = block_body(x, bp["moe"])
             return x, kv_dense, kv_moe
 
-        for bp in _unstack(blocks, _group_layout(cfg)[0]):
-            x, kv_dense, kv_moe = run(group_body, x, bp)
+        for i, bp in enumerate(_unstack(blocks, _group_layout(cfg)[0])):
+            x, kv_dense, kv_moe = run(group_body, x, bp, i=i)
             collect(kv_dense, "dense_")
             collect(kv_moe)
     else:
-        for bp in _unstack(blocks, cfg.n_layers):
-            x, kv = run(block_body, x, bp)
+        for i, bp in enumerate(_unstack(blocks, cfg.n_layers)):
+            x, kv = run(block_body, x, bp, i=i)
             collect(kv)
     if logits_positions == "last":
         x = x[:, -1:, :]
@@ -255,9 +280,11 @@ def loss_fn(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     is this rank's block (``forward``) and the loss its part of its data
     rank's mean: the sum of its tokens' losses over its rows' b s tokens,
     which the "model" ranks' parts sum to (the caller sums the parts over
-    the mesh and divides by the data size)."""
+    the mesh and divides by the data size). The cross-entropy is the span
+    ``model.loss``."""
     logits, _ = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"), ctx=ctx)
-    loss = cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
+    with span("model.loss"):
+        loss = cross_entropy(logits, batch["labels"], onehot=cfg.onehot_ce)
     sp = seq_shards(ctx)
     return loss if sp is None else loss / sp.n
 

@@ -81,6 +81,7 @@ from ..models.config import ArchConfig, ShapeConfig
 from ..models.model import Model, make_model
 from ..optim.adamw import OptConfig, OptState
 from ..parallel.sharding import Rules, ShardingCtx
+from ..tally_hooks import span
 from .checkpoint import _flatten, _unflatten
 
 
@@ -399,7 +400,15 @@ class ElasticRuntime:
         ``grad_accum`` k, on its rows [i B/k + d B/(k n), i B/k + (d+1)
         B/(k n)) of each microbatch i, so that microbatch i holds the global
         microbatch's rows, as in JAX) and its positions [r S/m, (r+1) S/m),
-        and a rank that is not bound skips the step (its loss is NaN)."""
+        and a rank that is not bound skips the step (its loss is NaN).
+
+        The step is the span ``train.step`` (its ``step`` the optimizer's
+        step it takes), the batch's copies to the device ``train.upload``."""
+        step = self.opt_state.step + 1 if self.opt_state is not None else None
+        with span("train.step", step=step):
+            return self._step(batch)
+
+    def _step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         dev = self._rank_device()
         reduce = None
         rows = cols = slice(None)
@@ -418,9 +427,10 @@ class ElasticRuntime:
             cols = slice(r * S // m, (r + 1) * S // m)
             reduce = self._mean_over_data
         on_dev = {}
-        for key, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(np.asarray(v)[rows][:, cols]))
-            on_dev[key] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
+        with span("train.upload"):
+            for key, v in batch.items():
+                t = torch.from_numpy(np.ascontiguousarray(np.asarray(v)[rows][:, cols]))
+                on_dev[key] = t.to(dev) if t.is_floating_point() else t.to(dev, torch.long)
         self.opt_state, metrics = self._train_step(self.opt_state, on_dev, reduce=reduce)
         return metrics
 
