@@ -43,7 +43,12 @@ Phases, each printing JSON lines:
    tolerance, over 9 draws each; the full scan ``ssd_scan_op`` against
    the sequential recurrence with an initial state and a ragged length,
    and the kernels' and the plain version's device times beside the bound
-   at the mamba2 and zamba2 shapes.
+   at the mamba2 and zamba2 shapes. Then conv_kernels: the causal conv's
+   forward and backward kernels against their plain pair at mamba2-2.7b's
+   two cells' shapes and the model axis rank's (with a halo) through the
+   model's strided view, two backward calls bit for bit, device times
+   beside the plain pair's, the library's (``F.conv1d(groups=c)`` and
+   ``F.silu``) and the bound.
 7. serve_ssm: ``run_serving`` for mamba2-2.7b (64 Mamba2 blocks, d_model
    2560, 80 SSD heads of 64, state 128) and zamba2-2.7b (54 blocks and 9
    applications of the shared attention + MLP block) at full width, each
@@ -684,12 +689,14 @@ def expected_launches(cfg, gen: int) -> dict:
     """Launches of one serving run: prefill attention per attention block
     (every layer of a dense or MoE model, each application of a hybrid's
     shared block), decode attention per attention block and step, one SSD chunk
-    launch per Mamba2 block."""
+    and one causal conv launch per Mamba2 block (decode's conv is a step of
+    the recurrence, no kernel)."""
     attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
             "audio": cfg.n_layers, "ssm": 0,
             "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
     ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    return {"flash_attention": attn, "flash_decode": attn * (gen - 1), "ssd_chunk": ssd}
+    return {"flash_attention": attn, "flash_decode": attn * (gen - 1), "ssd_chunk": ssd,
+            "causal_conv": ssd}
 
 
 def full_config(arch: str):
@@ -1103,6 +1110,113 @@ def ssd_timing(x, dt, A, B, C, Q):
                library_ms=None, bound_ms=bound, bound_by=by)
     return row, dict(bound_ms_pr13=ssd_bound_pr13(b, s, H, P, G, N, Q), gflop=gflop,
                      mbytes=mbytes, tflops=gflop / ms)
+
+
+# ---------------------------------------------------------------------- #
+# Mamba2's causal conv: causal_conv / causal_conv_bwd against the plain pair
+# ---------------------------------------------------------------------- #
+# mamba2-2.7b's conv as its two cells run it: [b, s, c = d_inner + 2 G N]
+# read through the xBC view of the [b, s, 2 d_inner + 2 G N + H] projection
+# (b, s, d_inner, 2 G N, H, halo): mamba2-2.7b's two cells, and the model
+# axis rank's block of a sequence split over two ranks (``train mamba2-2.7b
+# model axis rank``), whose conv reads the previous rank's last K - 1
+# positions as a halo
+CONV_SHAPES = {"train": (2, 4096, 5120, 256, 80, False),
+               "prefill": (4, 2048, 5120, 256, 80, False),
+               "model_axis": (2, 512, 5120, 256, 80, True)}
+CONV_INSTANTIATIONS = 10    # fwd and bwd x {bf16, fp32} x {vector, scalar}; reduce x 2
+CONV_TOL = 2e-2             # of y's largest |value|: the plain version rounds each tap in bf16
+
+
+def conv_bound(b, s, c, itemsize, backward: bool):
+    """(ms, mbytes): u read and y written once; the backward reads u and
+    gy and writes gu, gw and gb."""
+    nbytes = itemsize * (b * s * c * (3 if backward else 2) + (5 * c if backward else 0))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes / 1e6
+
+
+def phase_conv_kernels(dev) -> dict:
+    """``causal_conv`` and ``causal_conv_bwd`` at ``CONV_SHAPES`` in bf16,
+    through the model's strided view (with a halo, the previous rank's last
+    K - 1 rows of its view, as ``halo_prev`` hands them over): y and every
+    gradient (the halo's too) against the plain pair and against the
+    library (``F.conv1d(groups=c)`` and ``F.silu``, which the port never
+    calls); device ms (each kernel's), the plain version's and the
+    library's, and the parent's path (autograd of the plain forward) for
+    the backward, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.causal_conv import (causal_conv, causal_conv_bwd,
+                                                 ref_causal_conv, ref_causal_conv_bwd)
+
+    def library(u, w, bias, halo=None):
+        s, k = u.shape[1], w.shape[0]
+        x = u if halo is None else torch.cat([halo, u], dim=1)
+        y = F.conv1d(x.transpose(1, 2), w.t().unsqueeze(1), bias, padding=k - 1,
+                     groups=u.shape[2])
+        start = 0 if halo is None else k - 1
+        return F.silu(y[..., start:start + s]).transpose(1, 2)
+
+    def backward_of(fn, gy, *args):
+        leaves = [t.detach().requires_grad_() for t in args if t is not None]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True)
+
+    rows = {"causal_conv": {}, "causal_conv_bwd": {}}
+    for name, (b, s, di, gn, H, with_halo) in CONV_SHAPES.items():
+        c = di + gn
+        g = torch.Generator(device=dev).manual_seed(7)
+        proj = torch.randn(b, s, 2 * di + gn + H, device=dev, generator=g).bfloat16()
+        u = proj[..., di:di + c]
+        w = (torch.rand(4, c, device=dev, generator=g) - 0.5).bfloat16()
+        bias = (torch.rand(c, device=dev, generator=g) - 0.5).bfloat16()
+        gy = torch.randn(b, s, c, device=dev, generator=g).bfloat16()
+        halo = None
+        if with_halo:
+            prev = torch.randn(b, s, 2 * di + gn + H, device=dev, generator=g).bfloat16()
+            halo = prev[:, -3:, di:di + c].contiguous()
+        args = (u, w, bias, halo)
+        y, ref, lib = causal_conv(*args), ref_causal_conv(*args), library(*args)
+        scale = ref.float().abs().max().item()
+        err, lib_err = [(y.float() - t.float()).abs().max().item() for t in (ref, lib)]
+        check(err <= CONV_TOL * scale, f"causal_conv {name}: {err} > {CONV_TOL} * {scale}")
+        grads = causal_conv_bwd(*args, gy)
+        want = ref_causal_conv_bwd(*args, gy)
+        auto = backward_of(ref_causal_conv, gy, *args)()
+        gnames = ("gu", "gw", "gb") + (("ghalo",) if with_halo else ())
+        check((grads[3] is None) == (not with_halo), f"causal_conv_bwd {name}: ghalo")
+        shares = {}
+        for gname, got, wnt, ag in zip(gnames, grads, want, auto):
+            top = wnt.float().abs().max().item()
+            shares[gname] = [(got.float() - t.float()).abs().max().item() / top for t in (wnt, ag)]
+            check(shares[gname][0] <= 2.0 ** -7, f"causal_conv_bwd {name} {gname}: {shares}")
+        fwd_ms = device_ms(lambda: causal_conv(*args), iters=50)
+        bwd_call = lambda: causal_conv_bwd(*args, gy)   # noqa: E731
+        _, krows, _ = profiled(lambda: [bwd_call() for _ in range(20)])
+        per_kernel = {k: sum(ms for ms, _, key in krows if k in key) / 20
+                      for k in ("causal_conv_bwd_kernel", "causal_conv_reduce_kernel")}
+        fb, fmb = conv_bound(b, s, c, 2, False)
+        bb, bmb = conv_bound(b, s, c, 2, True)
+        rows["causal_conv"][name] = dict(
+            shape=[b, s, c], halo=with_halo, ms=fwd_ms,
+            event_ms=time_ms(lambda: causal_conv(*args)),
+            bound_ms=fb, bound_by="bytes", mbytes=fmb,
+            plain_ms=device_ms(lambda: ref_causal_conv(*args), iters=10),
+            library_ms=device_ms(lambda: library(*args), iters=10),
+            max_abs_err=err, tol=CONV_TOL * scale, library_err=lib_err)
+        rows["causal_conv_bwd"][name] = dict(
+            shape=[b, s, c], halo=with_halo, ms=device_ms(bwd_call, iters=20),
+            kernel_ms=per_kernel, bound_ms=bb, bound_by="bytes", mbytes=bmb,
+            plain_ms=device_ms(lambda: ref_causal_conv_bwd(*args, gy), iters=5),
+            autograd_ms=device_ms(backward_of(ref_causal_conv, gy, *args), iters=5),
+            library_ms=device_ms(backward_of(library, gy, *args), iters=5),
+            err_share=shares, tol_share=2.0 ** -7)
+        again = causal_conv_bwd(*args, gy)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again) if a is not None),
+              f"causal_conv_bwd {name}: two calls differ")
+        emit("conv_kernels", case=name, fwd=rows["causal_conv"][name],
+             bwd=rows["causal_conv_bwd"][name])
+    return rows
 
 
 # ---------------------------------------------------------------------- #
@@ -1677,12 +1791,15 @@ def device_batch(batch: dict, dev) -> dict:
 def per_step_launches(cfg) -> dict:
     """Kernel launches of one training step: each forward kernel once a
     block and once more under remat, each backward kernel once a block
-    (attention per attention block, the SSD chunk per Mamba2 block)."""
+    (attention per attention block, the SSD chunk and the causal conv per
+    Mamba2 block)."""
     blocks = expected_launches(cfg, 1)
     fwd = 2 if cfg.remat else 1
     return {"flash_attention": fwd * blocks["flash_attention"],
             "flash_attention_bwd": blocks["flash_attention"],
-            "ssd_chunk": fwd * blocks["ssd_chunk"], "ssd_chunk_bwd": blocks["ssd_chunk"]}
+            "ssd_chunk": fwd * blocks["ssd_chunk"], "ssd_chunk_bwd": blocks["ssd_chunk"],
+            "causal_conv": fwd * blocks["causal_conv"],
+            "causal_conv_bwd": blocks["causal_conv"]}
 
 
 def phase_train_consistency(dev, arch: str = ARCH) -> None:
@@ -3397,7 +3514,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention", "feasibility", "ssd_chunk"])
+    libs = build.build(["flash_attention", "feasibility", "ssd_chunk", "causal_conv"])
     build_s = time.perf_counter() - t0
     ptxas = []
     for path in libs.values():
@@ -3419,6 +3536,12 @@ def main() -> int:
     check(len(ssd) == len(SSD_KERNELS), f"ptxas reports {len(ssd)} SSD kernels")
     spilled = [r for r in ssd if r.get("spill_stores") or r.get("spill_loads")]
     check(not spilled, f"SSD kernels spill: {spilled}")
+    conv = [r for r in ptxas if "causal_conv_" in r["kernel"]]
+    emit("env", conv_ptxas=conv)
+    check(len(conv) == CONV_INSTANTIATIONS,
+          f"ptxas reports {len(conv)} conv instantiations, not {CONV_INSTANTIATIONS}")
+    spilled = [r for r in conv if r.get("spill_stores") or r.get("spill_loads")]
+    check(not spilled, f"conv kernels spill: {spilled}")
     feas = [r for r in ptxas if "feasible_kernel" in r["kernel"]]
     emit("env", feasibility_ptxas=feas)
     check(len(feas) == FEASIBILITY_INSTANTIATIONS,
@@ -3448,6 +3571,8 @@ def drive(dev, smi: str, ptxas: list) -> None:
     torch.cuda.empty_cache()
 
     timed["ssd_chunk"] = phase_ssm_kernels(dev)
+    torch.cuda.empty_cache()
+    timed.update(phase_conv_kernels(dev))
     torch.cuda.empty_cache()
     for arch, gen in SSM_GEN.items():
         paths[f"serve {arch}"] = phase_serve(dev, arch, SERVE["batch"], SERVE["prompt_len"],
@@ -3538,7 +3663,10 @@ def drive(dev, smi: str, ptxas: list) -> None:
             "feasibility": ("feasibility.cu", "src/repro/kernels/feasibility.py:93"),
             "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_scan.py:71"),
             # no Pallas backward: JAX differentiates the jnp ssd_chunked with XLA
-            "ssd_chunk_bwd": ("ssd_chunk.cu", "src/repro/models/mamba2.py:192")}
+            "ssd_chunk_bwd": ("ssd_chunk.cu", "src/repro/models/mamba2.py:192"),
+            # no Pallas kernel: JAX's conv is plain jnp, which XLA fuses
+            "causal_conv": ("causal_conv.cu", "src/repro/models/mamba2.py:61"),
+            "causal_conv_bwd": ("causal_conv.cu", "src/repro/models/mamba2.py:61")}
     table = []
     for name, (src, replaces) in rows.items():
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}

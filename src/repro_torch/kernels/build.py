@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0, "flash_decode": 0,
-                             "feasibility": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}
+                             "feasibility": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+                             "causal_conv": 0, "causal_conv_bwd": 0}
 
 
 def reset_launches() -> None:

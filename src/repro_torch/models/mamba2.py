@@ -45,6 +45,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.causal_conv import CausalConv
 from ..kernels.ops import ssd_scan_op
 from ..parallel.sharding import (SeqShards, gather_seq, halo_prev, heads_to_seq, seq_to_heads,
                                  sum_over_model)
@@ -74,20 +75,19 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
-    di, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    return zxbcdt.split([di, di, G * N, G * N, cfg.ssm_heads], dim=-1)
+    """z, xBC (x, B and C side by side: the conv's input) and dt, views of
+    the input projection's columns."""
+    di, GN = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    return zxbcdt.split([di, di + 2 * GN, cfg.ssm_heads], dim=-1)
 
 
 def _conv1d(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             halo: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Depthwise causal conv over seq: u [b, s, c], w [K, c]; ``halo`` [b,
-    K-1, c], the positions before u's first (zeros where None)."""
-    K, s = w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, K - 1, 0)) if halo is None else torch.cat([halo, u], dim=1)
-    out = torch.zeros_like(u)
-    for i in range(K):
-        out = out + pad[:, i:i + s, :] * w[i]
-    return F.silu(out + bias)
+    """Depthwise causal conv over seq and its SiLU: u [b, s, c] (a strided
+    view), w [K, c]; ``halo`` [b, K-1, c], the positions before u's first
+    (zeros where None). The ``causal_conv`` kernels on the card, their
+    plain pair on the CPU (``kernels/causal_conv.py``)."""
+    return CausalConv.apply(u, w, bias, halo)
 
 
 def _dt_a_d(dt: torch.Tensor, p: Dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -187,14 +187,13 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     with span("mamba2.in_proj"):
         xn = rmsnorm(x, p["norm"], cfg.norm_eps)
         zxbcdt = xn @ p["in_proj"].to(cdt)
-        z, xin, B, C, dt = _split_proj(zxbcdt, cfg)
-        conv_in = torch.cat([xin, B, C], dim=-1)
+        z, xBC, dt = _split_proj(zxbcdt, cfg)
 
     new_state = None
     if state is None and sp is not None:
         with span("mamba2.conv"):
-            conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
-                           halo_prev(conv_in, CONV_K - 1, sp))
+            conv = _conv1d(xBC, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
+                           halo_prev(xBC, CONV_K - 1, sp))
         back = cfg.ssm_seq_sharded
         with span("mamba2.scan"):
             dtp, A, D = _dt_a_d(dt, p)
@@ -205,7 +204,7 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
                 # the conv state is the sequence's last K - 1 positions (the last
                 # rank's), whole on every rank; the SSM state the rank's heads'
                 y, final = y
-                tail = gather_seq(conv_in[:, -(CONV_K - 1):], 1, sp)[:, -(CONV_K - 1):]
+                tail = gather_seq(xBC[:, -(CONV_K - 1):], 1, sp)[:, -(CONV_K - 1):]
                 new_state = {"conv": tail.float(), "ssm": final.float()}
             if back:
                 y = y.reshape(b, s, cfg.d_inner).to(cdt)
@@ -216,7 +215,7 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
                 return _heads_out(y, zh.reshape(y.shape), p, cfg, sp, 1), new_state
     elif state is None:
         with span("mamba2.conv"):
-            conv = _conv1d(conv_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+            conv = _conv1d(xBC, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
         with span("mamba2.scan"):
             dtp, A, D = _dt_a_d(dt, p)
             xc, Bc, Cc = _split_conv(conv, cfg)
@@ -226,7 +225,7 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
                               return_state=want_state)
             if want_state:
                 y, final = out
-                new_state = {"conv": conv_in[:, -(CONV_K - 1):, :].float(),
+                new_state = {"conv": xBC[:, -(CONV_K - 1):, :].float(),
                              "ssm": final.float()}
             else:
                 y = out
@@ -235,7 +234,7 @@ def mamba_layer(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     else:
         # recurrent decode: roll the conv window (in the compute dtype), one SSM step
         with span("mamba2.conv"):
-            window = torch.cat([state["conv"].to(cdt), conv_in], dim=1)    # [b, K, conv_dim]
+            window = torch.cat([state["conv"].to(cdt), xBC], dim=1)        # [b, K, conv_dim]
             conv = _conv_step(window, p["conv_w"].to(cdt), p["conv_b"].to(cdt))[:, None, :]
         with span("mamba2.scan"):
             dtp, A, D = _dt_a_d(dt, p)

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, feasibility
+from repro_torch.kernels.causal_conv import (causal_conv, causal_conv_bwd, ref_causal_conv,
+                                             ref_causal_conv_bwd)
 from repro_torch.kernels.feasibility import feasible_mask
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                  flash_decode)
@@ -693,6 +695,151 @@ def test_ssm_models_go_through_kernels(arch, cuda):
     assert LAUNCHES["flash_decode"] == before["flash_decode"] + 2 * shared
     for a, b in zip(*outs):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# Mamba2's causal conv: causal_conv / causal_conv_bwd against the plain pair
+# ---------------------------------------------------------------------- #
+# u as the model feeds it: "split", the xBC view of a [b, s, 2 c - 256 + 80]
+# projection (mamba2-2.7b's [z, xBC, dt] at c = 5376, z at least 8 wide;
+# 16-byte rows, the vector variant); "contiguous"; "offset", a view one
+# element into its rows (the scalar variant, as a ragged c is)
+CONV_CASES = [
+    (2, 4096, 5376, "split", False),     # mamba2-2.7b training
+    (4, 2048, 5376, "split", False),     # mamba2-2.7b prefill
+    (2, 1000, 5376, "split", True),      # a halo; s not a multiple of the kernel's run of 64
+    (2, 300, 1030, "contiguous", True),  # ragged c: the scalar variant
+    (3, 130, 40, "offset", False),       # misaligned rows: the scalar variant
+    (1, 3, 24, "split", True),           # s < K
+]
+# one rounding of each dtype
+CONV_EPS = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -9}
+
+
+def _conv_inputs(b, s, c, layout, halo, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if layout == "split":
+        z = max(c - 256, 8)
+        u = torch.randn(b, s, z + c + 80, device=dev, generator=g).to(dt)[..., z:z + c]
+    elif layout == "offset":
+        u = torch.randn(b, s, c + 1, device=dev, generator=g).to(dt)[..., 1:]
+    else:
+        u = torch.randn(b, s, c, device=dev, generator=g).to(dt)
+    w = (torch.rand(4, c, device=dev, generator=g) - 0.5).to(dt)
+    bias = (torch.rand(c, device=dev, generator=g) - 0.5).to(dt)
+    h = torch.randn(b, 3, c, device=dev, generator=g).to(dt) if halo else None
+    gy = torch.randn(b, s, c, device=dev, generator=g).to(dt)
+    return u, w, bias, h, gy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,layout,halo", CONV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_kernels_vs_plain(b, s, c, layout, halo, dtype, cuda):
+    """The forward against ``ref_causal_conv``: the kernel sums the taps in
+    fp32 and rounds once, the plain version rounds each of its K products
+    and K + 1 sums in the input dtype, so they differ by up to (2K + 1)
+    roundings of the taps' magnitude sum_i |w_i u| + |bias| (times SiLU's
+    slope, at most 1.1) plus one rounding of y on each side. The backward
+    against ``ref_causal_conv_bwd``, which takes the kernel's arithmetic in
+    fp32 in another order: each gradient within 2^-7 (bf16: both round the
+    fp32 result once) or 1e-5 (fp32: sums of up to b s terms) of its
+    largest |value|."""
+    u, w, bias, h, gy = _conv_inputs(b, s, c, layout, halo, dtype, cuda)
+    n = dict(LAUNCHES)
+    y = causal_conv(u, w, bias, h)
+    grads = causal_conv_bwd(u, w, bias, h, gy)
+    torch.cuda.synchronize()
+    assert LAUNCHES["causal_conv"] == n["causal_conv"] + 1
+    assert LAUNCHES["causal_conv_bwd"] == n["causal_conv_bwd"] + 1
+    assert y.shape == u.shape and y.dtype == u.dtype and y.is_contiguous()
+    ref = ref_causal_conv(u, w, bias, h)
+    # the taps' magnitude |bias| + sum_i |w_i| |u[t - K + 1 + i]|
+    pad = torch.cat([torch.zeros_like(u[:, :3]) if h is None else h, u], dim=1).float().abs()
+    mag = bias.float().abs() + sum(pad[:, i:i + s] * w[i].float().abs() for i in range(4))
+    eps = CONV_EPS[dtype]
+    tol = 9 * 1.1 * eps * mag + 2 * eps * ref.float().abs()
+    assert ((y.float() - ref.float()).abs() <= tol).all()
+    want = ref_causal_conv_bwd(u, w, bias, h, gy)
+    rel = {"float32": 1e-5, "bfloat16": 2.0 ** -7}[dtype]
+    for name, got, wnt, x in zip(("gu", "gw", "gb", "ghalo"), grads, want, (u, w, bias, h)):
+        if x is None:
+            assert got is None and wnt is None
+            continue
+        assert got.shape == x.shape and got.dtype == x.dtype and got.is_contiguous(), name
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - wnt.float()).abs().max().item()
+        assert err <= rel * wnt.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [False, True])
+def test_causal_conv_bwd_is_deterministic(halo, cuda):
+    """Two backward calls agree bit for bit: the taps' and the bias's
+    partials are summed in a fixed order, with no atomics."""
+    args = _conv_inputs(2, 4096, 5376, "split", halo, "bfloat16", cuda, seed=3)
+    first = causal_conv_bwd(*args)
+    second = causal_conv_bwd(*args)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(65536, 1), (1, 65535 * 64 + 1)])
+def test_causal_conv_refuses_a_grid_too_large(b, s, cuda):
+    """The C entry points refuse, launching nothing, where b or the runs of
+    s exceed a grid axis's 65535 blocks (the forward's runs of 64 positions
+    are the shorter, so only it refuses the long s)."""
+    u = torch.zeros(b, s, 4, device=cuda)
+    w, bias = torch.zeros(4, 4, device=cuda), torch.zeros(4, device=cuda)
+    n = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        causal_conv(u, w, bias)
+    if b > 65535:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            causal_conv_bwd(u, w, bias, None, u)
+    torch.cuda.synchronize()
+    assert LAUNCHES["causal_conv"] == n["causal_conv"]
+    assert LAUNCHES["causal_conv_bwd"] == n["causal_conv_bwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_mamba_layer_runs_the_conv_kernels(remat, cuda):
+    """One ``mamba_layer`` forward and backward on the card launches the
+    conv's forward once (twice under remat: the recompute) and its
+    backward once; the output and gradients agree with the CPU's, whose
+    conv is the plain pair."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as tm
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    rng = np.random.default_rng(4)
+    params = {k: torch.from_numpy((rng.standard_normal(s.shape) * 0.2).astype(np.float32))
+              for k, s in tm.mamba_specs(cfg).items()}
+    params["D"] += 1.0
+    x = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev, copy=True).requires_grad_() for k, v in params.items()}
+        xd = x.to(dev, copy=True).requires_grad_()
+
+        def body(t):
+            return tm.mamba_layer(t, p, cfg)[0]
+        n = dict(LAUNCHES)
+        y = checkpoint(body, xd, use_reentrant=False) if remat else body(xd)
+        y.square().sum().backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert LAUNCHES["causal_conv"] == n["causal_conv"] + (2 if remat else 1)
+            assert LAUNCHES["causal_conv_bwd"] == n["causal_conv_bwd"] + 1
+        outs.append([y.detach().cpu(), xd.grad.cpu()] + [p[k].grad.cpu()
+                                                        for k in ("conv_w", "conv_b", "in_proj")])
+    for a, b in zip(*outs):
+        assert (b - a).abs().max().item() <= 1e-4 * a.abs().max().item()
 
 
 # ---------------------------------------------------------------------- #

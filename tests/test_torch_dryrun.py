@@ -193,7 +193,7 @@ for name, (arch, mode, patch) in {FLOP_CELLS!r}.items():
 # a view of a [b, s, h, d] buffer, the others contiguous
 LAYOUT_TWIN = """
 import json, sys
-from repro_torch.kernels import ops, ref, flash_attention as fa, ssd_scan as ss
+from repro_torch.kernels import ops, ref, causal_conv as cc, flash_attention as fa, ssd_scan as ss
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.tally_hooks import counts_as
 arch, shape = sys.argv[1:3]
@@ -226,7 +226,10 @@ fa.flash_decode = ops.flash_decode = counts_as(ref.ref_decode)(
 ss.ssd_chunk = counts_as(ref.ref_ssd_chunk)(lambda *a, **kw: dense(ref.ref_ssd_chunk(*a, **kw)))
 ss.ssd_chunk_bwd = counts_as(ref.ref_ssd_chunk_bwd)(
     lambda *a, **kw: dense(ref.ref_ssd_chunk_bwd(*a, **kw)))
-ops._on_cuda = fa._on_card = ss._on_card = lambda t: True
+cc.causal_conv = counts_as(cc.ref_causal_conv)(lambda *a: cc.ref_causal_conv(*a).contiguous())
+cc.causal_conv_bwd = counts_as(cc.ref_causal_conv_bwd)(
+    lambda *a: tuple(t if t is None else t.contiguous() for t in cc.ref_causal_conv_bwd(*a)))
+ops._on_cuda = fa._on_card = ss._on_card = cc._on_card = lambda t: True
 print(json.dumps([plain, run(), drawn]))
 """
 TALLY_KEYS = ("ok", "dot_flops_per_device", "collectives", "collective_counts",
